@@ -43,3 +43,9 @@ def rng():
 @pytest.fixture
 def key():
     return jax.random.PRNGKey(23)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; run with `python -m pytest -m gpu tests/test_torch_port_gpu.py`"
+    )
