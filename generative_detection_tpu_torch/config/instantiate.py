@@ -26,13 +26,20 @@ for _prefix in (
     for _cls in ("PoseDecoderSpatialVAE", "PoseEncoderSpatialVAE"):
         TARGET_ALIASES[f"{_prefix}.{_cls}"] = f"{_PKG}.models.pose_modules.{_cls}"
 
+for _prefix in (
+    "src.modules.losses",
+    "src.modules.losses.contperceptual",
+    "generative_detection_tpu.losses.contperceptual",
+):
+    TARGET_ALIASES[f"{_prefix}.PoseLoss"] = f"{_PKG}.losses.contperceptual.PoseLoss"
+
 # Target prefixes of the JAX package and the reference that later slices
 # port, with the slice that brings them.
 NOT_PORTED: dict[str, str] = {
     "src.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
     "generative_detection_tpu.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
-    "src.modules.losses": "the loss slice",
-    "generative_detection_tpu.losses": "the loss slice",
+    "src.modules.losses": "the plain-autoencoder slice",
+    "generative_detection_tpu.losses": "the plain-autoencoder slice",
     "src.data": "the data slice",
     "generative_detection_tpu.data": "the data slice",
     "src.util.callbacks": "the trainer slice",

@@ -4,23 +4,28 @@
   layout (NHWC tensors in and out); inside, the conv stack runs in
   ``torch.channels_last``. Flatten/reshape between the pose MLPs and the
   feature maps goes through NCHW order (torch ``.view``), as in the JAX
-  package, so checkpoints carry over unchanged. The training ``forward``
-  (dropout schedule, z-noise, phase gate) comes with the training slice.
+  package, so checkpoints carry over unchanged. ``forward`` is the training
+  pass: posterior sample, the staged z-dropout schedule, z-noise, pose
+  decode, and the phase-gated reconstruction. Its four random draws come
+  from a ``torch.Generator`` or are handed in as tensors.
 - ``PoseAutoencoder``: the config-facing wrapper with the keyword surface of
-  the reference YAML ``model.params``. It holds the configuration and builds
-  nets; it does not build the loss yet.
+  the reference YAML ``model.params``. It holds the configuration, builds
+  nets and the ``PoseLoss``, and prepares batches.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import instantiate_from_config
 from ..utils.distributions import DiagonalGaussianDistribution
 from .blocks import Decoder, Encoder, _nchw, _nhwc, flax_like_init_
+from .discriminator import init_discriminator_
+from .lpips import load_lpips_weights
 from .pose_modules import PoseDecoderSpatialVAE, PoseEncoderSpatialVAE
 
 POSE_6D_DIM = 4
@@ -51,10 +56,23 @@ class PoseAutoencoderNet(nn.Module):
         pose_decoder_config: Optional[Dict[str, Any]] = None,
         pose_encoder_config: Optional[Dict[str, Any]] = None,
         num_classes: int = 11,
+        dropout_prob_init: float = 1.0,
+        dropout_prob_final: float = 0.7,
+        dropout_warmup_steps: int = 5000,
+        pose_conditioned_generation_steps: int = 10000,
+        encoder_pretrain_steps: int = 0,
+        add_noise_to_z_obj: bool = True,
     ):
         super().__init__()
         self.feat_dims = tuple(feat_dims)
         self.num_classes = num_classes
+        self.ch = ddconfig["ch"]
+        self.dropout_prob_init = dropout_prob_init
+        self.dropout_prob_final = dropout_prob_final
+        self.dropout_warmup_steps = dropout_warmup_steps
+        self.pose_conditioned_generation_steps = pose_conditioned_generation_steps
+        self.encoder_pretrain_steps = encoder_pretrain_steps
+        self.add_noise_to_z_obj = add_noise_to_z_obj
         self.encoder = Encoder(ddconfig)
         self.decoder = Decoder(ddconfig)
         zc = ddconfig["z_channels"]
@@ -98,13 +116,14 @@ class PoseAutoencoderNet(nn.Module):
         pose_feat: torch.Tensor,
         sample_posterior: bool = False,
         generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
     ):
         """NHWC pose feature -> (dec_pose (B, 8 + num_classes), bbox posterior).
         The flatten order is NCHW, as torch's ``.view(B, -1)``."""
         flat = _nchw(pose_feat).reshape(pose_feat.shape[0], -1)
         bbox_posterior, c_pred = self._decode_pose_to_distribution(self.pose_decoder(flat))
         if sample_posterior:
-            bbox_pred = bbox_posterior.sample(generator)
+            bbox_pred = bbox_posterior.sample(generator, noise)
         else:
             bbox_pred = bbox_posterior.mode()
         return torch.cat([bbox_pred, c_pred], dim=-1), bbox_posterior
@@ -113,6 +132,86 @@ class PoseAutoencoderNet(nn.Module):
         """(B, 8 + num_classes) pose -> (B, H, W, C) NHWC pose feature map."""
         c, h, w = self.feat_dims
         return _nhwc(self.pose_encoder(dec_pose).reshape(-1, c, h, w))
+
+    def dropout_prob(self, global_step: int) -> float:
+        """The staged z-dropout probability (``autoencoder.py:171-184`` of the
+        JAX package): ``dropout_prob_init`` through pretraining and the
+        pose-conditioned phase, then a linear ramp to ``dropout_prob_final``
+        over ``dropout_warmup_steps``."""
+        p_init, p_final = self.dropout_prob_init, self.dropout_prob_final
+        start = self.encoder_pretrain_steps + self.pose_conditioned_generation_steps
+        warmup = max(self.dropout_warmup_steps, 1)
+        if global_step < start:
+            p = p_init
+        elif global_step < start + warmup:
+            p = p_init - (p_init - p_final) * (global_step - self.encoder_pretrain_steps) / warmup
+        else:
+            p = p_final
+        return min(max(p, 0.0), 1.0)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        global_step: int,
+        sample_posterior: bool = True,
+        phase: str = "auto",
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> Dict[str, Any]:
+        """The training pass (``autoencoder.py:186-244`` of the JAX package)
+        on NHWC patches ``x``.
+
+        phase: 'auto' decodes and zeroes the reconstruction while
+        ``global_step < encoder_pretrain_steps``; 'pretrain' skips the decoder;
+        'full' always decodes. The four random draws, in the JAX package's
+        order, are 'posterior' (normal, like the object posterior), 'dropout'
+        (uniform), 'noise' (normal) and 'bbox' (normal, (B, 8)): each is taken
+        from ``draws`` when given there, else drawn from ``generator``.
+        Returns dec_obj (B, H, W, 3) float32, dec_pose, posterior_obj,
+        bbox_posterior, pre_out (NHWC, the input of the decoder's
+        ``conv_out``) and dropout_prob."""
+        draws = dict(draws or {})
+
+        def draw(name, shape, like, uniform=False):
+            t = draws.get(name)
+            if t is None:
+                fn = torch.rand if uniform else torch.randn
+                t = fn(shape, generator=generator, device=like.device)
+            return t.to(device=like.device, dtype=like.dtype)
+
+        posterior_obj, pose_feat = self.encode(x)
+        z_obj = posterior_obj.mean
+        if sample_posterior:
+            z_obj = posterior_obj.sample(noise=draw("posterior", z_obj.shape, z_obj))
+        p = self.dropout_prob(global_step)
+        # nn.Dropout with the scheduled p: zero w.p. p, kept values scaled by
+        # 1/(1-p); all zero at p = 1 without inf * 0
+        keep = (draw("dropout", z_obj.shape, z_obj, uniform=True) >= p).to(z_obj.dtype)
+        z_obj = z_obj * keep / max(1.0 - p, 1e-6)
+        if self.add_noise_to_z_obj:
+            z_obj = z_obj + draw("noise", z_obj.shape, z_obj)
+        bbox_noise = None
+        if sample_posterior:
+            bbox_noise = draw("bbox", (x.shape[0], POSE_6D_DIM + LHW_DIM + FILL_FACTOR_DIM),
+                              torch.empty((), dtype=torch.float32, device=x.device))
+        dec_pose, bbox_posterior = self._decode_pose(pose_feat, sample_posterior, noise=bbox_noise)
+
+        if phase == "pretrain":
+            dec_obj = torch.zeros_like(x)
+            pre_out = torch.zeros(x.shape[:3] + (self.ch,), dtype=x.dtype, device=x.device)
+        else:
+            dec_obj, pre_out = self.decode(z_obj + self._encode_pose(dec_pose),
+                                           return_pre_out=True)
+            if phase == "auto" and global_step < self.encoder_pretrain_steps:
+                dec_obj = torch.zeros_like(dec_obj)
+        return {
+            "dec_obj": dec_obj,
+            "dec_pose": dec_pose,
+            "posterior_obj": posterior_obj,
+            "bbox_posterior": bbox_posterior,
+            "pre_out": pre_out,
+            "dropout_prob": p,
+        }
 
 
 class PoseAutoencoder:
@@ -177,9 +276,22 @@ class PoseAutoencoder:
         self.pose_conditioned_generation_steps = pose_conditioned_generation_steps
         self.add_noise_to_z_obj = add_noise_to_z_obj
         self.compute_dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+        self.lpips_weights_path = lpips_weights_path
         loss_params = dict(lossconfig.get("params") or {})
         self.encoder_pretrain_steps = loss_params.get("encoder_pretrain_steps", 0)
         self.num_classes = loss_params.get("num_classes", 11)
+        # the PoseLoss keywords, as ``autoencoder.py:419-434`` of the JAX
+        # package builds them (train_on_yaw injected, priors read once here);
+        # imported here because the losses package imports this one
+        from ..losses.contperceptual import build_prior_tables
+
+        prior_means, prior_logvars = build_prior_tables(
+            loss_params.pop("dataset_stats_path", None), train_on_yaw
+        )
+        self.loss_kwargs = dict(
+            loss_params, train_on_yaw=train_on_yaw, prior_means=prior_means,
+            prior_logvars=prior_logvars,
+        )
 
     def build_net(self) -> PoseAutoencoderNet:
         """A float32 network on the CPU with PyTorch's default init (for
@@ -191,7 +303,81 @@ class PoseAutoencoder:
             pose_decoder_config=self.pose_decoder_config,
             pose_encoder_config=self.pose_encoder_config,
             num_classes=self.num_classes,
+            dropout_prob_init=self.dropout_prob_init,
+            dropout_prob_final=self.dropout_prob_final,
+            dropout_warmup_steps=self.dropout_warmup_steps,
+            pose_conditioned_generation_steps=self.pose_conditioned_generation_steps,
+            encoder_pretrain_steps=self.encoder_pretrain_steps,
+            add_noise_to_z_obj=self.add_noise_to_z_obj,
         )
+
+    def build_loss(self):
+        """A float32 ``PoseLoss`` on the CPU with PyTorch's default init (for
+        loading a state_dict into)."""
+        from ..losses.contperceptual import PoseLoss
+
+        return PoseLoss(**self.loss_kwargs)
+
+    def init_loss(self, generator: Optional[torch.Generator] = None, device="cuda"):
+        """A seeded ``PoseLoss`` in float32 on ``device``: LPIPS flax-like
+        (the JAX package's seeded random default) or from
+        ``lpips_weights_path``, the discriminator with taming's init."""
+        loss = self.build_loss()
+        flax_like_init_(loss.perceptual_loss, generator)
+        init_discriminator_(loss.discriminator, generator)
+        if self.lpips_weights_path:
+            load_lpips_weights(loss.perceptual_loss, self.lpips_weights_path)
+        return loss.to(device=device, memory_format=torch.channels_last)
+
+    def example_batch(self, batch_size: int = 1) -> Dict[str, np.ndarray]:
+        """A host batch of zeros with every key ``prepare_batch`` reads."""
+        h = w = self.input_size
+        return {
+            self.image_rgb_key: np.zeros((batch_size, h, w, 3), np.float32),
+            self.pose_key: np.zeros((batch_size, POSE_6D_DIM), np.float32),
+            "yaw": np.zeros((batch_size,), np.float32),
+            self.class_key: np.zeros((batch_size,), np.int32),
+            "original_class_id": np.zeros((batch_size,), np.int32),
+            self.bbox_key: np.zeros((batch_size, LHW_DIM), np.float32),
+            self.fill_factor_key: np.zeros((batch_size,), np.float32),
+            "mask_2d_bbox": np.ones((batch_size, h, w, 1), np.float32),
+            self.pose_perturbed_key: np.zeros((batch_size, POSE_6D_DIM), np.float32),
+            "yaw_perturbed": np.zeros((batch_size,), np.float32),
+        }
+
+    def prepare_batch(
+        self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
+    ) -> Dict[str, torch.Tensor]:
+        """A host batch of float images -> the loss-ready tensors on
+        ``device`` (``autoencoder.py:521-593`` of the JAX package): the yaw
+        column injected into the pose, NCHW images and masks turned NHWC, and
+        ``rgb_gt`` rescaled to [-1, 1] per shard. Raw uint8 crops
+        (``patch_raw``) need the resize op of the data slice and raise."""
+        if "patch_raw" in batch:
+            raise NotImplementedError("raw-crop batches come with the data slice")
+        b = np.asarray(batch[self.class_key]).shape[0]
+        pose = np.array(batch[self.pose_key], np.float32, copy=True)
+        if self.train_on_yaw:
+            pose[:, 3] = np.asarray(batch["yaw"], np.float32)
+        rgb = np.asarray(batch[self.image_rgb_key], np.float32)
+        if rgb.ndim == 4 and rgb.shape[1] == 3 and rgb.shape[-1] != 3:
+            rgb = np.transpose(rgb, (0, 2, 3, 1))
+        mask = np.asarray(batch["mask_2d_bbox"], np.float32)
+        if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[-1] != 1:
+            mask = np.transpose(mask, (0, 2, 3, 1))
+        host = {
+            "pose_gt": pose,
+            "class_gt": np.asarray(batch[self.class_key], np.int64),
+            "class_orig_id": np.asarray(batch.get("original_class_id", batch[self.class_key]),
+                                        np.int64),
+            "bbox_gt": np.asarray(batch[self.bbox_key], np.float32),
+            "fill_factor_gt": np.asarray(batch[self.fill_factor_key], np.float32),
+            "yaw_perturbed": np.asarray(batch.get("yaw_perturbed", np.zeros(b)), np.float32),
+            "mask_2d_bbox": mask,
+        }
+        out = {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in host.items()}
+        out["rgb_gt"] = rescale_minmax(torch.as_tensor(rgb, device=device), num_shards)
+        return out
 
     def init_net(
         self, generator: Optional[torch.Generator] = None, device="cuda"

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("group_norm", "attention")
+SOURCES = ("group_norm", "group_norm_bwd", "attention", "attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

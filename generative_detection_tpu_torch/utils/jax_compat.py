@@ -10,6 +10,10 @@ key layout that ``PoseAutoencoderNet`` uses:
 - GroupNorm ``scale`` -> ``weight``;
 - ``down_0_block_1`` -> ``down.0.block.1``, ``mid_attn_1`` -> ``mid.attn_1``;
 - the pose MLPs' ``fc_*`` layers -> ``nn.Sequential`` indices.
+
+``loss_state_dict_from_jax`` does the same for ``PoseLoss``: ``logvar``, the
+discriminator's convs and norms at taming's ``main.{idx}`` (flax norm
+``scale`` -> ``weight``), and the LPIPS VGG and heads at taming's names.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..models.lpips import _SCALE, _SHIFT, lpips_state_dict_from_npz
 
 _BACKBONE_RE = [
     (r"^(down|up)_(\d+)_(block|attn)_(\d+)$", r"\1.\2.\3.\4"),
@@ -90,3 +96,25 @@ def state_dict_from_jax(net_params: Mapping) -> Dict[str, torch.Tensor]:
         if top in net_params:
             _export_pose_mlp(net_params[top], top, sd)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+# taming's ``NLayerDiscriminator.main`` indices (n_layers = 3)
+_DISC_IDX = {"conv_0": 0, "conv_1": 2, "bn_1": 3, "conv_2": 5, "bn_2": 6, "conv_3": 8,
+             "bn_3": 9, "conv_out": 11}
+
+
+def loss_state_dict_from_jax(loss_params: Mapping) -> Dict[str, torch.Tensor]:
+    """``PoseLoss`` flax params (nested numpy dicts: ``logvar``,
+    ``discriminator``, ``perceptual``) -> the port's ``PoseLoss`` state_dict."""
+    sd: Dict = {"logvar": np.asarray(loss_params["logvar"]).reshape(())}
+    for name, sub in loss_params["discriminator"].items():
+        _export_leaf(sub, f"discriminator.main.{_DISC_IDX[name]}", sd)
+    out = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    perceptual = loss_params["perceptual"]
+    flat = {f"vgg/{n}/{p}": v for n, leaf in perceptual["vgg"].items() for p, v in leaf.items()}
+    flat.update({f"{n}/kernel": leaf["kernel"] for n, leaf in perceptual.items() if n != "vgg"})
+    for k, v in lpips_state_dict_from_npz(flat).items():
+        out[f"perceptual_loss.{k}"] = v
+    out["perceptual_loss.scaling_layer.shift"] = torch.from_numpy(_SHIFT).reshape(1, 3, 1, 1)
+    out["perceptual_loss.scaling_layer.scale"] = torch.from_numpy(_SCALE).reshape(1, 3, 1, 1)
+    return out

@@ -21,6 +21,7 @@ from generative_detection_tpu.ops.attention import _mha_fwd_call
 from generative_detection_tpu.ops.norm import _gn_pallas
 from generative_detection_tpu.ops.norm import _gn_reference as jax_gn
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
+from generative_detection_tpu_torch.losses import PoseLoss
 from generative_detection_tpu_torch.models import PoseAutoencoder
 from generative_detection_tpu_torch.ops import group_norm, single_head_attention
 from generative_detection_tpu_torch.ops.norm import _gn_reference
@@ -140,8 +141,8 @@ def test_pose_configs_build_port_objects(name):
 @pytest.mark.parametrize(
     "target",
     [
-        "src.modules.losses.PoseLoss",
-        "generative_detection_tpu.losses.contperceptual.PoseLoss",
+        "src.modules.losses.LPIPSWithDiscriminator",
+        "generative_detection_tpu.train.loop.Trainer",
         "generative_detection_tpu.data.datamodule.DataModuleFromConfig",
         "src.util.callbacks.ImageLogger",
     ],
@@ -151,12 +152,35 @@ def test_unported_targets_raise(target):
         instantiate_from_config({"target": target, "params": {}})
 
 
+@pytest.mark.parametrize(
+    "target",
+    [
+        "src.modules.losses.PoseLoss",
+        "src.modules.losses.contperceptual.PoseLoss",
+        "generative_detection_tpu.losses.contperceptual.PoseLoss",
+    ],
+)
+def test_pose_loss_targets_build_the_port_loss(target):
+    loss = instantiate_from_config(
+        {"target": target, "params": {"num_classes": 11, "disc_start": 5, "disc_weight": 0.5,
+                                      "dataset_stats_path": None}}
+    )
+    assert isinstance(loss, PoseLoss)
+    assert (loss.disc_start, loss.disc_weight, loss.num_classes) == (5, 0.5, 11)
+    assert not loss.logvar.requires_grad
+    with pytest.raises(NotImplementedError, match="plain-autoencoder slice"):
+        instantiate_from_config(
+            {"target": "generative_detection_tpu.losses.contperceptual.LPIPSWithDiscriminator",
+             "params": {}}
+        )
+
+
 def test_port_imports_without_jax():
-    """Every module of the port (and chip_smoke.py) imports with jax, flax and
-    the JAX package made unimportable."""
+    """Every module of the port (and chip_smoke.py) imports with jax, flax,
+    optax and the JAX package made unimportable."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'flax', 'generative_detection_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'generative_detection_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import generative_detection_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"

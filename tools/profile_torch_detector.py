@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's detector spends device time, on one CUDA card.
+"""Where the PyTorch port's detector and train step spend device time, on one
+CUDA card.
 
     python3 tools/profile_torch_detector.py [--batch 1 8 32] [--requests 5]
+    python3 tools/profile_torch_detector.py --train [--steps 5]
 
 Builds the flagship config (configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml)
-at full width with seeded random weights, serves bf16 requests (the serving
-default) under ``torch.profiler`` and prints one JSON line per batch size:
-the wall time per request inside the profiled window, the device time per
-request, the device's busy share of the window, and the device time split
-into classes of kernels (the port's GroupNorm and attention kernels, cuDNN
-and cuBLAS convolutions and products, everything else). The profiler adds
-host overhead, so the busy share here is a lower bound; chip_smoke.py gives
-the unprofiled latencies.
+at full width with seeded random weights. By default it serves bf16 requests
+(the serving default) and prints one JSON line per batch size; with
+``--train`` it runs the flagship train step as chip_smoke.py does (batch 16,
+bf16 compute, fp32 master weights, past the curriculum) and prints one line.
+Each line gives the wall time per request or step inside the profiled
+window, the device time per request or step, the device's busy share of the
+window, and the device time split into classes of kernels (the port's
+GroupNorm and attention kernels, forward and backward, cuDNN and cuBLAS
+convolutions and products, the optimizer, everything else). The profiler
+adds host overhead, so the busy share here is a lower bound; chip_smoke.py
+gives the unprofiled latencies.
 """
 
 from __future__ import annotations
@@ -30,13 +35,22 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import detector_inputs, flagship_detector  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    TRAIN_BATCH,
+    detector_inputs,
+    flagship_detector,
+    flagship_train,
+    train_batch,
+)
 from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E402
 
 CLASSES = (
     ("group_norm_kernel", ("gn_stats", "gn_apply")),
+    ("group_norm_bwd_kernel", ("gn_bwd",)),
     ("attention_kernel", ("attn_fwd",)),
+    ("attention_bwd_kernel", ("attn_bwd",)),
     ("conv_and_matmul", ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad")),
+    ("optimizer", ("adam",)),
 )
 
 
@@ -48,13 +62,56 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def profiled(fn, n: int) -> dict:
+    """Run ``fn`` ``n`` times under the profiler: wall and device ms per run,
+    busy share, device ms per run by class, and the top kernels."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_kernel = defaultdict(float), defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        by_class[kernel_class(evt.name)] += us / 1e3
+        by_kernel[evt.name] += us / 1e3
+    busy_ms = sum(by_class.values())
+    if busy_ms == 0.0:
+        raise SystemExit("the profiler recorded no device time; time with CUDA events")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms_per_run": wall_ms / n,
+        "device_ms_per_run": busy_ms / n,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_ms_per_run_by_class": {k: v / n for k, v in sorted(by_class.items())},
+        "top_kernels_ms_per_run": [[k[:90], v / n] for k, v in top],
+        "device": torch.cuda.get_device_name(0),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8, 32])
     ap.add_argument("--requests", type=int, default=5)
+    ap.add_argument("--train", action="store_true", help="profile the flagship train step")
+    ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+
+    if args.train:
+        model, state, step = flagship_train()
+        batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        out = profiled(lambda: step(state, batch), args.steps)
+        print(json.dumps({"mode": "train", "batch": TRAIN_BATCH, "dtype": "bfloat16",
+                          "steps": args.steps, **out}), flush=True)
+        return 0
 
     model, net, hmin, hmax = flagship_detector()
     detect = make_detector_fn(model, net, hmin, hmax, 256)  # the bf16 default
@@ -63,33 +120,9 @@ def main() -> int:
         for _ in range(3):
             detect(*inputs)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.requests):
-                detect(*inputs)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_class, by_kernel = defaultdict(float), defaultdict(float)
-        for evt in prof.events():
-            if evt.device_type != DeviceType.CUDA:
-                continue
-            us = evt.time_range.elapsed_us()
-            by_class[kernel_class(evt.name)] += us / 1e3
-            by_kernel[evt.name] += us / 1e3
-        busy_ms = sum(by_class.values())
-        if busy_ms == 0.0:
-            raise SystemExit("the profiler recorded no device time; time with CUDA events")
-        n = args.requests
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        print(json.dumps({
-            "batch": b, "dtype": "bfloat16", "requests": n,
-            "wall_ms_per_request": wall_ms / n,
-            "device_ms_per_request": busy_ms / n,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_ms_per_request_by_class": {k: v / n for k, v in sorted(by_class.items())},
-            "top_kernels_ms_per_request": [[k[:90], v / n] for k, v in top],
-            "device": torch.cuda.get_device_name(0),
-        }), flush=True)
+        out = profiled(lambda: detect(*inputs), args.requests)
+        print(json.dumps({"mode": "detector", "batch": b, "dtype": "bfloat16",
+                          "requests": args.requests, **out}), flush=True)
     return 0
 
 
