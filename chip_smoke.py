@@ -9,35 +9,53 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together);
-3. kernels, each against its plain PyTorch version on the card, with its
+3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
+   of the train step (default and GDT_WINOGRAD=fused) and of the detector
+   (default and GDT_FUSE_INFERENCE=1);
+4. kernels, each against its plain PyTorch version on the card, with its
    time, the plain version's, one library call's (a yardstick the port never
    calls) and the card's bound: the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
-   flagship train step (batch 16);
-4. detector: the flagship config (configs/autoencoder/pose/
+   flagship train step (batch 16), the fused GroupNorm+SiLU+conv (B6) at
+   every fused detector site (batch 8), the row-Winograd forward, dgrad and
+   weight gradient (B7, B8) at every fused train site (batch 16), the
+   forward-only flash attention (B5) at the detector's attention shapes, and
+   the attention forward and backward at L = 16384 (B9's length), in bf16
+   and fp32;
+5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
-   serves requests at batch 1, 8 and 32 in bf16; the launch counters must
-   show 28 GroupNorm and 3 attention launches per forward. Then the same
-   weights and inputs at batch 2 in fp32 on the card and on the CPU (which
-   runs the plain versions) must agree;
-5. train: the flagship train step at full width and depth, batch 16, bf16
+   serves requests at batch 1, 8 and 32 in bf16, first as it is, then with
+   GDT_FUSE_INFERENCE=1; the launch counters must show the hook-counted
+   sites per request (28 GroupNorm and 3 attention launches, or 4 GroupNorm,
+   24 fused convs and their 24 affines). Then the same weights and inputs at
+   batch 2 in fp32 on the card and on the CPU (which runs the plain
+   versions) must agree, in both settings;
+6. train: the flagship train step at full width and depth, batch 16, bf16
    compute with fp32 master weights, past the whole curriculum (pixel,
    LPIPS, KL, pose and GAN terms and d_weight live): 3 warm-up and 10 timed
-   steps; the launch counters must show one forward and one backward per
-   GroupNorm and attention site per step, every network parameter a finite
-   nonzero gradient, LPIPS and logvar unchanged and the discriminator moved;
-6. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
-   the same weights and draws on both; losses, d_weight and both optimizers'
-   Adam first moments must agree;
-7. one {"kernels": [...]} line, the nvidia-smi line, and last
+   steps, as it is and with GDT_WINOGRAD=fused; the launch counters must
+   show one forward and one backward per site per step (with fused, one
+   Winograd forward, dgrad and weight gradient per in-band site), every
+   network parameter a finite nonzero gradient, LPIPS and logvar unchanged
+   and the discriminator moved;
+7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
+   the same weights and draws on both, as it is and with GDT_WINOGRAD=fused;
+   losses, d_weight and both optimizers' Adam first moments must agree;
+8. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
+
+Every phase that sets a switch restores the environment after it.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -50,8 +68,12 @@ import torch
 import torch.nn.functional as F
 
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
-from generative_detection_tpu_torch.models.blocks import AttnBlock, GroupNormSiLU
-from generative_detection_tpu_torch.ops import _build, attention, norm
+from generative_detection_tpu_torch.models.autoencoder import cast_compute_dtype
+from generative_detection_tpu_torch.models.blocks import (
+    AttnBlock, Conv3x3, GroupNormSiLU, flax_like_init_,
+)
+from generative_detection_tpu_torch.ops import _build, attention, conv3x3, fused_conv, norm
+from generative_detection_tpu_torch.ops import winograd_rows as wr
 from generative_detection_tpu_torch.serving import make_detector_fn
 from generative_detection_tpu_torch.train import create_train_state, make_train_step
 
@@ -105,6 +127,39 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 # optimizer's largest, since the composite loss is ~1e6 and summation noise
 # scales with the global gradient, not with each parameter's.
 TRAIN_LOSS_RTOL, MOMENT_REL = 1e-3, 1e-3
+# Conv kernels (B6-B8) and the flash variant (B5) against their plain
+# versions: max |err| <= tol * RMS(plain). fp32 differs in summation order;
+# bf16 rounds the same fp32 values to bf16, and the prologue's activation
+# (v / (1 + e^-v) in the kernels, v * sigmoid(v) in the plain versions) can
+# round one bf16 ulp apart.
+CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
+
+
+# Every launch counter of the port, by the name the kernels line uses.
+COUNTED = {
+    "group_norm": norm.group_norm, "group_norm_bwd": norm.group_norm_backward,
+    "group_norm_affine": norm.group_norm_affine,
+    "attention": attention.single_head_attention, "attention_bwd": attention.attention_backward,
+    "flash_attention": attention.flash_attention_forward, "fused_conv": fused_conv.gn_silu_conv,
+    "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
+    "wino_wgrad": wr.wino_wgrad,
+}
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """Set the JAX package's switches (GDT_*) for one phase, then restore."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def require(cond: bool, msg: str) -> None:
@@ -190,20 +245,20 @@ def gn_case(g, hw, c, act, dtype):
     }
 
 
-def attn_case(g, l, c, dtype):
-    q, k, v = (torch.randn(BATCH, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
+def attn_case(g, l, c, dtype, batch=BATCH):
+    q, k, v = (torch.randn(batch, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     want_o, want_lse = attention._attention_reference(q, k, v)
     torch.cuda.synchronize()
     limit = ATTN_REL_TOL[dtype] * want_o.float().pow(2).mean().sqrt().item()
     err = check_close(f"attention {q.shape} {dtype}", o, want_o, limit, 0.0)
     check_close(f"attention lse {q.shape} {dtype}", lse, want_lse, LSE_TOL, 0.0)
-    flops = 4 * BATCH * l * l * c
-    nbytes = 4 * q.numel() * q.element_size() + BATCH * l * 4
+    flops = 4 * batch * l * l * c
+    nbytes = 4 * q.numel() * q.element_size() + batch * l * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     q4, k4, v4 = q[:, None], k[:, None], v[:, None]
     return {
-        "name": "attention", "shape": [BATCH, l, c], "dtype": str(dtype).split(".")[1],
+        "name": "attention", "shape": [batch, l, c], "dtype": str(dtype).split(".")[1],
         "max_err": err, "tol": limit, "lse_err": (lse - want_lse).abs().max().item(),
         "kernel_ms": time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True)),
         "plain_ms": time_ms(lambda: attention._attention_reference(q, k, v), 5),
@@ -288,8 +343,7 @@ def gn_bwd_case(g, hw, c, act, dtype):
     }
 
 
-def attn_bwd_case(g, l, c, dtype):
-    b = TRAIN_BATCH
+def attn_bwd_case(g, l, c, dtype, b=TRAIN_BATCH):
     q, k, v, do = (torch.randn(b, l, c, device="cuda", generator=g).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     di = (do.float() * o.float()).sum(-1)
@@ -322,7 +376,208 @@ def attn_bwd_case(g, l, c, dtype):
     }
 
 
-def phase_kernels(gn_train: Counter, attn_train: Counter) -> dict:
+def conv_sites() -> dict:
+    """The fused-conv sites by (h=w, C, CO), read with forward hooks on the
+    ResnetBlock convs that got the norm's affine: the detector's encoder with
+    GDT_FUSE_INFERENCE=1 (bf16 weights) and the train forward with
+    GDT_WINOGRAD=fused (fp32 weights under bf16 autocast), batch 1 on the
+    card; and the GroupNorm sites the fused detector still runs."""
+    model = instantiate_from_config(merge_configs([str(FLAGSHIP)])["model"])
+    g = torch.Generator().manual_seed(0)
+    found = {"detector": Counter(), "train": Counter(), "detector_gn": Counter()}
+    where = ["detector"]
+
+    def on_conv(m, args, kwargs, _out):
+        if kwargs.get("gn_affine") is not None:
+            x = args[0]
+            found[where[0]][(x.shape[2], x.shape[1], m.out_channels)] += 1
+
+    def on_gn(m, inp, _out):
+        if where[0] == "detector":
+            found["detector_gn"][(inp[0].shape[2], inp[0].shape[1], m.act)] += 1
+
+    def hooked(net):
+        for m in net.modules():
+            if isinstance(m, Conv3x3):
+                m.register_forward_hook(on_conv, with_kwargs=True)
+            elif isinstance(m, GroupNormSiLU):
+                m.register_forward_hook(on_gn)
+        return net
+
+    size = model.input_size
+    with switches(GDT_FUSE_INFERENCE="1"):
+        net = flax_like_init_(model.inference_net(), g)
+    net = hooked(cast_compute_dtype(net, torch.bfloat16).to(
+        device="cuda", memory_format=torch.channels_last))
+    with torch.no_grad():
+        net.encode(torch.zeros(1, size, size, 3, device="cuda"))
+    where[0] = "train"
+    net = hooked(model.init_net(g, device="cuda"))
+    with switches(GDT_WINOGRAD="fused"), torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        net(torch.zeros(1, size, size, 3, device="cuda"), CURRICULUM_END + 2, phase="full")
+    return found
+
+
+def _bound(flops, nbytes, dtype) -> dict:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def _conv_inputs(g, b, hw, c, co, dtype):
+    x = (torch.randn(b, hw, hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=g)
+    k = torch.randn(3, 3, c, co, device="cuda", generator=g) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn(co, device="cuda", generator=g)
+    return x, gamma, beta, k, bias
+
+
+def _vs_fp32_direct(got, x, a, shift, k, bias) -> float:
+    """max |got - fp32 direct conv of the fp32 activation| / RMS of the
+    latter: what the kernel's rounding (bf16, Winograd) costs."""
+    z = x.float() * a[:, None, None, :] + shift[:, None, None, :]
+    z = z * torch.sigmoid(z)
+    ref = F.conv2d(z.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), bias, padding=1)
+    ref = ref.permute(0, 2, 3, 1)
+    return ((got.float() - ref).abs().max() / ref.pow(2).mean().sqrt()).item()
+
+
+def _dname(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def gn_affine_case(g, hw, c, dtype):
+    x, gamma, beta, _, _ = _conv_inputs(g, BATCH, hw, c, 128, dtype)
+    a, shift, _ = norm.group_norm_affine(x, gamma, beta)
+    wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
+    torch.cuda.synchronize()
+    err = max(rms_close(f"group_norm_affine {tuple(x.shape)} {dtype} {n}", got, want, 1e-4)
+              for n, got, want in (("a", a, wa), ("b", shift, wb)))
+    nbytes = x.numel() * x.element_size() + 2 * BATCH * c * 4 + 2 * c * 4
+    return {
+        "name": "group_norm_affine", "shape": list(x.shape), "dtype": _dname(dtype),
+        "max_err": err,
+        "kernel_ms": time_ms(lambda: norm.group_norm_affine(x, gamma, beta)),
+        "plain_ms": time_ms(lambda: norm._gn_affine_reference(x, gamma, beta, 32, 1e-6), 5),
+        "library_ms": None, **_bound(0, nbytes, dtype),
+    }
+
+
+def fused_conv_case(g, hw, c, co, dtype):
+    """B6 at batch 8: the direct mode of csrc/conv3x3.cu with the GroupNorm
+    prologue, from the stats kernel's affine; also with emit_z."""
+    b = BATCH
+    x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype)
+    a, shift, _ = norm.group_norm_affine(x, gamma, beta)
+    got, _ = fused_conv._fused_forward(x, a, shift, k, bias, False)
+    got_z, z = fused_conv._fused_forward(x, a, shift, k, bias, True)
+    want_z = fused_conv._silu_affine(x, a, shift)
+    want = fused_conv._conv_bias(want_z, k, bias)
+    torch.cuda.synchronize()
+    name = f"fused_conv {tuple(x.shape)}->{co} {dtype}"
+    err = rms_close(name, got, want, CONV_REL_TOL[dtype])
+    require(torch.equal(got, got_z), f"{name}: emit_z changed the output")
+    rms_close(f"{name} z", z, want_z, CONV_REL_TOL[dtype])
+    w9 = k.to(dtype).reshape(9, c, co).contiguous()
+    w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous()
+    b_lib = bias.to(dtype)
+
+    def library():
+        y = norm.group_norm(x, gamma, beta, 32, 1e-6, "silu")
+        return F.conv2d(y.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)
+
+    isz = x.element_size()
+    nbytes = (x.numel() + b * hw * hw * co + 9 * c * co) * isz + (2 * b * c + co) * 4
+    return {
+        "name": "fused_conv", "shape": [b, hw, hw, c, co], "dtype": _dname(dtype),
+        "max_err": err, "err_vs_fp32_direct_rel": _vs_fp32_direct(got, x, a, shift, k, bias),
+        "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, w9, bias, 1, gn_ab=(a, shift))),
+        "plain_ms": time_ms(lambda: fused_conv._conv_bias(
+            fused_conv._silu_affine(x, a, shift), k, bias), 5),
+        "library_ms": time_ms(library),
+        **_bound(2 * 9 * b * hw * hw * c * co, nbytes, dtype),
+    }
+
+
+def _cudnn_grads(dy, z, k, dtype, mask):
+    return torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2), k.to(dtype).permute(3, 2, 0, 1),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+
+def wino_cases(g, hw, c, co, dtype) -> list:
+    """B7 forward (GroupNorm prologue, F(4,3)), B7 dgrad and B8 (GroupNorm
+    recompute) at batch 16, as GDT_WINOGRAD=fused runs them."""
+    b, m = TRAIN_BATCH, 4
+    x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype)
+    dy = torch.randn(b, hw, hw, co, device="cuda", generator=g).to(dtype)
+    a, shift, _ = norm.group_norm_affine(x, gamma, beta)
+    ab = (a, shift)
+    u = wr._u3n(k, dtype, m)
+    k_rot = k.flip(0, 1).transpose(2, 3)
+    u_rot = wr._u3n(k_rot, dtype, m)
+    zero = torch.zeros(c, device="cuda")
+    out = wr.wino_rows_forward(x, u, bias, m, ab)
+    dz = wr.wino_rows_dgrad(dy, u_rot, m)
+    du = conv3x3.conv3x3_wgrad(x, dy, m, ab)
+    want_out = wr._wino_rows_reference(x, u, bias, a, shift, m)
+    want_dz = wr._wino_rows_reference(dy, u_rot, zero, None, None, m)
+    want_du = wr._wino_wgrad_reference(x, dy, a, shift, m)
+    torch.cuda.synchronize()
+    tag = f"{(b, hw, hw, c)}->{co} {dtype}"
+    errs = [rms_close(f"wino_rows {tag}", out, want_out, CONV_REL_TOL[dtype]),
+            rms_close(f"wino_rows_dgrad {tag}", dz, want_dz, CONV_REL_TOL[dtype]),
+            rms_close(f"wino_wgrad {tag}", du, want_du, CONV_REL_TOL[dtype])]
+    z = fused_conv._silu_affine(x, a, shift)
+    w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous()
+    b_lib = bias.to(dtype)
+    isz, flops = x.element_size(), 2 * 9 * b * hw * hw * c * co
+    act_in, act_out = x.numel() * isz, b * hw * hw * co * isz
+    common = {"shape": [b, hw, hw, c, co], "dtype": _dname(dtype)}
+    return [
+        {"name": "wino_rows", **common, "max_err": errs[0],
+         "err_vs_fp32_direct_rel": _vs_fp32_direct(out, x, a, shift, k, bias),
+         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, u, bias, m, gn_ab=ab)),
+         "plain_ms": time_ms(lambda: wr._wino_rows_reference(x, u, bias, a, shift, m), 3),
+         "library_ms": time_ms(lambda: F.conv2d(z.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)),
+         **_bound(flops, act_in + act_out + u.numel() * isz + (2 * b * c + co) * 4, dtype)},
+        {"name": "wino_rows_dgrad", **common, "max_err": errs[1],
+         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(dy, u_rot, zero, m)),
+         "plain_ms": time_ms(
+             lambda: wr._wino_rows_reference(dy, u_rot, zero, None, None, m), 3),
+         "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [True, False, False])),
+         **_bound(flops, act_in + act_out + u_rot.numel() * isz, dtype)},
+        {"name": "wino_wgrad", **common, "max_err": errs[2],
+         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_wgrad(x, dy, m, ab)),
+         "plain_ms": time_ms(lambda: wr._wino_wgrad_reference(x, dy, a, shift, m), 3),
+         "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [False, True, False])),
+         **_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype)},
+    ]
+
+
+def flash_case(g, l, c, dtype):
+    """B5, the forward-only flash variant (fp32 products whatever the input
+    dtype, no lse), at the detector's attention shapes."""
+    q, k, v = (torch.randn(BATCH, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
+    o = attention.flash_attention_forward(q, k, v)
+    want = attention._flash_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = rms_close(f"flash attention {tuple(q.shape)} {dtype}", o, want, ATTN_REL_TOL[dtype])
+    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    nbytes = 4 * q.numel() * q.element_size()
+    # the products run in fp32 whatever the input dtype: fp32's peak
+    return {
+        "name": "flash_attention", "shape": [BATCH, l, c], "dtype": _dname(dtype),
+        "max_err": err,
+        "kernel_ms": time_ms(lambda: attention.flash_attention_forward(q, k, v)),
+        "plain_ms": time_ms(lambda: attention._flash_reference(q, k, v), 5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
+        **_bound(4 * BATCH * l * l * c, nbytes, torch.float32),
+    }
+
+
+def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -348,6 +603,29 @@ def phase_kernels(gn_train: Counter, attn_train: Counter) -> dict:
             cases[("attention_bwd", l, c, dtype)] = r
             emit(r)
             torch.cuda.empty_cache()
+        for l, c in ATTN_SITES:
+            r = flash_case(g, l, c, dtype)
+            cases[("flash_attention", l, c, dtype)] = r
+            emit(r)
+        # B9's length: B1 and B2 where the JAX package takes jax's library kernel
+        for fn, key in ((attn_case, "attention"), (attn_bwd_case, "attention_bwd")):
+            r = fn(g, LONG_L, 256, dtype, 1)
+            cases[(key, LONG_L, 256, dtype)] = r
+            emit(r)
+            torch.cuda.empty_cache()
+        hw0, c0, _ = max(sites["detector"], key=lambda k: k[0] * k[0] * k[1])
+        r = gn_affine_case(g, hw0, c0, dtype)
+        cases[("group_norm_affine", hw0, c0, dtype)] = r
+        emit(r)
+        for hw, c, co in sorted(sites["detector"], reverse=True):
+            r = fused_conv_case(g, hw, c, co, dtype)
+            cases[("fused_conv", hw, c, co, dtype)] = r
+            emit(r)
+        for hw, c, co in sorted(sites["train"], reverse=True):
+            for r in wino_cases(g, hw, c, co, dtype):
+                cases[(r["name"], hw, c, co, dtype)] = r
+                emit(r)
+            torch.cuda.empty_cache()
     return cases
 
 
@@ -372,60 +650,80 @@ def detector_inputs(b: int, seed: int):
     )
 
 
-def phase_detector() -> dict:
-    model, net, hmin, hmax = flagship_detector()
-    detect = make_detector_fn(model, net, hmin, hmax, 256)  # the bf16 default
-    requests = {1: 20, 8: 20, 32: 10}
-    inputs = {b: [torch.as_tensor(a, device="cuda") for a in detector_inputs(b, b)]
-              for b in requests}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+def reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+    norm.group_norm_backward.grad_copies = attention.attention_backward.grad_copies = 0
 
-    norm.group_norm.launches = 0
-    attention.single_head_attention.launches = 0
-    calls, results = 0, {}
-    for b, n in requests.items():
-        lat = []
-        for i in range(n + 3):  # the first 3 requests warm up
-            t0 = time.perf_counter()
-            boxes, cls, score = detect(*inputs[b])
-            torch.cuda.synchronize()
-            if i >= 3:
-                lat.append(time.perf_counter() - t0)
-            calls += 1
-        require(boxes.shape == (b, 7) and cls.shape == (b,) and score.shape == (b,),
-                f"detector output shapes {boxes.shape} {cls.shape} {score.shape}")
-        require(bool(torch.isfinite(boxes).all() and torch.isfinite(score).all()),
-                "detector output not finite")
-        p50 = statistics.median(lat)
-        results[b] = {"phase": "detector", "batch": b, "dtype": "bfloat16", "requests": n,
-                      "p50_ms": p50 * 1e3, "patches_per_s": b / p50,
-                      "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3}
-        emit(results[b])
-    launches = {"group_norm": norm.group_norm.launches,
-                "attention": attention.single_head_attention.launches}
-    emit({"phase": "detector", "calls": calls, "launches": launches,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
-    require(launches["group_norm"] == GN_PER_FORWARD * calls,
-            f"group_norm launches {launches['group_norm']} != {GN_PER_FORWARD} x {calls}")
-    require(launches["attention"] == ATTN_PER_FORWARD * calls,
-            f"attention launches {launches['attention']} != {ATTN_PER_FORWARD} x {calls}")
 
-    # fp32 on the card (kernels) against fp32 on the CPU (plain versions)
-    args = detector_inputs(2, 99)
-    outs = {}
-    for device in ("cuda", "cpu"):
-        det = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32", device=device)
-        outs[device] = [t.cpu().numpy() for t in det(*args)]
+def read_counts() -> dict:
+    counts = {name: fn.launches for name, fn in COUNTED.items()}
+    counts["grad_copies"] = (norm.group_norm_backward.grad_copies
+                             + attention.attention_backward.grad_copies)
+    return counts
+
+
+def phase_detector(expect: dict, fuse: bool) -> dict:
+    """Serve bf16 requests at batch 1, 8 and 32 (GDT_FUSE_INFERENCE=1 when
+    ``fuse``): p50s, and the launches per request against ``expect``. Then
+    the fp32 detector on the card against the CPU in the same setting."""
+    label = "detector_fused" if fuse else "detector"
+    with switches(GDT_FUSE_INFERENCE="1" if fuse else "0"):
+        model, net, hmin, hmax = flagship_detector()
+        detect = make_detector_fn(model, net, hmin, hmax, 256)  # the bf16 default
+        requests = {1: 20, 8: 20, 32: 10}
+        inputs = {b: [torch.as_tensor(a, device="cuda") for a in detector_inputs(b, b)]
+                  for b in requests}
+        torch.cuda.synchronize()
+        gc.collect()
+        held = torch.cuda.memory_allocated()  # weights, inputs, leftovers
+        torch.cuda.reset_peak_memory_stats()
+
+        reset_counts()
+        calls, results = 0, {}
+        for b, n in requests.items():
+            lat = []
+            for i in range(n + 3):  # the first 3 requests warm up
+                t0 = time.perf_counter()
+                boxes, cls, score = detect(*inputs[b])
+                torch.cuda.synchronize()
+                if i >= 3:
+                    lat.append(time.perf_counter() - t0)
+                calls += 1
+            require(boxes.shape == (b, 7) and cls.shape == (b,) and score.shape == (b,),
+                    f"detector output shapes {boxes.shape} {cls.shape} {score.shape}")
+            require(bool(torch.isfinite(boxes).all() and torch.isfinite(score).all()),
+                    "detector output not finite")
+            p50 = statistics.median(lat)
+            results[b] = {"phase": label, "batch": b, "dtype": "bfloat16", "requests": n,
+                          "p50_ms": p50 * 1e3, "patches_per_s": b / p50,
+                          "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3}
+            emit(results[b])
+        launches = read_counts()
+        emit({"phase": label, "calls": calls, "launches": launches,
+              "launches_per_request": {k: v / calls for k, v in launches.items()},
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "memory_allocated_before_bytes": held})
+        for name in COUNTED:
+            n = expect.get(name, 0)
+            require(launches[name] == n * calls,
+                    f"{label} {name} launches {launches[name]} != {n} x {calls}")
+
+        # fp32 on the card (kernels) against fp32 on the CPU (plain versions)
+        args = detector_inputs(2, 99)
+        outs = {}
+        for device in ("cuda", "cpu"):
+            det = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32", device=device)
+            outs[device] = [t.cpu().numpy() for t in det(*args)]
     (boxes, cls, score), (wboxes, wcls, wscore) = outs["cuda"], outs["cpu"]
     np.testing.assert_allclose(boxes, wboxes, **BOX_TOL)
     np.testing.assert_array_equal(cls, wcls)
     np.testing.assert_allclose(score, wscore, rtol=0, atol=1e-5)
-    emit({"phase": "detector_fp32_card_vs_cpu", "batch": 2,
+    emit({"phase": f"{label}_fp32_card_vs_cpu", "batch": 2,
           "boxes_max_abs_err": float(np.abs(boxes - wboxes).max()),
           "score_max_abs_err": float(np.abs(score - wscore).max()),
           "classes_equal": True, "boxes": boxes.tolist()})
-    return launches
+    return {"launches": launches, "results": results}
 
 
 def train_batch(b: int, size: int, device, seed: int) -> dict:
@@ -459,47 +757,35 @@ def flagship_train():
     return model, state, step
 
 
-def reset_counts() -> None:
-    norm.group_norm.launches = norm.group_norm_backward.launches = 0
-    norm.group_norm_backward.grad_copies = 0
-    attention.single_head_attention.launches = attention.attention_backward.launches = 0
-    attention.attention_backward.grad_copies = 0
-
-
-def read_counts() -> dict:
-    return {"group_norm": norm.group_norm.launches,
-            "group_norm_bwd": norm.group_norm_backward.launches,
-            "attention": attention.single_head_attention.launches,
-            "attention_bwd": attention.attention_backward.launches,
-            "grad_copies": norm.group_norm_backward.grad_copies
-            + attention.attention_backward.grad_copies}
-
-
-def phase_train(gn_train: Counter, attn_train: Counter) -> dict:
-    model, state, step = flagship_train()
-    batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
-    lpips0 = [p.detach().clone() for p in state.loss.perceptual_loss.parameters()]
-    disc0 = [p.detach().clone() for p in state.loss.discriminator.parameters()]
-    logvar0 = state.loss.logvar.item()
-    for _ in range(TRAIN_WARMUP):
-        state, metrics = step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    lat = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+def phase_train(expect: dict, winograd: str) -> dict:
+    """The flagship bf16 step at batch 16 with GDT_WINOGRAD=``winograd``:
+    3 warm-up and 10 timed steps, the launches per step against ``expect``."""
+    label = "train" if winograd == "0" else f"train_winograd_{winograd}"
+    with switches(GDT_WINOGRAD=winograd):
+        model, state, step = flagship_train()
+        batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
+        lpips0 = [p.detach().clone() for p in state.loss.perceptual_loss.parameters()]
+        disc0 = [p.detach().clone() for p in state.loss.discriminator.parameters()]
+        logvar0 = state.loss.logvar.item()
+        for _ in range(TRAIN_WARMUP):
+            state, metrics = step(state, batch)
         torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        lat = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
 
-    per_step = {"group_norm": sum(gn_train.values()), "attention": sum(attn_train.values())}
-    per_step.update(group_norm_bwd=per_step["group_norm"], attention_bwd=per_step["attention"])
-    for name, n in per_step.items():
+    for name in COUNTED:
+        n = expect.get(name, 0)
         require(counts[name] == n * TRAIN_STEPS,
-                f"train {name} launches {counts[name]} != {n} x {TRAIN_STEPS}")
+                f"{label} {name} launches {counts[name]} != {n} x {TRAIN_STEPS}")
     values = {k: float(metrics[k]) for k in ("aeloss", "discloss", "train/d_weight",
                                              "train/disc_factor", "train/rec_loss",
                                              "train/g_loss", "train/kl_loss_obj")}
@@ -518,20 +804,23 @@ def phase_train(gn_train: Counter, attn_train: Counter) -> dict:
             "discriminator weights did not change")
     p50 = statistics.median(lat)
     result = {
-        "phase": "train", "config": FLAGSHIP.name, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+        "phase": label, "config": FLAGSHIP.name, "batch": TRAIN_BATCH, "dtype": "bfloat16",
         "master_weights": "float32", "global_step_g": 2 * (state.step - 1), "steps": TRAIN_STEPS,
         "p50_ms": p50 * 1e3, "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3,
         "train_patches_per_s": TRAIN_BATCH / p50, "max_memory_allocated_bytes": peak,
         "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
-        "sites_per_step": per_step, "params_with_grad": len(params), "losses": values,
+        "sites_per_step": expect, "params_with_grad": len(params), "losses": values,
     }
     emit(result)
+    del state, step
+    torch.cuda.empty_cache()
     return {**counts, "result": result}
 
 
-def phase_train_card_vs_cpu() -> None:
+def phase_train_card_vs_cpu(winograd: str) -> None:
     """One fp32 step of tiny_cpu.yaml at ch 128 (attention at C = 256, a
-    kernel width) from the same weights and draws on the card and the CPU."""
+    kernel width; 32x32 sites in the Winograd band) from the same weights and
+    draws on the card and the CPU, with GDT_WINOGRAD=``winograd``."""
     cfg = merge_configs([str(TINY)], ["model.params.ddconfig.ch=128"])
     model = instantiate_from_config(cfg["model"])
     rng = np.random.default_rng(5)
@@ -546,15 +835,22 @@ def phase_train_card_vs_cpu() -> None:
     draws["dropout"] = rng.uniform(size=(2, 16, 16, 16)).astype(np.float32)
     step = make_train_step(model, phase="full", compute_dtype=torch.float32)
     out = {}
-    for device in ("cuda", "cpu"):
-        state = create_train_state(model, 1e-4, grad_clip=1.0, seed=0, device=device)
-        state.step = 6  # generator step 12, past this config's 10-step curriculum
-        state, metrics = step(state, model.prepare_batch(host, device=device),
-                              {k: torch.as_tensor(v, device=device) for k, v in draws.items()})
-        moments = [torch.cat([opt.moments(p)[0].flatten().cpu() for p in opt.params])
-                   for opt in (state.opt_ae, state.opt_disc)]
-        out[device] = ({k: float(metrics[k]) for k in ("aeloss", "discloss", "train/d_weight")},
-                       moments)
+    with switches(GDT_WINOGRAD=winograd):
+        for device in ("cuda", "cpu"):
+            state = create_train_state(model, 1e-4, grad_clip=1.0, seed=0, device=device)
+            state.step = 6  # generator step 12, past this config's 10-step curriculum
+            reset_counts()
+            state, metrics = step(state, model.prepare_batch(host, device=device),
+                                  {k: torch.as_tensor(v, device=device) for k, v in draws.items()})
+            if device == "cuda":
+                launches = read_counts()
+            moments = [torch.cat([opt.moments(p)[0].flatten().cpu() for p in opt.params])
+                       for opt in (state.opt_ae, state.opt_disc)]
+            out[device] = ({k: float(metrics[k]) for k in ("aeloss", "discloss", "train/d_weight")},
+                           moments)
+    if winograd == "fused":
+        require(launches["wino_rows"] > 0 and launches["wino_wgrad"] > 0,
+                f"tiny fused step ran no Winograd kernel: {launches}")
     (got, got_m), (want, want_m) = out["cuda"], out["cpu"]
     for k, w in want.items():
         require(abs(got[k] - w) <= TRAIN_LOSS_RTOL * abs(w), f"card vs CPU {k}: {got[k]} vs {w}")
@@ -564,40 +860,63 @@ def phase_train_card_vs_cpu() -> None:
         require(err <= MOMENT_REL * w_m.abs().max().item(),
                 f"card vs CPU {name} Adam mu: max err {err}, scale {w_m.abs().max().item()}")
         errs.append(err)
-    emit({"phase": "train_fp32_card_vs_cpu", "config": "tiny_cpu.yaml ch=128", "batch": 2,
-          "card": got, "cpu": want, "mu_max_abs_err": dict(zip(("opt_ae", "opt_disc"), errs))})
+    emit({"phase": "train_fp32_card_vs_cpu", "winograd": winograd,
+          "config": "tiny_cpu.yaml ch=128", "batch": 2, "card": got, "cpu": want,
+          "card_launches": launches,
+          "mu_max_abs_err": dict(zip(("opt_ae", "opt_disc"), errs))})
 
 
-def kernels_line(cases: dict, launches: dict, train: dict) -> dict:
-    """One entry per kernel, with the numbers of its largest bf16 site: batch
-    8 for the forward kernels, whose launches are the detector path's; batch
-    16 for the backward kernels, whose launches are the train path's.
-    ``kernels_per_call`` device kernels run per counted call."""
+def _largest(cases, name):
+    """The bf16 case of ``name`` with the most work (shape product)."""
+    keys = [k for k in cases if k[0] == name and k[-1] == torch.bfloat16]
+    return cases[max(keys, key=lambda k: math.prod(cases[k]["shape"]))]
+
+
+def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict):
+    """One entry per kernel, with the numbers of its largest bf16 site (the
+    forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
+    and its launches on the main path that runs it: the detector (B1, B3),
+    the fused detector (B6 and its affine), the train step (B2, B4c/d), the
+    train step with GDT_WINOGRAD=fused (B7, B8). B5 is on no path of the
+    port (the JAX package reaches it only from its availability probe, whose
+    role the kernel check here plays). ``kernels_per_call`` device kernels
+    run per counted call."""
     bf16 = torch.bfloat16
-    gn_bwd_key = max((k for k in cases if k[0] == "group_norm_bwd" and k[-1] == bf16),
-                     key=lambda k: (k[1] * k[1] * k[2], k[3] == "silu"))
-    at_bwd_key = max((k for k in cases if k[0] == "attention_bwd" and k[-1] == bf16),
-                     key=lambda k: k[1] * k[1] * k[2])
+    src = "generative_detection_tpu_torch/csrc/"
+    tpu = "generative_detection_tpu/ops/"
+    det_n, fdet_n = det["launches"], det_fused["launches"]
+    rows = (
+        (cases[("group_norm", 256, 128, "silu", bf16)], "group_norm.cu", "norm.py:109,361,388",
+         2, det_n["group_norm"]),
+        (cases[("attention", 4096, 256, bf16)], "attention.cu", "attention.py:226", 1,
+         det_n["attention"]),
+        (_largest({k: v for k, v in cases.items() if k[1] != LONG_L}, "group_norm_bwd"),
+         "group_norm_bwd.cu", "norm.py:448,473", 2, train["group_norm_bwd"]),
+        (cases[max((k for k in cases if k[0] == "attention_bwd" and k[-1] == bf16
+                    and k[1] != LONG_L), key=lambda k: k[1] * k[1] * k[2])],
+         "attention_bwd.cu", "attention.py:251", 2, train["attention_bwd"]),
+        (cases[("flash_attention", 4096, 256, bf16)], "attention.cu", "attention.py:92", 1, 0),
+        (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
+         fdet_n["group_norm_affine"]),
+        (_largest(cases, "fused_conv"), "conv3x3.cu", "fused_conv.py:196", 1,
+         fdet_n["fused_conv"]),
+        (_largest(cases, "wino_rows"), "conv3x3.cu", "winograd_pallas.py:252", 1,
+         train_fused["wino_rows"]),
+        (_largest(cases, "wino_rows_dgrad"), "conv3x3.cu", "winograd_pallas.py:252", 1,
+         train_fused["wino_rows_dgrad"]),
+        (_largest(cases, "wino_wgrad"), "conv3x3_wgrad.cu", "winograd_pallas.py:430", 2,
+         train_fused["wino_wgrad"]),
+    )
     entries = []
-    for r, source, replaces, per_call, n in (
-        (cases[("group_norm", 256, 128, "silu", bf16)],
-         "generative_detection_tpu_torch/csrc/group_norm.cu",
-         "generative_detection_tpu/ops/norm.py:109,361,388", 2, launches["group_norm"]),
-        (cases[("attention", 4096, 256, bf16)],
-         "generative_detection_tpu_torch/csrc/attention.cu",
-         "generative_detection_tpu/ops/attention.py:226", 1, launches["attention"]),
-        (cases[gn_bwd_key], "generative_detection_tpu_torch/csrc/group_norm_bwd.cu",
-         "generative_detection_tpu/ops/norm.py:448,473", 2, train["group_norm_bwd"]),
-        (cases[at_bwd_key], "generative_detection_tpu_torch/csrc/attention_bwd.cu",
-         "generative_detection_tpu/ops/attention.py:251", 2, train["attention_bwd"]),
-    ):
+    for r, source, replaces, per_call, n in rows:
         entries.append({
-            "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": r["max_err"],
+            "name": r["name"], "route": "cuda", "source": src + source,
+            "replaces": tpu + replaces, "launches": n, "max_abs_err": r["max_err"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": r["dtype"], "kernels_per_call": per_call,
         })
+    entries[4]["on_main_path"] = False
     return {"kernels": entries}
 
 
@@ -605,15 +924,40 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     gn_train, attn_train = train_sites()
-    emit({"phase": "train_sites", "group_norm": sum(gn_train.values()),
-          "attention": sum(attn_train.values()),
+    sites = conv_sites()
+    n_gn, n_attn = sum(gn_train.values()), sum(attn_train.values())
+    n_b6, n_det_gn = sum(sites["detector"].values()), sum(sites["detector_gn"].values())
+    wino = sites["train"]
+    n_wino = sum(wino.values())
+    # the backward takes the dgrad and weight-gradient kernels where the
+    # JAX package's tile rules do, else cuDNN (XLA there)
+    n_dgrad = sum(n for (hw, c, co), n in wino.items()
+                  if wr._pick_tile(hw, hw, co, c, 2, 4) is not None)
+    n_wgrad = sum(n for (hw, c, co), n in wino.items()
+                  if wr._wgrad_tile(hw, hw, c, co, 2, 4) is not None)
+    emit({"phase": "sites", "train_group_norm": n_gn, "train_attention": n_attn,
           "group_norm_shapes": sorted([list(k) + [n] for k, n in gn_train.items()], key=str),
-          "attention_shapes": sorted([list(k) + [n] for k, n in attn_train.items()])})
-    cases = phase_kernels(gn_train, attn_train)
-    launches = phase_detector()
-    train = phase_train(gn_train, attn_train)
-    phase_train_card_vs_cpu()
-    emit(kernels_line(cases, launches, train))
+          "attention_shapes": sorted([list(k) + [n] for k, n in attn_train.items()]),
+          "detector_fused_conv": n_b6, "detector_fused_group_norm": n_det_gn,
+          "fused_conv_shapes": sorted([list(k) + [n] for k, n in sites["detector"].items()]),
+          "train_winograd_fused": n_wino, "train_winograd_dgrad": n_dgrad,
+          "train_winograd_wgrad": n_wgrad,
+          "winograd_shapes": sorted([list(k) + [n] for k, n in wino.items()])})
+    require(n_b6 > 0 and n_wino > 0, "no fused-conv site found")
+    cases = phase_kernels(gn_train, attn_train, sites)
+    det = phase_detector({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD},
+                         fuse=False)
+    det_fused = phase_detector({"group_norm": n_det_gn, "attention": ATTN_PER_FORWARD,
+                                "fused_conv": n_b6, "group_norm_affine": n_b6}, fuse=True)
+    per_step = {"group_norm": n_gn, "group_norm_bwd": n_gn, "attention": n_attn,
+                "attention_bwd": n_attn}
+    train = phase_train(per_step, "0")
+    train_fused = phase_train(
+        {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
+         "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
+    phase_train_card_vs_cpu("0")
+    phase_train_card_vs_cpu("fused")
+    emit(kernels_line(cases, det, det_fused, train, train_fused))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -264,10 +264,38 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
   }
 }
 
+// bf16 rows widened to fp32 in shared memory (the flash variant's upcast).
 template <int C>
+__device__ __forceinline__ void load_tile_f32(float* dst, const __nv_bfloat16* src, int rows) {
+  constexpr int V = C / 8;
+  constexpr int ST = F32Cfg<C>::ST;
+  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + (size_t)r * C + c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+    *reinterpret_cast<float4*>(dst + r * ST + c) = make_float4(f0.x, f0.y, f1.x, f1.y);
+    *reinterpret_cast<float4*>(dst + r * ST + c + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
+  h[0] = __floats2bfloat162_rn(a, b);
+  h[1] = __floats2bfloat162_rn(c, d);
+}
+
+// T is the input and output type (fp32 for B1's fp32 path; fp32 or bf16 for
+// the forward-only flash variant, which computes in fp32 whatever T is).
+// LSE: write the row logsumexp (the flash variant writes none).
+template <typename T, int C, bool LSE>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
+attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int L, float scale) {
   constexpr int BQ = kF32BQ, BK = kF32BK;
   constexpr int ST = F32Cfg<C>::ST, SST = F32Cfg<C>::SST;
@@ -385,7 +413,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (p_part == 0) {
     s_l[p_row] = l_run;
-    lse[(size_t)b * L + q0 + p_row] = m_run + logf(l_run);
+    if (LSE) lse[(size_t)b * L + q0 + p_row] = m_run + logf(l_run);
   }
   __syncthreads();
 #pragma unroll
@@ -394,9 +422,8 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / s_l[row];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      *reinterpret_cast<float4*>(o + img + (size_t)(q0 + row) * C + lane * 4 + 128 * j) =
-          make_float4(acc[r][j][0] * inv, acc[r][j][1] * inv, acc[r][j][2] * inv,
-                      acc[r][j][3] * inv);
+      store4(o + img + (size_t)(q0 + row) * C + lane * 4 + 128 * j, acc[r][j][0] * inv,
+             acc[r][j][1] * inv, acc[r][j][2] * inv, acc[r][j][3] * inv);
     }
   }
 }
@@ -418,19 +445,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <int C>
+template <typename T, int C, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                int L, float scale, cudaStream_t stream) {
-  auto kernel = attn_fwd_f32_kernel<C>;
+  auto kernel = attn_fwd_f32_kernel<T, C, LSE>;
   const size_t smem = F32Cfg<C>::smem_bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(L / kF32BQ, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), L,
-      scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), L, scale);
   return (int)cudaGetLastError();
 }
 
@@ -452,9 +478,37 @@ int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void
     }
   } else if (dtype == 0) {
     switch (C) {
-      case 128: return launch_f32<128>(q, k, v, o, lse, B, L, scale, s);
-      case 256: return launch_f32<256>(q, k, v, o, lse, B, L, scale, s);
-      case 512: return launch_f32<512>(q, k, v, o, lse, B, L, scale, s);
+      case 128: return launch_f32<float, 128, true>(q, k, v, o, lse, B, L, scale, s);
+      case 256: return launch_f32<float, 256, true>(q, k, v, o, lse, B, L, scale, s);
+      case 512: return launch_f32<float, 512, true>(q, k, v, o, lse, B, L, scale, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward-only flash variant (B5): q, k, v, o as above in fp32 (dtype 0)
+// or bf16 (dtype 1), computed in fp32 throughout (products and P), no lse.
+// Replaces generative_detection_tpu/ops/attention.py `_attention_pallas`
+// (kernel `_flash_kernel`), which upcasts q, k, v to fp32 and runs both
+// products in fp32. It is the fp32 kernel above reading bf16 rows into fp32
+// shared memory. Same shape limits as gdt_attention_fwd.
+int gdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                            int L, int C, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    switch (C) {
+      case 128: return launch_f32<float, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
+      case 256: return launch_f32<float, 256, false>(q, k, v, o, nullptr, B, L, scale, s);
+      case 512: return launch_f32<float, 512, false>(q, k, v, o, nullptr, B, L, scale, s);
+    }
+  } else if (dtype == 1) {
+    switch (C) {
+      case 128:
+        return launch_f32<__nv_bfloat16, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
+      case 256:
+        return launch_f32<__nv_bfloat16, 256, false>(q, k, v, o, nullptr, B, L, scale, s);
+      case 512:
+        return launch_f32<__nv_bfloat16, 512, false>(q, k, v, o, nullptr, B, L, scale, s);
     }
   }
   return (int)cudaErrorInvalidValue;

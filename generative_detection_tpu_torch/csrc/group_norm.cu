@@ -21,6 +21,13 @@
 // read partly from L2) and writes y once, with 16-byte vector accesses by
 // consecutive threads on consecutive channels.
 //
+// A second entry, gdt_group_norm_affine, runs the stats pass alone and folds
+// its partials into the per-(image, channel) affine a = rstd * gamma,
+// b = beta - mean * a, so that silu(x * a + b) is GroupNorm+SiLU: the
+// prologue of the fused convolutions in conv3x3.cu (`_gn_affine` of
+// generative_detection_tpu/ops/fused_conv.py, XLA there). The partials are
+// kept for the backward (csrc/group_norm_bwd.cu folds them again).
+//
 // The variance is clamped at >= 0 (as `_gn_reference` does, norm.py:54); the
 // TPU kernel does not clamp (norm.py:90). The one-pass E[x^2] - E[x]^2 can
 // go slightly negative for a constant group, and rsqrt of a negative number
@@ -164,6 +171,36 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ partial,
   }
 }
 
+// Block b folds image b's stats partials (in gn_apply's order) into the
+// per-channel affine a, b, each (B, C) fp32.
+__global__ void __launch_bounds__(kThreads)
+gn_affine_kernel(const float* __restrict__ partial, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, float* __restrict__ a,
+                 float* __restrict__ b, int L, int C, int G, int tiles, float eps) {
+  extern __shared__ float smem[];  // [2][G]: mean, rstd
+  const int img = blockIdx.x;
+  const float denom = (float)L * (float)(C / G);
+  for (int g = threadIdx.x; g < G; g += kThreads) {
+    float s = 0.f, ss = 0.f;
+    const float* p = partial + (size_t)img * tiles * 2 * G + g;
+    for (int t = 0; t < tiles; ++t) {
+      s += p[(2 * t) * G];
+      ss += p[(2 * t + 1) * G];
+    }
+    const float mean = s / denom;
+    const float var = fmaxf(ss / denom - mean * mean, 0.f);
+    smem[g] = mean;
+    smem[G + g] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+  const int cg = C / G;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float av = smem[G + c / cg] * gamma[c];
+    a[(size_t)img * C + c] = av;
+    b[(size_t)img * C + c] = beta[c] - smem[c / cg] * av;
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* gamma, const void* beta, void* y, void* partial,
            int B, int L, int C, int G, int rows_per_tile, int tiles, float eps, int silu,
@@ -209,6 +246,35 @@ int gdt_group_norm_fwd(const void* x, const void* gamma, const void* beta, void*
     return launch<__nv_bfloat16>(x, gamma, beta, y, partial, B, L, C, G, rows_per_tile,
                                  tiles, eps, silu, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The stats pass alone plus the affine fold: partial as above, a and b
+// (B, C) fp32. Same checks and tiling as gdt_group_norm_fwd.
+int gdt_group_norm_affine(const void* x, const void* gamma, const void* beta, void* partial,
+                          void* a, void* b, int B, int L, int C, int G, int rows_per_tile,
+                          int tiles, float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(tiles, B);
+  if (dtype == 0) {
+    const int rpi = kThreads / (C / VecTraits<float>::N);
+    gn_stats_kernel<float><<<grid, kThreads, 2 * rpi * C * sizeof(float), s>>>(
+        static_cast<const float*>(x), static_cast<float*>(partial), L, C, G, rows_per_tile,
+        tiles);
+  } else if (dtype == 1) {
+    const int rpi = kThreads / (C / VecTraits<__nv_bfloat16>::N);
+    gn_stats_kernel<__nv_bfloat16><<<grid, kThreads, 2 * rpi * C * sizeof(float), s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(partial), L, C, G,
+        rows_per_tile, tiles);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_affine_kernel<<<B, kThreads, 2 * G * sizeof(float), s>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<float*>(a), static_cast<float*>(b), L, C,
+      G, tiles, eps);
+  return (int)cudaGetLastError();
 }
 
 const char* gdt_error_string(int code) {

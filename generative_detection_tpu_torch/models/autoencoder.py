@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -46,7 +47,8 @@ def cast_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 class PoseAutoencoderNet(nn.Module):
     """The OD-VAE network: dual-latent encode, pose decode, pose re-encode
-    and decode."""
+    and decode. ``fuse=True`` routes the backbone's ResnetBlock norm+conv
+    pairs through the fused GroupNorm+SiLU+conv kernel (same parameters)."""
 
     def __init__(
         self,
@@ -62,6 +64,7 @@ class PoseAutoencoderNet(nn.Module):
         pose_conditioned_generation_steps: int = 10000,
         encoder_pretrain_steps: int = 0,
         add_noise_to_z_obj: bool = True,
+        fuse: bool = False,
     ):
         super().__init__()
         self.feat_dims = tuple(feat_dims)
@@ -73,8 +76,8 @@ class PoseAutoencoderNet(nn.Module):
         self.pose_conditioned_generation_steps = pose_conditioned_generation_steps
         self.encoder_pretrain_steps = encoder_pretrain_steps
         self.add_noise_to_z_obj = add_noise_to_z_obj
-        self.encoder = Encoder(ddconfig)
-        self.decoder = Decoder(ddconfig)
+        self.encoder = Encoder(ddconfig, fuse)
+        self.decoder = Decoder(ddconfig, fuse)
         zc = ddconfig["z_channels"]
         enc_out = 2 * zc if ddconfig.get("double_z", True) else zc
         self.quant_conv_obj = nn.Conv2d(enc_out, 2 * embed_dim, 1)
@@ -293,9 +296,9 @@ class PoseAutoencoder:
             prior_logvars=prior_logvars,
         )
 
-    def build_net(self) -> PoseAutoencoderNet:
+    def build_net(self, fuse: bool = False) -> PoseAutoencoderNet:
         """A float32 network on the CPU with PyTorch's default init (for
-        loading a state_dict into)."""
+        loading a state_dict into); ``fuse`` as ``PoseAutoencoderNet``'s."""
         return PoseAutoencoderNet(
             ddconfig=self.ddconfig,
             embed_dim=self.embed_dim,
@@ -309,7 +312,15 @@ class PoseAutoencoder:
             pose_conditioned_generation_steps=self.pose_conditioned_generation_steps,
             encoder_pretrain_steps=self.encoder_pretrain_steps,
             add_noise_to_z_obj=self.add_noise_to_z_obj,
+            fuse=fuse,
         )
+
+    def inference_net(self) -> PoseAutoencoderNet:
+        """The network of the forward-only paths (the detector), as
+        ``build_net``: ``GDT_FUSE_INFERENCE=1`` builds it with the fused
+        GroupNorm+SiLU+conv kernels (``inference_net()`` of the JAX package,
+        which clones its net with ``fuse=True``). Same parameter names."""
+        return self.build_net(fuse=os.environ.get("GDT_FUSE_INFERENCE", "0") == "1")
 
     def build_loss(self):
         """A float32 ``PoseLoss`` on the CPU with PyTorch's default init (for

@@ -4,7 +4,23 @@ the JAX package; ldm ``Encoder``/``Decoder`` semantics and parameter names).
 Layout: modules take and return NCHW tensors in ``torch.channels_last``
 memory, so every GroupNorm reads contiguous NHWC rows and every AttnBlock
 gets (B, L, C) tokens without a transpose. Convolutions and dense products
-stay cuDNN/cuBLAS; GroupNorm and attention go through ``ops``.
+stay cuDNN/cuBLAS by default; GroupNorm and attention go through ``ops``.
+
+The ResnetBlocks' 3x3 convs have the JAX package's opt-in formulations,
+read from the same switches, per call (JAX reads them when it traces):
+
+- ``fuse=True`` nets (``PoseAutoencoder.inference_net()`` with
+  ``GDT_FUSE_INFERENCE=1``): each norm+conv pair that ``fused_eligible``
+  takes goes through ``ops.gn_silu_conv``, the fused GroupNorm+SiLU+conv;
+- ``GDT_WINOGRAD``: ``fused`` routes in-band (32 <= side <= 128) norm+conv
+  pairs through ``ops.gn_silu_wino_conv3x3``; ``auto`` (in band) and
+  ``pallas``/``pallas4`` route the conv alone through
+  ``ops.wino_rows_conv3x3`` with F(4,3), F(2,3), F(4,3); ``1``/``xla`` take
+  the plain 2-D ``ops.winograd_conv3x3``;
+- ``GDT_SUBPIXEL_UP=1``: the decoder's Upsample runs the phase-decomposed
+  2x2 conv at the low resolution (``ops.subpixel_upsample_conv``).
+
+None of them changes a parameter name.
 
 Compute dtype: a module computes in the dtype of its conv weights (bf16 for
 serving), while GroupNorm affine parameters stay float32 — flax keeps params
@@ -18,6 +34,7 @@ inputs) plus the mid block.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -25,6 +42,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import group_norm, single_head_attention
+from ..ops.fused_conv import fused_eligible, gn_silu_conv
+from ..ops.upsample import subpixel_upsample_conv
+from ..ops.winograd import winograd_conv3x3
+from ..ops.winograd_rows import (
+    gn_silu_wino_conv3x3,
+    gn_silu_wino_eligible,
+    wino_rows_conv3x3,
+    wino_rows_eligible,
+)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +60,36 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
+
+
+def _shape_nhwc(x: torch.Tensor) -> tuple:
+    b, c, h, w = x.shape
+    return (b, h, w, c)
+
+
+def _compute_dtype(weight: torch.Tensor) -> torch.dtype:
+    """The dtype a conv computes in (flax's module ``dtype``): autocast's
+    when it is on for the weight's device, else the weight's own."""
+    dev = weight.device.type
+    if torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return weight.dtype
+
+
+def _wino_band(shape) -> bool:
+    """The mid-resolution band of the JAX package's F(4,3) routing (NHWC
+    shape): 32 <= min(H, W) and max(H, W) <= 128."""
+    return 32 <= min(shape[1], shape[2]) and max(shape[1], shape[2]) <= 128
+
+
+def _fused_wino_ok(shape, cout, dtype) -> bool:
+    """GDT_WINOGRAD=fused: in-band GN+SiLU->conv pairs go through the fused
+    GroupNorm+SiLU+row-Winograd conv."""
+    return (
+        os.environ.get("GDT_WINOGRAD", "0") == "fused"
+        and _wino_band(shape)
+        and gn_silu_wino_eligible(shape, cout, dtype, 4)
+    )
 
 
 class GroupNormSiLU(nn.Module):
@@ -53,16 +109,63 @@ class GroupNormSiLU(nn.Module):
         return _nchw(y)
 
 
+# GDT_WINOGRAD values that change a conv taken alone ("fused" changes only
+# the norm+conv pairs, which reach the conv with their affine)
+_WINOGRAD_CONV_MODES = ("1", "xla", "pallas", "pallas4", "auto")
+
+
+def _conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
+    """A plain 3x3 SAME conv (flax ``nn.Conv`` in the JAX package)."""
+    return nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+
 class Conv3x3(nn.Conv2d):
-    """3x3 SAME conv, the direct formulation (``blocks.py:123-130``)."""
+    """A ResnetBlock's 3x3 SAME conv with the formulation switch of
+    ``blocks.py:84-130``, and the fused GroupNorm+SiLU input path when the
+    block hands it the norm's affine (``gn_affine``)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
 
+    def forward(self, x: torch.Tensor, gn_affine=None) -> torch.Tensor:
+        wino = os.environ.get("GDT_WINOGRAD", "0")
+        if gn_affine is None and wino not in _WINOGRAD_CONV_MODES:
+            return super().forward(x)
+        shape, dtype = _shape_nhwc(x), _compute_dtype(self.weight)
+        kernel = self.weight.permute(2, 3, 1, 0)  # HWIO, as the ops take it
+        if gn_affine is not None:
+            gamma, beta = gn_affine
+            if _fused_wino_ok(shape, self.out_channels, dtype):
+                return _nchw(gn_silu_wino_conv3x3(_nhwc(x), gamma, beta, kernel, self.bias,
+                                                  dtype, 4))
+            return _nchw(gn_silu_conv(_nhwc(x), gamma, beta, kernel, self.bias))
+        m_out = None
+        if wino == "auto":
+            if _wino_band(shape) and wino_rows_eligible(shape, self.out_channels, dtype, 4):
+                m_out = 4
+        elif wino in ("pallas", "pallas4"):
+            m = 4 if wino == "pallas4" else 2
+            if wino_rows_eligible(shape, self.out_channels, dtype, m):
+                m_out = m
+        if m_out is not None:
+            return _nchw(wino_rows_conv3x3(_nhwc(x), kernel, self.bias, dtype, m_out))
+        if wino in ("1", "xla") and shape[1] % 2 == 0 and shape[2] % 2 == 0:
+            return _nchw(winograd_conv3x3(_nhwc(x), kernel, self.bias, dtype))
+        return super().forward(x)
+
 
 class ResnetBlock(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    """GroupNorm+SiLU -> conv, twice, with a 1x1 shortcut when the channel
+    count changes. ``fuse`` routes each norm+conv pair that
+    ``fused_eligible`` takes through the fused kernel; ``GDT_WINOGRAD=fused``
+    routes in-band pairs through the fused Winograd conv (``blocks.py:151-170``).
+    The JAX block also requires dropout == 0 or a deterministic call before
+    fusing the second pair; the port's blocks have no dropout (the JAX nets
+    are always called deterministically, so the gate is always open)."""
+
+    def __init__(self, in_channels: int, out_channels: int, fuse: bool = False):
         super().__init__()
+        self.fuse = fuse
         self.norm1 = GroupNormSiLU(in_channels)
         self.conv1 = Conv3x3(in_channels, out_channels)
         self.norm2 = GroupNormSiLU(out_channels)
@@ -70,8 +173,19 @@ class ResnetBlock(nn.Module):
         if in_channels != out_channels:
             self.nin_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
+    def _pair(self, x: torch.Tensor, norm: GroupNormSiLU, conv: Conv3x3) -> torch.Tensor:
+        if self.fuse or os.environ.get("GDT_WINOGRAD", "0") == "fused":
+            shape, dtype = _shape_nhwc(x), _compute_dtype(conv.weight)
+            if (self.fuse and fused_eligible(shape, conv.out_channels, dtype)) or _fused_wino_ok(
+                shape, conv.out_channels, dtype
+            ):
+                return conv(x, gn_affine=(norm.weight, norm.bias))
+        y = norm(x)
+        del x  # the first conv's output is not held while the second runs (peak memory)
+        return conv(y)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        h = self._pair(self._pair(x, self.norm1, self.conv1), self.norm2, self.conv2)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -115,13 +229,18 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest 2x, then a 3x3 SAME conv."""
+    """Nearest 2x, then a 3x3 SAME conv; ``GDT_SUBPIXEL_UP=1`` computes the
+    same op as a phase-decomposed 2x2 conv at the low resolution."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = Conv3x3(channels, channels)
+        self.conv = _conv3x3(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if os.environ.get("GDT_SUBPIXEL_UP", "0") == "1":
+            w = self.conv.weight
+            return _nchw(subpixel_upsample_conv(_nhwc(x), w.permute(2, 3, 1, 0),
+                                                self.conv.bias, _compute_dtype(w)))
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
@@ -140,15 +259,16 @@ def _parse_ddconfig(ddconfig: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class Encoder(nn.Module):
-    """256x256x3 -> 16x16x(2*z_channels) in the flagship configuration."""
+    """256x256x3 -> 16x16x(2*z_channels) in the flagship configuration;
+    ``fuse`` goes to every ResnetBlock."""
 
-    def __init__(self, ddconfig: Dict[str, Any]):
+    def __init__(self, ddconfig: Dict[str, Any], fuse: bool = False):
         super().__init__()
         cfg = _parse_ddconfig(ddconfig)
         ch, ch_mult = cfg["ch"], cfg["ch_mult"]
         in_ch_mult = (1,) + ch_mult
         curr_res = cfg["resolution"]
-        self.conv_in = Conv3x3(cfg["in_channels"], ch)
+        self.conv_in = _conv3x3(cfg["in_channels"], ch)
         self.down = nn.ModuleList()
         for i_level in range(len(ch_mult)):
             level = nn.Module()
@@ -156,7 +276,7 @@ class Encoder(nn.Module):
             block_in = ch * in_ch_mult[i_level]
             block_out = ch * ch_mult[i_level]
             for _ in range(cfg["num_res_blocks"]):
-                level.block.append(ResnetBlock(block_in, block_out))
+                level.block.append(ResnetBlock(block_in, block_out, fuse))
                 block_in = block_out
                 if curr_res in cfg["attn_resolutions"]:
                     level.attn.append(AttnBlock(block_in))
@@ -165,12 +285,12 @@ class Encoder(nn.Module):
                 curr_res //= 2
             self.down.append(level)
         self.mid = nn.Module()
-        self.mid.block_1 = ResnetBlock(block_in, block_in)
+        self.mid.block_1 = ResnetBlock(block_in, block_in, fuse)
         self.mid.attn_1 = AttnBlock(block_in)
-        self.mid.block_2 = ResnetBlock(block_in, block_in)
+        self.mid.block_2 = ResnetBlock(block_in, block_in, fuse)
         self.norm_out = GroupNormSiLU(block_in)
         out_c = 2 * cfg["z_channels"] if cfg["double_z"] else cfg["z_channels"]
-        self.conv_out = Conv3x3(block_in, out_c)
+        self.conv_out = _conv3x3(block_in, out_c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_in(x.to(self.conv_in.weight.dtype))
@@ -186,27 +306,27 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """16x16xz_channels -> 256x256xout_ch. The detector does not run it; it is
-    here so that a full checkpoint loads with ``strict=True``."""
+    """16x16xz_channels -> 256x256xout_ch (the detector does not run it);
+    ``fuse`` goes to every ResnetBlock."""
 
-    def __init__(self, ddconfig: Dict[str, Any]):
+    def __init__(self, ddconfig: Dict[str, Any], fuse: bool = False):
         super().__init__()
         cfg = _parse_ddconfig(ddconfig)
         ch, ch_mult = cfg["ch"], cfg["ch_mult"]
         curr_res = cfg["resolution"] // 2 ** (len(ch_mult) - 1)
         block_in = ch * ch_mult[-1]
-        self.conv_in = Conv3x3(cfg["z_channels"], block_in)
+        self.conv_in = _conv3x3(cfg["z_channels"], block_in)
         self.mid = nn.Module()
-        self.mid.block_1 = ResnetBlock(block_in, block_in)
+        self.mid.block_1 = ResnetBlock(block_in, block_in, fuse)
         self.mid.attn_1 = AttnBlock(block_in)
-        self.mid.block_2 = ResnetBlock(block_in, block_in)
+        self.mid.block_2 = ResnetBlock(block_in, block_in, fuse)
         self.up = nn.ModuleList()
         for i_level in reversed(range(len(ch_mult))):
             level = nn.Module()
             level.block, level.attn = nn.ModuleList(), nn.ModuleList()
             block_out = ch * ch_mult[i_level]
             for _ in range(cfg["num_res_blocks"] + 1):
-                level.block.append(ResnetBlock(block_in, block_out))
+                level.block.append(ResnetBlock(block_in, block_out, fuse))
                 block_in = block_out
                 if curr_res in cfg["attn_resolutions"]:
                     level.attn.append(AttnBlock(block_in))
@@ -215,7 +335,7 @@ class Decoder(nn.Module):
                 curr_res *= 2
             self.up.insert(0, level)
         self.norm_out = GroupNormSiLU(block_in)
-        self.conv_out = Conv3x3(block_in, cfg["out_ch"])
+        self.conv_out = _conv3x3(block_in, cfg["out_ch"])
 
     def forward(self, z: torch.Tensor, return_pre_out: bool = False):
         h = self.conv_in(z.to(self.conv_in.weight.dtype))

@@ -28,7 +28,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("group_norm", "group_norm_bwd", "attention", "attention_bwd")
+SOURCES = (
+    "group_norm", "group_norm_bwd", "attention", "attention_bwd", "conv3x3", "conv3x3_wgrad",
+)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

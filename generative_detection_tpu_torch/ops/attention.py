@@ -22,6 +22,11 @@ Kernel notes:
   two deterministic launches (FlashAttention-2's split): dK/dV per key tile
   over a 128-channel slice, then dQ per query tile. di = rowsum(dO * O) is a
   torch reduction, as it is XLA outside the Pallas body in the JAX package.
+- forward-only flash variant: ``flash_attention_forward`` replaces
+  ``_attention_pallas`` (kernel ``_flash_kernel``), which upcasts q, k, v to
+  fp32, keeps P in fp32 and writes no lse. In the JAX package only its
+  availability probe and interpret mode reach it. On the H100 it is the fp32
+  kernel of ``csrc/attention.cu`` reading bf16 rows into fp32 shared memory.
 """
 
 from __future__ import annotations
@@ -70,7 +75,18 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gdt_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
         lib.gdt_attention_fwd.restype = i
+        lib.gdt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gdt_flash_attention_fwd.restype = i
     return lib
+
+
+def _flash_reference(q, k, v):
+    """Plain forward-only flash numerics (``_flash_kernel``): q, k, v upcast
+    to fp32, softmax and P . V in fp32, output in q's dtype."""
+    c = q.shape[-1]
+    logits = torch.einsum("blc,bmc->blm", q.float(), k.float()) * c**-0.5
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("blm,bmc->blc", w, v.float()).to(q.dtype)
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -110,6 +126,30 @@ def _attention_cuda(q, k, v):
     _build.check(lib, rc, "attention kernel launch")
     single_head_attention.launches += 1
     return o, lse
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Forward-only softmax(q k^T / sqrt(C)) v over (B, L, C) with every
+    product in fp32 whatever the input dtype (the counterpart of the JAX
+    package's ``_attention_pallas``). Not differentiable."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash attention takes equal (B, L, C) q, k, v, got {q.shape}")
+    if q.device.type == "cpu":
+        return _flash_reference(q, k, v)
+    _check_kernel_args(q, k, v)
+    b, l, c = q.shape
+    o = torch.empty_like(q)
+    lib = _lib()
+    rc = lib.gdt_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, c, float(c) ** -0.5,
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, "flash attention kernel launch")
+    flash_attention_forward.launches += 1
+    return o
+
+
+flash_attention_forward.launches = 0
 
 
 def _attention_backward_cuda(q, k, v, do, lse, di):

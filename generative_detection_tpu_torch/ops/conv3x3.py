@@ -1,0 +1,163 @@
+"""ctypes bindings of the 3x3 convolution kernels, ``csrc/conv3x3.cu`` (the
+direct and row-Winograd forward, with the GroupNorm+SiLU prologue) and
+``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient).
+
+These launch and check; they count nothing. The wrappers that own the
+launch counts are in ``ops.fused_conv`` and ``ops.winograd_rows``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BM = 64  # output positions per block of the forward kernel
+BN = 64  # output channels per block (both kernels)
+KC = 16  # input-channel chunk of the forward kernel
+TC = 64  # input channels per block of the weight-gradient kernel
+# weight-gradient blocks to aim for: a few per SM of the H100's 132
+_TARGET_BLOCKS = 528
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv3x3")
+    if lib.gdt_conv3x3_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gdt_conv3x3_fwd.argtypes = [p] * 7 + [i] * 11 + [p]
+        lib.gdt_conv3x3_fwd.restype = i
+    return lib
+
+
+def _wgrad_lib() -> ctypes.CDLL:
+    lib = _build.load("conv3x3_wgrad")
+    if lib.gdt_conv3x3_wgrad.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gdt_conv3x3_wgrad.argtypes = [p] * 6 + [i] * 9 + [p]
+        lib.gdt_conv3x3_wgrad.restype = i
+    return lib
+
+
+def _check(*tensors, dtype):
+    if dtype not in _DTYPES:
+        raise TypeError(f"conv3x3 kernels take float32 or bfloat16, got {dtype}")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda" or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("conv3x3 kernels take contiguous, 16-byte aligned CUDA tensors")
+
+
+def _affine_args(gn_ab, b, c, device):
+    if gn_ab is None:
+        return None, None
+    ga, gb = (t.float().reshape(b, c).contiguous() for t in gn_ab)
+    if ga.device != device:
+        raise ValueError("conv3x3: the GroupNorm affine must be on the input's device")
+    return ga, gb
+
+
+def _tile(w: int) -> tuple[int, int]:
+    """The forward kernel's block tile: ``tt`` t-rows of ``tw`` columns."""
+    tw = min(w, BM)
+    return tw, BM // tw
+
+
+def conv3x3_forward(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    bias: torch.Tensor,
+    mode: int,
+    gn_ab: Optional[tuple] = None,
+    emit_z: bool = False,
+):
+    """Launch ``csrc/conv3x3.cu``: x (B, H, W, C), u (P*3, C, CO) in x's
+    dtype (P = 3 for ``mode`` 1, the direct kernel; mode + 2 for F(mode,3)),
+    bias (CO,) fp32, ``gn_ab`` the (B, C) fp32 GroupNorm affine of the
+    prologue. Returns out (B, H, W, CO), and z (B, H, W, C) with ``emit_z``."""
+    b, h, w, c = x.shape
+    co = u.shape[-1]
+    pts = 3 if mode == 1 else mode + 2
+    bias = bias.float().contiguous()
+    ga, gb = _affine_args(gn_ab, b, c, x.device)
+    _check(x, u, bias, ga, gb, dtype=x.dtype)
+    tw, tt = _tile(w)
+    if (
+        mode not in (1, 2, 4)
+        or u.shape != (pts * 3, c, co)
+        or u.dtype != x.dtype
+        or c % KC
+        or co % BN
+        or h % mode
+        or w % tw
+        or (emit_z and (mode != 1 or gn_ab is None))
+    ):
+        raise ValueError(
+            f"conv3x3 kernel takes C % {KC} == 0, CO % {BN} == 0, H % mode == 0 and "
+            f"W <= {BM} or W % {BM} == 0, got x {tuple(x.shape)}, u {tuple(u.shape)} "
+            f"{u.dtype}, mode {mode}, emit_z {emit_z}"
+        )
+    out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    z = torch.empty_like(x) if emit_z else None
+    lib = _lib()
+    rc = lib.gdt_conv3x3_fwd(
+        x.data_ptr(), u.data_ptr(), bias.data_ptr(),
+        ga.data_ptr() if ga is not None else None,
+        gb.data_ptr() if gb is not None else None,
+        out.data_ptr(), z.data_ptr() if z is not None else None,
+        b, h, w, c, co, mode, int(gn_ab is not None), int(emit_z), tw, tt,
+        _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "conv3x3 kernel launch")
+    return (out, z) if emit_z else out
+
+
+def _wgrad_splits(b: int, h: int, w: int, c: int, co: int, m: int) -> int:
+    """Split-K factor of the weight-gradient kernel: enough blocks to fill
+    the card, at most one per position chunk."""
+    chunks = b * (h // m) * math.ceil(w / 32)
+    blocks = (c // TC) * (co // BN) * (m + 2)
+    return max(1, min(math.ceil(_TARGET_BLOCKS / blocks), chunks))
+
+
+def conv3x3_wgrad(
+    z: torch.Tensor, dy: torch.Tensor, m: int, gn_ab: Optional[tuple] = None
+) -> torch.Tensor:
+    """Launch ``csrc/conv3x3_wgrad.cu``: z (B, H, W, C) (raw x with
+    ``gn_ab``), dy (B, H, W, CO) in z's dtype. Returns dU ((m+2)*3, C, CO)
+    float32."""
+    b, h, w, c = z.shape
+    co = dy.shape[-1]
+    ga, gb = _affine_args(gn_ab, b, c, z.device)
+    _check(z, dy, ga, gb, dtype=z.dtype)
+    if (
+        m not in (2, 4)
+        or dy.shape != (b, h, w, co)
+        or dy.dtype != z.dtype
+        or c % TC
+        or co % BN
+        or h % m
+    ):
+        raise ValueError(
+            f"conv3x3 wgrad kernel takes C % {TC} == 0, CO % {BN} == 0 and H % m == 0, "
+            f"got z {tuple(z.shape)}, dy {tuple(dy.shape)} {dy.dtype}, m {m}"
+        )
+    splits = _wgrad_splits(b, h, w, c, co, m)
+    pts = m + 2
+    part = torch.empty((splits, pts * 3, c, co), dtype=torch.float32, device=z.device)
+    du = torch.empty((pts * 3, c, co), dtype=torch.float32, device=z.device)
+    lib = _wgrad_lib()
+    rc = lib.gdt_conv3x3_wgrad(
+        z.data_ptr(), dy.data_ptr(),
+        ga.data_ptr() if ga is not None else None,
+        gb.data_ptr() if gb is not None else None,
+        part.data_ptr(), du.data_ptr(), b, h, w, c, co, m, int(gn_ab is not None), splits,
+        _DTYPES[z.dtype], torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _build.check(lib, rc, "conv3x3 wgrad kernel launch")
+    return du

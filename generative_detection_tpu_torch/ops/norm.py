@@ -19,6 +19,11 @@ Kernel notes:
   tiles in two launches, a deterministic stats pass with per-tile partials
   and an apply pass, so one kernel takes every GroupNorm of the model, from
   16x16x512 up to 256x256x128 per image.
+- affine: ``group_norm_affine`` runs the forward's stats pass alone and folds
+  it into the per-(image, channel) affine (a, b) with silu(x a + b) =
+  GroupNorm+SiLU: the prologue of the fused convolutions (``_gn_affine`` of
+  the JAX package's ``ops/fused_conv.py``, XLA there). It keeps the stats for
+  ``group_norm_backward``, as the forward does.
 - backward: replaces the chunked custom VJP's reduce and dx kernels
   (``_gn_bwd_reduce_chunk_kernel``, ``_gn_bwd_dx_chunk_kernel``). Also
   memory-bound (read x and dy, write dx); two launches, a reduce pass with
@@ -95,6 +100,21 @@ def _gn_backward_reference(x, dy, mean, rstd, gamma, beta, act):
     return dx.reshape(b, h, w, c).to(x.dtype), dgamma, dbeta
 
 
+def _gn_affine_reference(x, gamma, beta, num_groups, eps):
+    """Plain affine (``fused_conv.py:52-69`` of the JAX package): returns
+    (a, b, mean, rstd), a and b (B, C) float32, mean and rstd (B, G)."""
+    bsz, h, w, c = x.shape
+    cg = c // num_groups
+    xg = x.reshape(bsz, h * w, num_groups, cg).float()
+    mean = xg.mean(dim=(1, 3))
+    meansq = xg.square().mean(dim=(1, 3))
+    var = torch.clamp(meansq - mean.square(), min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    a = rstd.repeat_interleave(cg, dim=-1) * gamma.float()[None, :]
+    b = beta.float()[None, :] - mean.repeat_interleave(cg, dim=-1) * a
+    return a, b, mean, rstd
+
+
 def _tiling(b: int, l: int) -> tuple[int, int]:
     """Rows per tile and tiles per image: enough blocks to fill the card."""
     tiles = max(1, min(math.ceil(_TARGET_BLOCKS / b), math.ceil(l / 16)))
@@ -110,6 +130,10 @@ def _lib() -> ctypes.CDLL:
             p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p,
         ]
         lib.gdt_group_norm_fwd.restype = i
+        lib.gdt_group_norm_affine.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p,
+        ]
+        lib.gdt_group_norm_affine.restype = i
     return lib
 
 
@@ -164,6 +188,45 @@ def _gn_cuda(x, gamma, beta, num_groups, eps, act):
     _build.check(lib, rc, "group_norm kernel launch")
     group_norm.launches += 1
     return y, partial
+
+
+def _gn_affine_cuda(x, gamma, beta, num_groups, eps):
+    """Stats kernel plus affine fold: returns (a, b, partial)."""
+    _check_kernel_args(x, gamma, beta, None)
+    b, h, w, c = x.shape
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    l = h * w
+    rows, tiles = _tiling(b, l)
+    partial = torch.empty((b, tiles, 2, num_groups), dtype=torch.float32, device=x.device)
+    a = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    shift = torch.empty_like(a)
+    lib = _lib()
+    rc = lib.gdt_group_norm_affine(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(), a.data_ptr(),
+        shift.data_ptr(), b, l, c, num_groups, rows, tiles, eps, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, rc, "group_norm affine kernel launch")
+    group_norm_affine.launches += 1
+    return a, shift, partial
+
+
+def group_norm_affine(x, gamma, beta, num_groups=32, eps=1e-6):
+    """The per-(image, channel) float32 affine (a, b) of GroupNorm over NHWC
+    ``x``, each (B, C), and the ``stats`` that ``group_norm_backward`` takes:
+    (mean, rstd) for a CPU tensor, the kernel's (partial,) for a CUDA one.
+    Not differentiable itself: the fused convolutions' backward uses
+    ``group_norm_backward``."""
+    if x.device.type == "cpu":
+        a, b, mean, rstd = _gn_affine_reference(x, gamma, beta, num_groups, eps)
+        return a, b, (mean, rstd)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_affine runs on cpu or cuda, got {x.device}")
+    a, b, partial = _gn_affine_cuda(x, gamma, beta, num_groups, eps)
+    return a, b, (partial,)
+
+
+group_norm_affine.launches = 0  # calls that launched the stats + affine kernels
 
 
 def _gn_backward_cuda(x, dy, partial, gamma, beta, num_groups, eps, act):

@@ -49,7 +49,10 @@ def make_detector_fn(
     resampling) -> (boxes_3d (B, 7), class_id (B,), score (B,))``.
 
     ``model`` is a ``PoseAutoencoder``; the weights come from a state_dict or
-    from a network, which is copied and left as it is. In a reduced dtype,
+    from a network, which is copied and left as it is, into the network of
+    ``model.inference_net()`` (fused GroupNorm+SiLU+conv kernels when
+    ``GDT_FUSE_INFERENCE=1``, as the JAX package's ``pose_inference``
+    builds it). In a reduced dtype,
     conv and dense weights are cast and GroupNorm affine stays float32.
     Inputs may be numpy arrays or tensors; patches are (B, H, W, 3)."""
     sd = (
@@ -57,7 +60,7 @@ def make_detector_fn(
         if isinstance(state_dict_or_net, nn.Module)
         else state_dict_or_net
     )
-    net = model.build_net()
+    net = model.inference_net()
     cast_compute_dtype(net, model.compute_dtype)
     net.load_state_dict(sd, strict=True)
     dtype = _resolve_serve_dtype(dtype)

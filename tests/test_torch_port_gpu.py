@@ -198,6 +198,23 @@ def test_tiny_train_step_card_matches_cpu(cuda):
     Adam first moments are (1 - b1) * the clipped gradients. Limits: losses
     1e-3 relative; moments 1e-3 of each optimizer's largest (the composite
     loss is ~1e6, so summation noise scales with the global gradient)."""
+    _tiny_train_step_card_vs_cpu()
+
+
+def test_tiny_fused_winograd_train_step_card_matches_cpu(cuda, monkeypatch):
+    """The same step with GDT_WINOGRAD=fused: the in-band (32x32) norm+conv
+    pairs run the fused GroupNorm+SiLU+Winograd forward, dgrad and weight
+    gradient kernels on the card and their plain versions on the CPU."""
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    monkeypatch.setenv("GDT_WINOGRAD", "fused")
+    before = (wr.wino_rows_forward.launches, wr.wino_rows_dgrad.launches, wr.wino_wgrad.launches)
+    _tiny_train_step_card_vs_cpu()
+    after = (wr.wino_rows_forward.launches, wr.wino_rows_dgrad.launches, wr.wino_wgrad.launches)
+    assert [b - a for a, b in zip(before, after)] == [6, 6, 6]
+
+
+def _tiny_train_step_card_vs_cpu():
     cfg = merge_configs(
         [str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")], ["model.params.ddconfig.ch=128"]
     )
@@ -231,3 +248,182 @@ def test_tiny_train_step_card_matches_cpu(cuda):
         assert abs(got[k] - w) <= 1e-3 * abs(w), (k, got[k], w)
     for g, w in zip(got_m, want_m):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * w.abs().max().item())
+
+
+# ---- the opt-in conv formulations (B6-B8), the flash variant (B5) ---------
+
+# Kernel against plain version, max |err| <= tol * RMS(plain): fp32 differs
+# in summation order; bf16 rounds the same fp32 values to bf16 (and the
+# activation of the prologue, computed as v / (1 + e^-v) in the kernel and
+# v * sigmoid(v) in the plain version, can round one bf16 ulp apart).
+CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+
+
+def _conv_inputs(g, shape, co, dtype):
+    from generative_detection_tpu_torch.ops.norm import group_norm_affine
+
+    x, gamma, beta = _gn_inputs(g, shape, dtype)
+    c = shape[-1]
+    k = torch.randn(3, 3, c, co, device="cuda", generator=g) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn(co, device="cuda", generator=g)
+    a, b, _ = group_norm_affine(x, gamma, beta)
+    return x, gamma, beta, k, bias, a, b
+
+
+def _rel_close(got, want, tol):
+    want = want.float()
+    err = (got.float() - want).abs().max()
+    assert err <= tol * want.pow(2).mean().sqrt(), f"max err {err}, rms {want.pow(2).mean().sqrt()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_affine_kernel_matches_plain(cuda, dtype):
+    x, gamma, beta = _gn_inputs(cuda, (2, 64, 64, 256), dtype)
+    a, b, (partial,) = norm.group_norm_affine(x, gamma, beta)
+    wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
+    torch.testing.assert_close(a, wa, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(b, wb, rtol=1e-4, atol=1e-5)
+    assert partial.shape[0] == 2 and partial.shape[2:] == (2, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw, c, co", [(64, 128, 256), (16, 512, 512), (8, 128, 128), (32, 256, 128)])
+def test_fused_conv_kernel_matches_plain(cuda, hw, c, co, dtype):
+    from generative_detection_tpu_torch.ops import fused_conv
+
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    before = fused_conv.gn_silu_conv.launches
+    out, z = fused_conv._fused_forward(x, a, b, k, bias, emit_z=True)
+    out2, _ = fused_conv._fused_forward(x, a, b, k, bias, emit_z=False)
+    want_z = fused_conv._silu_affine(x, a, b)
+    want = fused_conv._conv_bias(want_z, k, bias)
+    torch.cuda.synchronize()
+    assert fused_conv.gn_silu_conv.launches == before + 2
+    assert out.dtype == dtype and out.shape == (2, hw, hw, co)
+    assert torch.equal(out, out2)
+    _rel_close(out, want, CONV_REL_TOL[dtype])
+    _rel_close(z, want_z, CONV_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gn", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (64, 256, 128), (16, 128, 128)])
+def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    u = wr._u3n(k, dtype, m)
+    ab = (a, b) if gn else None
+    before = wr.wino_rows_forward.launches
+    got = wr.wino_rows_forward(x, u, bias, m, ab)
+    want = wr._wino_rows_reference(x, u, bias, *(ab or (None, None)), m)
+    torch.cuda.synchronize()
+    assert wr.wino_rows_forward.launches == before + 1
+    _rel_close(got, want, CONV_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gn", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (16, 256, 128)])
+def test_wino_wgrad_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
+    from generative_detection_tpu_torch.ops import conv3x3
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    x, _, _, _, _, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    dy = torch.randn(2, hw, hw, co, device="cuda", generator=cuda).to(dtype)
+    ab = (a, b) if gn else None
+    got = conv3x3.conv3x3_wgrad(x, dy, m, ab)
+    again = conv3x3.conv3x3_wgrad(x, dy, m, ab)
+    want = wr._wino_wgrad_reference(x, dy, *(ab or (None, None)), m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # split-K partials folded in a fixed order
+    _rel_close(got, want, CONV_REL_TOL[dtype])
+
+
+def test_conv_autograd_runs_the_kernels(cuda):
+    """gn_silu_wino_conv3x3 under autograd: forward, dgrad and weight
+    gradient kernels each launch once, and the gradients match the plain
+    composite's in fp32."""
+    from generative_detection_tpu_torch.ops import fused_conv
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    x, gamma, beta, k, bias, _, _ = _conv_inputs(cuda, (2, 32, 32, 128), 256, torch.float32)
+    args = [t.clone().requires_grad_(True) for t in (x, gamma, beta, k, bias)]
+    before = (wr.wino_rows_forward.launches, wr.wino_rows_dgrad.launches, wr.wino_wgrad.launches)
+    out = wr.gn_silu_wino_conv3x3(*args, torch.float32, 4)
+    ct = torch.randn(out.shape, device="cuda", generator=cuda)
+    grads = torch.autograd.grad(out, args, ct)
+    after = (wr.wino_rows_forward.launches, wr.wino_rows_dgrad.launches, wr.wino_wgrad.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    ref = [t.clone().requires_grad_(True) for t in (x, gamma, beta, k, bias)]
+    want_out = fused_conv.gn_silu_conv_reference(*ref)
+    want = torch.autograd.grad(want_out, ref, ct)
+    _rel_close(out, want_out, 1e-3)
+    for g, w in zip(grads, want):
+        _rel_close(g, w, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128)])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
+    before = attention.flash_attention_forward.launches
+    o = attention.flash_attention_forward(q, k, v)
+    want = attention._flash_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_forward.launches == before + 1
+    _rel_close(o, want, ATTN_REL_TOL[dtype])
+
+
+def _tiny_model():
+    cfg = merge_configs(
+        [str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")], ["model.params.ddconfig.ch=128"]
+    )
+    return instantiate_from_config(cfg["model"])
+
+
+def test_tiny_fused_detector_card_matches_cpu(cuda, monkeypatch):
+    from generative_detection_tpu_torch.ops import fused_conv
+
+    monkeypatch.setenv("GDT_FUSE_INFERENCE", "1")
+    model = _tiny_model()
+    net = model.init_net(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    b = 2
+    args = (
+        rng.normal(size=(b, 32, 32, 3)).astype(np.float32), np.full((b,), 1266.0, np.float32),
+        np.tile(np.float32([800.0, 450.0]), (b, 1)), np.full((b,), 100.0, np.float32),
+        np.tile(np.float32([820.0, 460.0]), (b, 1)), np.full((b,), 2.56, np.float32),
+    )
+    hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
+    outs = []
+    for device in ("cuda", "cpu"):
+        before = fused_conv.gn_silu_conv.launches
+        det = make_detector_fn(model, net, hmin, hmax, 32, dtype="float32", device=device)
+        outs.append([t.cpu().numpy() for t in det(*args)])
+        if device == "cuda":
+            assert fused_conv.gn_silu_conv.launches == before + 8
+    (boxes, cls, score), (wboxes, wcls, wscore) = outs
+    np.testing.assert_allclose(boxes, wboxes, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(cls, wcls)
+    np.testing.assert_allclose(score, wscore, rtol=0, atol=1e-5)
+
+
+def test_conv_kernels_raise_outside_their_shapes(cuda):
+    from generative_detection_tpu_torch.ops import conv3x3
+
+    u = torch.zeros(9, 128, 128, device="cuda")
+    bias = torch.zeros(128, device="cuda")
+    with pytest.raises(ValueError, match="W <= 64 or W % 64 == 0"):
+        conv3x3.conv3x3_forward(torch.zeros(1, 8, 96, 128, device="cuda"), u, bias, 1)
+    with pytest.raises(ValueError, match="CO % 64 == 0"):
+        conv3x3.conv3x3_forward(torch.zeros(1, 8, 8, 128, device="cuda"),
+                                u[..., :96].contiguous(), bias[:96], 1)
+    with pytest.raises(TypeError):
+        conv3x3.conv3x3_forward(torch.zeros(1, 8, 8, 128, device="cuda", dtype=torch.float16),
+                                u.half(), bias, 1)
+    with pytest.raises(ValueError, match="C % 64 == 0"):
+        z = torch.zeros(1, 8, 8, 32, device="cuda")
+        conv3x3.conv3x3_wgrad(z, torch.zeros(1, 8, 8, 128, device="cuda"), 4)

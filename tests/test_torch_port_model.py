@@ -43,7 +43,8 @@ def jax_net_params(m, batch=2):
     x = jnp.zeros((batch, 32, 32, 3))
     k = jax.random.PRNGKey(0)
     rngs = {"params": k, "sample": k, "dropout": k, "noise": k}
-    params = m.net.init(rngs, x, jnp.asarray(0, jnp.int32))["params"]
+    # one jitted init: much cheaper on the CPU than flax's op-by-op eager init
+    params = jax.jit(m.net.init)(rngs, x, jnp.asarray(0, jnp.int32))["params"]
     return jax.tree_util.tree_map(np.asarray, params)
 
 

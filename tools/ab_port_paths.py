@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the PyTorch port on one card: the default bf16
+detector (p50 and peak memory at batch 1, 8, 32) and the default flagship
+bf16 train step (p50 at batch 16), each tree in its own process, in the
+order given.
+
+    python3 tools/ab_port_paths.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
+
+A tree is a directory holding a checkout (e.g. from ``git archive``); its
+``generative_detection_tpu_torch`` is imported and builds its own kernels.
+Only the public entry points are used, so trees of different slices compare.
+Each run prints one JSON line; the card's name and power limit come last.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+FLAGSHIP = "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"
+
+
+def _p50(fn, n: int, warmup: int = 3) -> float:
+    import torch
+
+    lat = []
+    for i in range(n + warmup):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            lat.append(time.perf_counter() - t0)
+    return statistics.median(lat) * 1e3
+
+
+def run_one(tree: str) -> dict:
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
+    from generative_detection_tpu_torch.serving import make_detector_fn
+    from generative_detection_tpu_torch.train import create_train_state, make_train_step
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    model = instantiate_from_config(merge_configs([FLAGSHIP])["model"])
+    net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
+    hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
+    detect = make_detector_fn(model, net, hmin, hmax, 256)
+    out = {"tree": tree, "detector": {}}
+    rng = np.random.default_rng(0)
+    for b, n in ((1, 20), (8, 20), (32, 10)):
+        args = [torch.as_tensor(a, device="cuda") for a in (
+            rng.uniform(-1, 1, size=(b, 256, 256, 3)).astype(np.float32),
+            np.full((b,), 1266.0, np.float32), np.tile(np.float32([800.0, 450.0]), (b, 1)),
+            rng.uniform(60, 200, size=(b,)).astype(np.float32),
+            np.tile(np.float32([820.0, 460.0]), (b, 1)),
+            rng.uniform(1.5, 3.0, size=(b,)).astype(np.float32))]
+        detect(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["detector"][b] = {"p50_ms": _p50(lambda: detect(*args), n),
+                              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del detect, net
+    torch.cuda.empty_cache()
+
+    b, size = 16, model.input_size
+    state = create_train_state(model, b * 4.5e-6, grad_clip=1.0, seed=0, device="cuda")
+    state.step = 60001  # past the flagship curriculum (optimizer step counting: 2 * step)
+    step = make_train_step(model, phase="full", disc_forward="shared",
+                           step_counting="optimizer", compute_dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mask = torch.zeros(b, size, size, 1, device="cuda")
+    mask[:, size // 16: -size // 16, size // 8: -size // 8] = 1.0
+    cls = torch.randint(0, 11, (b,), generator=g, device="cuda")
+    batch = {"rgb_gt": torch.rand(b, size, size, 3, generator=g, device="cuda") * 2 - 1,
+             "pose_gt": torch.rand(b, 4, generator=g, device="cuda") * 2 - 1,
+             "class_gt": cls, "class_orig_id": cls,
+             "bbox_gt": torch.rand(b, 3, generator=g, device="cuda") * 3 + 1,
+             "fill_factor_gt": torch.rand(b, generator=g, device="cuda"), "mask_2d_bbox": mask}
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = {"batch": b, "p50_ms": _p50(one_step, 10),
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(run_one(argv[2])), flush=True)
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for tree in argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], check=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -16,13 +16,18 @@ window, and the device time split into classes of kernels (the port's
 GroupNorm and attention kernels, forward and backward, cuDNN and cuBLAS
 convolutions and products, the optimizer, everything else). The profiler
 adds host overhead, so the busy share here is a lower bound; chip_smoke.py
-gives the unprofiled latencies.
+gives the unprofiled latencies. The switches of the opt-in conv paths are
+read from the environment as the package reads them:
+
+    GDT_FUSE_INFERENCE=1 python3 tools/profile_torch_detector.py
+    GDT_WINOGRAD=fused python3 tools/profile_torch_detector.py --train
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from collections import defaultdict
@@ -45,7 +50,9 @@ from chip_smoke import (  # noqa: E402
 from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E402
 
 CLASSES = (
-    ("group_norm_kernel", ("gn_stats", "gn_apply")),
+    ("conv3x3_kernel", ("conv3x3_bf16", "conv3x3_f32")),
+    ("conv3x3_wgrad_kernel", ("::wgrad_bf16", "::wgrad_f32", "::fold_kernel")),
+    ("group_norm_kernel", ("gn_stats", "gn_apply", "gn_affine")),
     ("group_norm_bwd_kernel", ("gn_bwd",)),
     ("attention_kernel", ("attn_fwd",)),
     ("attention_bwd_kernel", ("attn_bwd",)),
@@ -89,6 +96,7 @@ def profiled(fn, n: int) -> dict:
         "device_ms_per_run_by_class": {k: v / n for k, v in sorted(by_class.items())},
         "top_kernels_ms_per_run": [[k[:90], v / n] for k, v in top],
         "device": torch.cuda.get_device_name(0),
+        "switches": {k: v for k, v in os.environ.items() if k.startswith("GDT_")},
     }
 
 
