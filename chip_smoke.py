@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero, before the result line):
 
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
-   (one process per source, all started together);
+   (one process per source, all started together); the bf16 attention
+   kernels must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their
+   SASS (cuobjdump) and must not spill;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -134,6 +136,11 @@ TRAIN_LOSS_RTOL, MOMENT_REL = 1e-3, 1e-3
 # round one bf16 ulp apart.
 CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
+# The bf16 attention kernels on wgmma and TMA (their names carry WGMMA_TAG).
+WGMMA_TAG = "_wgmma_kernel"
+WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi128", "attn_fwd_wgmma_kernelILi256",
+                 "attn_fwd_wgmma_kernelILi512", "attn_bwd_dkdv_wgmma_kernel",
+                 "attn_bwd_dq_wgmma_kernel")
 
 
 # Every launch counter of the port, by the name the kernels line uses.
@@ -204,11 +211,30 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
+def _sass_counts(name: str) -> dict:
+    """Per kernel of the built ``csrc/<name>.cu``: the wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions in its SASS, from ``cuobjdump -sass``."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, kernel = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            kernel = ln.split("Function :")[-1].strip()
+            counts[kernel] = {"HGMMA": 0, "UTMALDG": 0}
+        elif kernel is not None:
+            for op in counts[kernel]:
+                counts[kernel][op] += op in ln
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     times = _build.build()
     wall = time.perf_counter() - t0
     spills = []  # (kernel, ptxas line) for every kernel that spills
+    ptxas = {}  # the wgmma kernels' ptxas register and spill lines
+    warnings = []
     for n in _build.SOURCES:
         kernel = None
         for ln in _build.build_log(n).splitlines():
@@ -216,7 +242,24 @@ def phase_build() -> None:
                 kernel = ln.split("Function properties for")[-1].strip()
             elif "spill" in ln and not ln.strip().startswith("0 bytes"):
                 spills.append([n, kernel, ln.strip()])
-    emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills})
+            if kernel and WGMMA_TAG in kernel and ("spill" in ln or "Used" in ln):
+                ptxas.setdefault(kernel, []).append(ln.strip())
+            elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
+                warnings.append(ln.strip())
+    # the bf16 attention kernels (B1 at C = 128, 256, 512; B2's dK/dV and dQ
+    # at C = 256) must run on wgmma and TMA, and must not spill
+    sass = {}
+    for n in ("attention", "attention_bwd"):
+        sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
+    emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
+          "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings})
+    require(len(sass) == len(WGMMA_KERNELS) and all(
+        any(name in k for k in sass) for name in WGMMA_KERNELS),
+        f"wgmma kernels in the SASS: {sorted(sass)}")
+    for k, ops in sass.items():
+        require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{k}: no HGMMA or UTMALDG ({ops})")
+    require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
+            f"wgmma kernels spill: {spills}")
 
 
 def gn_case(g, hw, c, act, dtype):
@@ -245,6 +288,12 @@ def gn_case(g, hw, c, act, dtype):
     }
 
 
+def _achieved(flops: float, kernel_ms: float, bound_ms: float) -> dict:
+    """The bound, the achieved TFLOP/s and the share of the bound reached."""
+    return {"bound_ms": bound_ms, "tflops": flops / kernel_ms / 1e9,
+            "bound_share": bound_ms / kernel_ms}
+
+
 def attn_case(g, l, c, dtype, batch=BATCH):
     q, k, v = (torch.randn(batch, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
@@ -257,13 +306,14 @@ def attn_case(g, l, c, dtype, batch=BATCH):
     nbytes = 4 * q.numel() * q.element_size() + batch * l * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    kernel_ms = time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True))
     return {
         "name": "attention", "shape": [batch, l, c], "dtype": str(dtype).split(".")[1],
         "max_err": err, "tol": limit, "lse_err": (lse - want_lse).abs().max().item(),
-        "kernel_ms": time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True)),
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: attention._attention_reference(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        **_achieved(flops, kernel_ms, max(t_ops, t_bytes) * 1e3),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
     }
 
@@ -364,14 +414,14 @@ def attn_bwd_case(g, l, c, dtype, b=TRAIN_BATCH):
     flops = 10 * b * l * l * c  # five L x L x C products
     nbytes = 7 * q.numel() * q.element_size() + 2 * b * l * 4  # q k v dO in, dq dk dv out
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    kernel_ms = time_ms(lambda: attention._attention_backward_cuda(q, k, v, do, lse, di))
     return {
         "name": "attention_bwd", "shape": [b, l, c], "dtype": str(dtype).split(".")[1],
-        "max_err": err,
-        "kernel_ms": time_ms(lambda: attention._attention_backward_cuda(q, k, v, do, lse, di)),
+        "max_err": err, "kernel_ms": kernel_ms,
         "plain_ms": time_ms(
             lambda: attention._attention_backward_reference(q, k, v, do, lse, di), 3),
         "library_ms": time_ms(lib_fwd_bwd) - time_ms(lib_fwd),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        **_achieved(flops, kernel_ms, max(t_ops, t_bytes) * 1e3),
         "bound_by": "operations" if t_ops > t_bytes else "bytes",
     }
 

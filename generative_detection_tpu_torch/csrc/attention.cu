@@ -5,238 +5,49 @@
 // `_mha_fwd_kernel`). The TPU kernel keeps the whole (L, C) K and V of one
 // image in VMEM and takes the softmax of a full (bq, L) logit block. On the
 // H100 a block has at most 227 KB of shared memory: at C = 512 one bf16 K
-// tile of 256 rows alone is 256 KB. So this kernel streams K/V tiles through
-// shared memory with an online softmax (running max, running sum, fp32
-// accumulator), one block per (q tile, b).
+// tile of 256 rows alone is 256 KB. So these kernels stream K/V tiles
+// through shared memory with an online softmax (running max, running sum,
+// fp32 accumulator), one block per (q tile, b).
 //
 // Bound on the H100 at the flagship sites: (B, 4096, 256) is compute-bound
 // (4 B L^2 C flops, about 137 GFLOP at B = 8); (B, 256, 512) is memory-bound
-// (q, k, v read once, o written once). The bf16 kernel runs both products on
-// the tensor cores with mma.sync m16n8k16 and fp32 accumulation; the fp32
-// kernel uses FMA. wgmma and TMA are left for later work.
+// (q, k, v read once, o written once).
 //
-// Per K/V tile, each block:
-//   1. loads K and V (BK x C) into shared memory,
-//   2. S = Q K^T * scale (fp32) -> shared memory,
-//   3. per row: m_new = max(m, rowmax S); P = exp(S - m_new) (fp32);
-//      l = l * exp(m - m_new) + rowsum(P) from the fp32 P; P is rounded to
-//      v's dtype for the next product (the rounding of `_mha_fwd_kernel`),
-//   4. O = O * exp(m - m_new) + P V, with O held in registers. At C = 512
-//      the O accumulator of a 16-row strip does not fit one warp's registers,
-//      so the channels of O are split across two warps.
+// bf16 runs attn_fwd_wgmma_kernel, a warp-specialized kernel
+// (FlashAttention-3's layout). A producer warpgroup (one thread, 40
+// registers) loads the block's Q once and streams K and V tiles by TMA into
+// a two-stage ring of 128-byte swizzled shared memory, paced by full/empty
+// mbarriers. Two consumer warpgroups (232 registers each) take 64 query rows
+// each, as wgmma's M = 64 wants:
+//   S = Q K^T       wgmma, both operands in shared memory;
+//   online softmax  on the accumulator fragments in registers (a row lives
+//                   in one quad: two shuffles), exp2 with log2(e) folded
+//                   into the scale; l sums the fp32 P;
+//   O += P V        P rounded to v's dtype (the rounding of
+//                   `_mha_fwd_kernel`) and fed from registers as the A
+//                   operand; V, MN-major, through the descriptor's
+//                   transpose bit.
+// Per channel count (Cfg below): at C = 128 and 256 (the flagship's L = 4096
+// sites) a block owns 128 query rows and each warpgroup the whole O; at
+// C = 512 (the (B, 256, 512) mid-block site, memory-bound and small) O does
+// not fit one warpgroup's registers, so both warpgroups take the same 64
+// rows, each 256 of O's channels, and each computes S itself.
 // At the end O /= l and lse = m + log(l).
+//
+// fp32 runs attn_fwd_f32_kernel (FMA), per K/V tile: K and V into shared
+// memory, S = Q K^T * scale into shared memory, the online softmax with 8
+// threads a row, O = O * exp(m - m_new) + P V in registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores via mma.sync.m16n8k16 (row.col, fp32 accumulate)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy `rows` rows of C bf16 from global (row stride C) to shared memory
-// (row stride ST), 16 bytes per thread per step.
-template <int C, int ST>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int rows) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ST + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * C + c);
-  }
-}
-
-template <int C, int BK>
-struct Bf16Cfg {
-  static constexpr int BQ = 64;          // 4 strips of 16 query rows
-  static constexpr int QST = C + 8;      // padded row strides (elements):
-  static constexpr int KST = C + 8;      // each row shifts by 4 banks, so
-  static constexpr int VST = C + 8;      // fragment loads are conflict-free
-  static constexpr int SST = BK + 4;     // fp32 S
-  static constexpr int PST = BK + 8;     // bf16 P
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * (BQ * QST + BK * KST + BK * VST + BQ * PST) +
-      sizeof(float) * (BQ * SST + 2 * BQ);
-};
-
-template <int C, int BK>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int L,
-                     float scale) {
-  using Cfg = Bf16Cfg<C, BK>;
-  constexpr int BQ = Cfg::BQ, QST = Cfg::QST, KST = Cfg::KST, VST = Cfg::VST;
-  constexpr int SST = Cfg::SST, PST = Cfg::PST;
-  constexpr int NT = BK / 16;  // S n8-tiles per warp (two warps per strip)
-  constexpr int ONT = C / 16;  // O n8-tiles per warp (half the channels)
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * QST;
-  __nv_bfloat16* Vs = Ks + BK * KST;
-  __nv_bfloat16* Ps = Vs + BK * VST;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * PST);
-  float* s_alpha = Ss + BQ * SST;
-  float* s_l = s_alpha + BQ;
-
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const size_t img = (size_t)b * L * C;
-
-  load_tile_bf16<C, QST>(Qs, q + img + (size_t)q0 * C, BQ);
-
-  // phase 1 (S) layout: warp -> strip warp/2, key columns (warp%2)*BK/2 ..
-  const int s_strip = warp / 2, s_n0 = (warp % 2) * (BK / 2);
-  // phase 3 (O) layout: warp -> strip warp%4, channels (warp/4)*C/2 ..
-  const int o_strip = warp % 4, o_c0 = (warp / 4) * (C / 2);
-  // phase 2 (softmax) layout: 4 threads per row
-  const int p_row = threadIdx.x / 4, p_part = threadIdx.x % 4;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  float acc_o[ONT][4];
-#pragma unroll
-  for (int j = 0; j < ONT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_o[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // previous tile's K, V, P no longer read
-    load_tile_bf16<C, KST>(Ks, k + img + (size_t)k0 * C, BK);
-    load_tile_bf16<C, VST>(Vs, v + img + (size_t)k0 * C, BK);
-    __syncthreads();
-
-    // ---- 1. S = Q K^T * scale
-    {
-      float acc[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-      const __nv_bfloat16* qa = Qs + (s_strip * 16 + g) * QST + 2 * tq;
-#pragma unroll 4
-      for (int kk = 0; kk < C; kk += 16) {
-        uint32_t a[4];
-        a[0] = ld32(qa + kk);
-        a[1] = ld32(qa + 8 * QST + kk);
-        a[2] = ld32(qa + kk + 8);
-        a[3] = ld32(qa + 8 * QST + kk + 8);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const __nv_bfloat16* kb = Ks + (s_n0 + j * 8 + g) * KST + kk + 2 * tq;
-          mma_bf16(acc[j], a, ld32(kb), ld32(kb + 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int row = s_strip * 16 + g, col = s_n0 + j * 8 + 2 * tq;
-        Ss[row * SST + col] = acc[j][0] * scale;
-        Ss[row * SST + col + 1] = acc[j][1] * scale;
-        Ss[(row + 8) * SST + col] = acc[j][2] * scale;
-        Ss[(row + 8) * SST + col + 1] = acc[j][3] * scale;
-      }
-    }
-    __syncthreads();
-
-    // ---- 2. online softmax, 4 threads per row
-    {
-      const float* srow = Ss + p_row * SST;
-      float mx = -INFINITY;
-      for (int c = p_part; c < BK; c += 4) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-      __nv_bfloat16* prow = Ps + p_row * PST;
-      for (int c = p_part; c < BK; c += 4) {
-        const float p = expf(srow[c] - m_new);
-        prow[c] = __float2bfloat16_rn(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if (p_part == 0) s_alpha[p_row] = alpha;
-    }
-    __syncthreads();
-
-    // ---- 3. O = O * alpha + P V
-    {
-      const float al0 = s_alpha[o_strip * 16 + g];
-      const float al1 = s_alpha[o_strip * 16 + g + 8];
-#pragma unroll
-      for (int j = 0; j < ONT; ++j) {
-        acc_o[j][0] *= al0; acc_o[j][1] *= al0;
-        acc_o[j][2] *= al1; acc_o[j][3] *= al1;
-      }
-      const __nv_bfloat16* pa = Ps + (o_strip * 16 + g) * PST + 2 * tq;
-      const int mat = lane >> 3, mi = lane & 7;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t a[4];
-        a[0] = ld32(pa + kk);
-        a[1] = ld32(pa + 8 * PST + kk);
-        a[2] = ld32(pa + kk + 8);
-        a[3] = ld32(pa + 8 * PST + kk + 8);
-        const __nv_bfloat16* vrow = Vs + (kk + mi + (mat & 1) * 8) * VST + (mat >> 1) * 8;
-#pragma unroll
-        for (int j = 0; j < ONT; j += 2) {
-          uint32_t bfr[4];
-          ldmatrix_x4_trans(bfr, vrow + o_c0 + j * 8);
-          mma_bf16(acc_o[j], a, bfr[0], bfr[1]);
-          mma_bf16(acc_o[j + 1], a, bfr[2], bfr[3]);
-        }
-      }
-    }
-  }
-
-  if (p_part == 0) {
-    s_l[p_row] = l_run;
-    lse[(size_t)b * L + q0 + p_row] = m_run + logf(l_run);
-  }
-  __syncthreads();
-  const int row = o_strip * 16 + g;
-  const float inv0 = 1.f / s_l[row], inv1 = 1.f / s_l[row + 8];
-  __nv_bfloat16* orow = o + img + (size_t)(q0 + row) * C + o_c0 + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < ONT; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-        __floats2bfloat162_rn(acc_o[j][0] * inv0, acc_o[j][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * C + j * 8) =
-        __floats2bfloat162_rn(acc_o[j][2] * inv1, acc_o[j][3] * inv1);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // fp32: FMA on the CUDA cores
@@ -428,22 +239,211 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA, warp-specialized (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+// C = 128, 256: a block owns 128 query rows, 64 per consumer warpgroup,
+//   each with the whole O (64 x 256 fp32 is 128 registers a thread); 64-row
+//   K/V tiles.
+// C = 512: O (64 x 512) does not fit one warpgroup's registers. A block owns
+//   64 query rows; each consumer warpgroup holds 256 of O's channels and
+//   computes the same S itself (Q K^T runs twice: the (B, 256, 512) site is
+//   memory-bound); 32-row K/V tiles keep two stages in shared memory.
 template <int C>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                int L, float scale, cudaStream_t stream) {
-  constexpr int BK = C > 256 ? 32 : 64;
-  using Cfg = Bf16Cfg<C, BK>;
-  auto kernel = attn_fwd_bf16_kernel<C, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cfg::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(L / Cfg::BQ, B);
-  kernel<<<grid, kThreads, Cfg::smem_bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), L, scale);
+struct Cfg {
+  static constexpr int BQ = C <= 256 ? 128 : 64, BK = C <= 256 ? 64 : 32, STAGES = 2;
+  static constexpr int CO = C <= 256 ? C : 256;  // output channels per consumer warpgroup
+  static constexpr int CHUNKS = C / 64;  // 128-byte column chunks of a tile
+  static constexpr uint32_t Q_BYTES = BQ * C * 2, KV_BYTES = BK * C * 2;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+template <int C>
+__global__ void __launch_bounds__(384, 1)
+attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int L, float scale_log2) {
+  using namespace hopper;
+  using K = Cfg<C>;
+  constexpr int BQ = K::BQ, BK = K::BK, STAGES = K::STAGES, CO = K::CO, CHUNKS = K::CHUNKS;
+  constexpr uint32_t Q_BYTES = K::Q_BYTES, KV_BYTES = K::KV_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);   // [CHUNKS][BQ][64]
+  unsigned char* ks = qs + Q_BYTES;            // [STAGES][CHUNKS][BK][64]
+  unsigned char* vs = ks + STAGES * KV_BYTES;  // [STAGES][CHUNKS][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* kv_empty = v_full + STAGES;
+
+  const int row0 = blockIdx.y * L;  // the image's first row in the (B L, C) view
+  const int q0 = blockIdx.x * BQ, n_tiles = L / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int ch = 0; ch < CHUNKS; ++ch)
+        tma_load_2d(qs + ch * BQ * 128, &tm_q, q_full, ch * 64, row0 + q0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], KV_BYTES);
+        for (int ch = 0; ch < CHUNKS; ++ch)
+          tma_load_2d(ks + s * KV_BYTES + ch * BK * 128, &tm_k, &k_full[s], ch * 64,
+                      row0 + it * BK);
+        mbar_expect_tx(&v_full[s], KV_BYTES);
+        for (int ch = 0; ch < CHUNKS; ++ch)
+          tma_load_2d(vs + s * KV_BYTES + ch * BK * 128, &tm_v, &v_full[s], ch * 64,
+                      row0 + it * BK);
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroups
+  setmaxnreg_inc<232>();
+  const int w = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wrow = BQ == 128 ? 64 * w : 0;  // the warpgroup's first row in the block
+  const int co0 = CO == C ? 0 : CO * w;     // and its first output channel
+  const uint32_t q_addr = smem_u32(qs) + wrow * 128;
+
+  float acc[CO / 2];
+#pragma unroll
+  for (int i = 0; i < CO / 2; ++i) acc[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};  // rows g, g + 8
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const uint32_t k_addr = smem_u32(ks + s * KV_BYTES);
+    const uint32_t v_addr = smem_u32(vs + s * KV_BYTES) + (co0 / 64) * BK * 128;
+
+    // S = Q K^T (raw logits; the scale is folded into the exponent)
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    mbar_wait(&k_full[s], ph);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss<BK>(sc, desc_kmajor(q_addr + (kk / 4) * BQ * 128 + col),
+                   desc_kmajor(k_addr + (kk / 4) * BK * 128 + col), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax in the log2 domain, rows g (h = 0) and g + 8 (h = 1)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[h], mx * scale_log2);
+      alpha[h] = exp2f(m_row[h] - m_new);
+      m_row[h] = m_new;
+      l_row[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -m_row[e / 2]));
+        sc[4 * j + e] = p;
+        l_row[e / 2] += p;  // the fp32 P
+      }
+    }
+    uint32_t pa[BK / 16][4];
+    acc_to_a<BK / 8>(sc, pa);  // P rounded to v's dtype
+#pragma unroll
+    for (int j = 0; j < CO / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // O += P V over the warpgroup's CO channels
+    mbar_wait(&v_full[s], ph);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_mn<CO>(acc, pa[kk], desc_mnmajor(v_addr + kk * 16 * 128, BK * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+  }
+
+  // O / l, lse = m + log(l) (natural log)
+  float inv[2];
+  const int row = row0 + q0 + wrow + warp * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_row[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[h] = 1.f / l;
+    if (tq == 0 && co0 == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
+  }
+  __nv_bfloat16* orow = o + (size_t)row * C + co0 + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < CO / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * C + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+  }
+}
+
+template <int C>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
+           float scale, cudaStream_t stream) {
+  using K = Cfg<C>;
+  CUtensorMap tq, tk, tv;
+  const uint64_t rows = (uint64_t)B * L;
+  int err = hopper::make_map_bf16(&tq, q, rows, C, K::BQ);
+  if (!err) err = hopper::make_map_bf16(&tk, k, rows, C, K::BK);
+  if (!err) err = hopper::make_map_bf16(&tv, v, rows, C, K::BK);
+  if (err) return err;
+  auto kernel = attn_fwd_wgmma_kernel<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(L / K::BQ, B), 384, K::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), L,
+      scale * hopper::kLog2e);
   return (int)cudaGetLastError();
 }
+
+}  // namespace wg
 
 template <typename T, int C, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -464,17 +464,18 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
 
 extern "C" {
 
-// q, k, v, o: (B, L, C) contiguous, fp32 (dtype 0) or bf16 (dtype 1); lse:
-// (B, L) fp32. Takes C in {128, 256, 512} and L % 64 == 0 (the Python wrapper
-// checks and raises outside them). Returns cudaGetLastError().
+// q, k, v, o: (B, L, C) contiguous, 16-byte aligned, fp32 (dtype 0) or bf16
+// (dtype 1); lse: (B, L) fp32. Takes C in {128, 256, 512} and L % 128 == 0
+// (the Python wrapper checks and raises outside them). Returns a CUDA error
+// code (cudaGetLastError() after the launch).
 int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int L, int C, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (C) {
-      case 128: return launch_bf16<128>(q, k, v, o, lse, B, L, scale, s);
-      case 256: return launch_bf16<256>(q, k, v, o, lse, B, L, scale, s);
-      case 512: return launch_bf16<512>(q, k, v, o, lse, B, L, scale, s);
+      case 128: return wg::launch<128>(q, k, v, o, lse, B, L, scale, s);
+      case 256: return wg::launch<256>(q, k, v, o, lse, B, L, scale, s);
+      case 512: return wg::launch<512>(q, k, v, o, lse, B, L, scale, s);
     }
   } else if (dtype == 0) {
     switch (C) {

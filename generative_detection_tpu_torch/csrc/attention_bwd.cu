@@ -6,35 +6,54 @@
 // `_mha_bwd_kernel`). The TPU kernel runs one pass over q blocks with the
 // whole (L, C) K and V of an image and two (L, C) fp32 dK/dV accumulators in
 // VMEM (about 16 MiB at 4096 x 256). A Hopper block has 227 KB of shared
-// memory and 64K registers, so this follows the FlashAttention-2 split into
-// two launches, both deterministic (no atomics):
+// memory and 64K registers, so this splits the work into two launches, both
+// deterministic (no atomics; two calls give the same bits):
 //
-//   attn_bwd_dkdv: block (key tile, b, channel slice) keeps its BK rows of K
-//     and V in shared memory and walks all q tiles:
+//   dK/dV: block (key tile, b) keeps its rows of K and V and walks all q
+//     tiles:
 //       S^T  = K Q^T * scale,  P^T = exp(S^T - lse)            (fp32)
 //       dV  += bf(P^T) dO                                      (fp32 acc)
 //       dP^T = V dO^T,         dS^T = bf(P^T (dP^T - di) * scale)
 //       dK  += dS^T Q                                          (fp32 acc)
-//     The dK/dV accumulators of one block cover a slice of CS = 128 output
-//     channels, which keeps them in registers at C = 512; S^T and dP^T (full
-//     C contractions) are recomputed once per slice.
-//   attn_bwd_dq: block (q tile, b, channel slice) keeps its BQ rows of Q and
-//     dO and walks all key tiles: S, P, dP, dS as above, dQ += dS K.
+//   dQ: block (q tile, b) keeps its rows of Q and dO and walks all key
+//     tiles: S, P, dP, dS as above, dQ += dS K.
 //
 // bf() is the rounding of `_mha_bwd_kernel`: P is cast to dO's dtype before
 // the dV product and dS to q's dtype before the dK and dQ products; every
 // product accumulates in fp32 and dq, dk, dv are written in q's dtype.
 //
 // Bound on the H100: at (B, 4096, 256) the backward is compute-bound (five
-// L x L x C products, 10 B L^2 C flops); at (B, 256, 512) memory-bound. The
-// bf16 kernels run every product on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulate) and do about 18 B L^2 C flops at C = 256 (the recomputed
-// S and dP); the fp32 kernels use FMA. wgmma and TMA are left for later work.
+// L x L x C products, 10 B L^2 C flops); at (B, 256, 512) memory-bound.
+//
+// bf16 at C = 256 (the flagship's L = 4096 sites) runs two warp-specialized
+// wgmma + TMA kernels; a producer warpgroup (one thread) streams tiles by
+// TMA into a two-stage ring of 128-byte swizzled shared memory, paced by
+// full/empty mbarriers:
+//   attn_bwd_dkdv_wgmma_kernel: a block owns 64 key rows (K, V resident)
+//     and streams 64-row (Q, dO, lse, di) tiles. Its two consumer
+//     warpgroups split the work by role, not by channel, so nothing is
+//     recomputed: warpgroup A computes S^T (wgmma, operands in shared
+//     memory), P^T in registers, hands the fp32 P^T to warpgroup B through
+//     an 18 KB shared buffer, and adds bf(P^T) dO into dV (P^T from
+//     registers as the A operand, dO MN-major through the transpose bit);
+//     warpgroup B computes dP^T, dS^T and dK += dS^T Q. Each dK/dV
+//     accumulator (64 x 256 fp32) holds its warpgroup's 128 registers a
+//     thread.
+//   attn_bwd_dq_wgmma_kernel: a block owns 64 query rows (Q, dO, lse, di
+//     resident) and streams 64-row K and V tiles; one consumer warpgroup
+//     computes S and dP (wgmma), dS in registers, dQ += dS K.
+// Together they run the four products of the dK/dV pass once each and S,
+// dP, dQ in the dQ pass: 14 B L^2 C flops against the bound's 10.
+// bf16 at C = 128 and 512 keeps the mma.sync kernels below (FlashAttention-
+// 2's split with 128-channel slices that recompute S^T and dP^T); fp32 runs
+// the FMA kernels.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -540,6 +559,333 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at C = 256: wgmma + TMA, warp-specialized (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int C = 256, BR = 64, STAGES = 2;  // BR: rows of every tile
+constexpr int CHUNKS = C / 64;
+constexpr uint32_t TILE = BR * C * 2;  // one (64, 256) bf16 tile, 32 KB
+constexpr uint32_t ROW_STAT = BR * 4;  // 64 fp32 lse or di values
+constexpr int PST = BR + 8;            // fp32 P^T row stride: float2 stores conflict-free
+
+// One (64, 256) tile by TMA: four (64, 64) boxes, one per column chunk.
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row) {
+#pragma unroll
+  for (int ch = 0; ch < CHUNKS; ++ch)
+    hopper::tma_load_2d(dst + ch * BR * 128, map, bar, ch * 64, row);
+}
+
+// acc (64 x 256) += A (64 x 64 from registers) B, B a (64, 256) tile in
+// shared memory read MN-major: four K steps of 16 rows.
+__device__ __forceinline__ void mma_rs_tile(float (&acc)[C / 2], uint32_t (&a)[BR / 16][4],
+                                            uint32_t b_addr) {
+  using namespace hopper;
+  fence_regs(acc);
+  fence_regs(a);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BR / 16; ++kk)
+    wgmma_rs_n256_mn(acc, a[kk], desc_mnmajor(b_addr + kk * 16 * 128, BR * 128));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// d (64 x 64) = A B^T with A, B (64, 256) tiles in shared memory, both
+// K-major (the contraction over the 256 channels); committed, not waited.
+__device__ __forceinline__ void mma_ss_tile(float (&d)[BR / 2], uint32_t a_addr, uint32_t b_addr) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BR * 128 + (kk % 4) * 32;
+    wgmma_ss_n64(d, desc_kmajor(a_addr + off), desc_kmajor(b_addr + off), 1);
+  }
+  wgmma_commit();
+}
+
+// Rows 16 warp + g and + 8 of a (64, 256) fp32 accumulator as bf16 rows of
+// `out` (row stride C).
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[C / 2],
+                                           int warp, int g, int tq) {
+  __nv_bfloat16* r = out + (size_t)(warp * 16 + g) * C + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(r + 8 * C + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+constexpr size_t DKDV_SMEM = 1024 + 6 * TILE + 4 * ROW_STAT + BR * PST * 4 + 8 * 8;
+
+__global__ void __launch_bounds__(384, 1)
+attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse, const float* __restrict__ di,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int L, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align_1024(smem_raw);
+  unsigned char* vs = ks + TILE;
+  unsigned char* qs = vs + TILE;         // [STAGES] tiles
+  unsigned char* dos = qs + STAGES * TILE;  // [STAGES] tiles
+  float* lse_s = reinterpret_cast<float*>(dos + STAGES * TILE);  // [STAGES][BR]
+  float* di_s = lse_s + STAGES * BR;                             // [STAGES][BR]
+  float* pbuf = di_s + STAGES * BR;                              // P^T, [BR][PST]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(pbuf + BR * PST);
+  uint64_t* qd_full = kv_full + 1;
+  uint64_t* qd_empty = qd_full + STAGES;
+  uint64_t* p_full = qd_empty + STAGES;
+  uint64_t* p_empty = p_full + 1;
+
+  const int row0 = blockIdx.y * L, k0 = blockIdx.x * BR, n_tiles = L / BR;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&qd_full[s], 1);
+      mbar_init(&qd_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(p_full, 128);   // every thread of warpgroup A
+    mbar_init(p_empty, 128);  // every thread of warpgroup B
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * TILE);
+      load_tile(ks, &tm_k, kv_full, row0 + k0);
+      load_tile(vs, &tm_v, kv_full, row0 + k0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, r = row0 + it * BR;
+        mbar_wait(&qd_empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&qd_full[s], 2 * TILE + 2 * ROW_STAT);
+        load_tile(qs + s * TILE, &tm_q, &qd_full[s], r);
+        load_tile(dos + s * TILE, &tm_do, &qd_full[s], r);
+        bulk_load(lse_s + s * BR, lse + r, ROW_STAT, &qd_full[s]);
+        bulk_load(di_s + s * BR, di + r, ROW_STAT, &qd_full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const bool role_a = threadIdx.x < 256;  // A: S^T, P^T, dV;  B: dP^T, dS^T, dK
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  // this thread's accumulator rows (keys) and columns (queries 8 j + 2 tq, + 1)
+  float* prow = pbuf + (warp * 16 + g) * PST + 2 * tq;
+
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  const uint32_t kv_addr = smem_u32(role_a ? ks : vs);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t q_addr = smem_u32(qs + s * TILE), do_addr = smem_u32(dos + s * TILE);
+    float sc[BR / 2];
+#pragma unroll
+    for (int i = 0; i < BR / 2; ++i) sc[i] = 0.f;
+    mbar_wait(&qd_full[s], (it / STAGES) & 1);
+    fence_regs(sc);
+    wgmma_fence();
+    // A: S^T = K Q^T;  B: dP^T = V dO^T
+    mma_ss_tile(sc, kv_addr, role_a ? q_addr : do_addr);
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    uint32_t a[BR / 16][4];
+    if (role_a) {
+      const float* ls = lse_s + s * BR + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = exp2f(fmaf(sc[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x) * kLog2e));
+      }
+      if (it > 0) mbar_wait(p_empty, (it - 1) & 1);  // B has read the previous P^T
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        *reinterpret_cast<float2*>(prow + 8 * j) = make_float2(sc[4 * j], sc[4 * j + 1]);
+        *reinterpret_cast<float2*>(prow + 8 * PST + 8 * j) =
+            make_float2(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+      mbar_arrive(p_full);
+      acc_to_a<BR / 8>(sc, a);  // bf(P^T)
+      mma_rs_tile(acc, a, do_addr);  // dV += P^T dO
+    } else {
+      const float* ds_ = di_s + s * BR + 2 * tq;
+      mbar_wait(p_full, it & 1);
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(ds_ + 8 * j);
+        const float2 p0 = *reinterpret_cast<const float2*>(prow + 8 * j);
+        const float2 p1 = *reinterpret_cast<const float2*>(prow + 8 * PST + 8 * j);
+        sc[4 * j] = p0.x * (sc[4 * j] - d2.x) * scale;
+        sc[4 * j + 1] = p0.y * (sc[4 * j + 1] - d2.y) * scale;
+        sc[4 * j + 2] = p1.x * (sc[4 * j + 2] - d2.x) * scale;
+        sc[4 * j + 3] = p1.y * (sc[4 * j + 3] - d2.y) * scale;
+      }
+      mbar_arrive(p_empty);
+      acc_to_a<BR / 8>(sc, a);  // bf(dS^T)
+      mma_rs_tile(acc, a, q_addr);  // dK += dS^T Q
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qd_empty[s]);
+  }
+  store_rows((role_a ? dv : dk) + (size_t)(row0 + k0) * C, acc, warp, g, tq);
+}
+
+constexpr size_t DQ_SMEM = 1024 + 6 * TILE + 2 * ROW_STAT + 8 * 8;
+
+__global__ void __launch_bounds__(256, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         __nv_bfloat16* __restrict__ dq, int L, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);
+  unsigned char* dos = qs + TILE;
+  unsigned char* ks = dos + TILE;           // [STAGES] tiles
+  unsigned char* vs = ks + STAGES * TILE;   // [STAGES] tiles
+  float* lse_s = reinterpret_cast<float*>(vs + STAGES * TILE);
+  float* di_s = lse_s + BR;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(di_s + BR);
+  uint64_t* k_full = qd_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* kv_empty = v_full + STAGES;
+
+  const int row0 = blockIdx.y * L, q0 = blockIdx.x * BR, n_tiles = L / BR;
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 2 * TILE + 2 * ROW_STAT);
+      load_tile(qs, &tm_q, qd_full, row0 + q0);
+      load_tile(dos, &tm_do, qd_full, row0 + q0);
+      bulk_load(lse_s, lse + row0 + q0, ROW_STAT, qd_full);
+      bulk_load(di_s, di + row0 + q0, ROW_STAT, qd_full);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, r = row0 + it * BR;
+        mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], TILE);
+        load_tile(ks + s * TILE, &tm_k, &k_full[s], r);
+        mbar_expect_tx(&v_full[s], TILE);
+        load_tile(vs + s * TILE, &tm_v, &v_full[s], r);
+      }
+    }
+    return;
+  }
+  // one consumer warpgroup: with 256 threads a block already has 255
+  // registers a thread, so there is nothing to rebalance
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t q_addr = smem_u32(qs), do_addr = smem_u32(dos);
+
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qd_full, 0);
+  float l2[2], d2[2];  // rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l2[h] = lse_s[warp * 16 + g + 8 * h] * kLog2e;
+    d2[h] = di_s[warp * 16 + g + 8 * h];
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const uint32_t k_addr = smem_u32(ks + s * TILE), v_addr = smem_u32(vs + s * TILE);
+    float sc[BR / 2], dp[BR / 2];
+#pragma unroll
+    for (int i = 0; i < BR / 2; ++i) sc[i] = dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    // both tiles first: a wait between the two products would make the
+    // compiler serialize the wgmmas
+    mbar_wait(&k_full[s], ph);
+    mbar_wait(&v_full[s], ph);
+    wgmma_fence();
+    mma_ss_tile(sc, q_addr, k_addr);   // S = Q K^T
+    mma_ss_tile(dp, do_addr, v_addr);  // dP = dO V^T
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -l2[e / 2]));
+        sc[4 * j + e] = p * (dp[4 * j + e] - d2[e / 2]) * scale;
+      }
+    uint32_t a[BR / 16][4];
+    acc_to_a<BR / 8>(sc, a);  // bf(dS)
+    mma_rs_tile(acc, a, k_addr);  // dQ += dS K
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+  }
+  store_rows(dq + (size_t)(row0 + q0) * C, acc, warp, g, tq);
+}
+
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* di, void* dq, void* dk, void* dv, int B, int L, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t rows = (uint64_t)B * L;
+  int err = hopper::make_map_bf16(&tq, q, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tk, k, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tv, v, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tdo, dout, rows, C, BR);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dkdv_wgmma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)DKDV_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attn_bwd_dq_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  using Q = __nv_bfloat16;
+  const float* f_lse = static_cast<const float*>(lse);
+  const float* f_di = static_cast<const float*>(di);
+  attn_bwd_dkdv_wgmma_kernel<<<dim3(L / BR, B), 384, DKDV_SMEM, stream>>>(
+      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dk), static_cast<Q*>(dv), L, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_dq_wgmma_kernel<<<dim3(L / BR, B), 256, DQ_SMEM, stream>>>(
+      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dq), L, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 template <int C>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int L,
@@ -598,10 +944,11 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
 
 extern "C" {
 
-// q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, fp32 (dtype 0) or bf16
-// (dtype 1); lse, di: (B, L) fp32. Takes C in {128, 256, 512} and L % 64 == 0
-// (the Python wrapper checks and raises outside them). Returns
-// cudaGetLastError().
+// q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, 16-byte aligned, fp32
+// (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned. Takes
+// C in {128, 256, 512} and L % 128 == 0 (the Python wrapper checks and
+// raises outside them). Returns a CUDA error code (cudaGetLastError() after
+// the launches).
 int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* di, void* dq, void* dk, void* dv, int B,
                       int L, int C, float scale, int dtype, void* stream) {
@@ -609,7 +956,7 @@ int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* d
   if (dtype == 1) {
     switch (C) {
       case 128: return launch_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 256: return launch_bf16<256>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
+      case 256: return wg::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 512: return launch_bf16<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
     }
   } else if (dtype == 0) {

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/kernels/`` at the repository root,
-named by a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. The compiler writes to a temporary file that is
+named by a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. No library links against libcuda: the TMA kernels fetch
+``cuTensorMapEncodeTiled`` through the runtime. The compiler writes to a temporary file that is
 renamed into place, so processes that build at the same time do not race.
 
 There is no fallback: if ``nvcc`` is missing or the build fails, this raises.
@@ -48,6 +50,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

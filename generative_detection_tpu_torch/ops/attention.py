@@ -14,14 +14,18 @@ Kernel notes:
 - forward: replaces ``generative_detection_tpu/ops/attention.py``
   ``_mha_fwd_call`` (kernel ``_mha_fwd_kernel``), which holds full-length K/V
   in TPU VMEM. Hopper's 227 KB of shared memory cannot: the kernel streams
-  K/V tiles with an online softmax, splits the output channels across warps
-  at C = 512, and runs bf16 on the tensor cores (``mma.sync``) and fp32 on
-  FMA. At (B, 4096, 256) it is compute-bound; at (B, 256, 512) memory-bound.
+  K/V tiles with an online softmax. bf16 runs a warp-specialized kernel (a
+  TMA producer, two ``wgmma`` consumer warpgroups, S and P in registers; at
+  C = 512 the warpgroups split O's channels); fp32 runs FMA. At
+  (B, 4096, 256) it is compute-bound; at (B, 256, 512) memory-bound.
 - backward: replaces ``_mha_bwd_call`` (kernel ``_mha_bwd_kernel``), one
   k-major pass with two (L, C) fp32 accumulators in VMEM. On the H100 it is
-  two deterministic launches (FlashAttention-2's split): dK/dV per key tile
-  over a 128-channel slice, then dQ per query tile. di = rowsum(dO * O) is a
-  torch reduction, as it is XLA outside the Pallas body in the JAX package.
+  two deterministic launches: dK/dV per key tile, then dQ per query tile.
+  bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
+  one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
+  C = 128 and 512 run ``mma.sync`` over 128-channel slices. di =
+  rowsum(dO * O) is a torch reduction, as it is XLA outside the Pallas body
+  in the JAX package.
 - forward-only flash variant: ``flash_attention_forward`` replaces
   ``_attention_pallas`` (kernel ``_flash_kernel``), which upcasts q, k, v to
   fp32, keeps P in fp32 and writes no lse. In the JAX package only its
@@ -39,7 +43,7 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = (128, 256, 512)
-KERNEL_L_MULTIPLE = 64
+KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
 
 
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -156,8 +160,10 @@ def _attention_backward_cuda(q, k, v, do, lse, di):
     _check_kernel_args(q, k, v, do)
     b, l, c = q.shape
     for name, t in (("lse", lse), ("di", di)):
-        if t.shape != (b, l) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"attention backward: {name} must be contiguous float32 ({b}, {l})")
+        if (t.shape != (b, l) or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"attention backward: {name} must be contiguous, 16-byte "
+                             f"aligned float32 ({b}, {l})")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _bwd_lib()
     rc = lib.gdt_attention_bwd(

@@ -145,6 +145,56 @@ def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
+def test_attention_backward_kernel_is_deterministic(cuda):
+    shape = (2, 4096, 256)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).bfloat16() for _ in range(4))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    first = attention.attention_backward(q, k, v, o, lse, do)
+    second = attention.attention_backward(q, k, v, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512)])
+def test_attention_peaked_softmax_matches_plain(cuda, shape, dtype):
+    """q and k scaled by 4: each row's softmax sits on a handful of keys, so
+    the output's RMS is that of v and a dropped, mis-indexed or permuted key
+    tile is an O(1) error rather than one under 0.1 RMS."""
+    q, k = (4 * torch.randn(shape, device="cuda", generator=cuda) for _ in range(2))
+    v, do = (torch.randn(shape, device="cuda", generator=cuda) for _ in range(2))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    want_o, want_lse = attention._attention_reference(q, k, v)
+    _rms_close(o, want_o, ATTN_REL_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    di = (do.float() * o.float()).sum(-1)
+    got = attention.attention_backward(q, k, v, o, lse, do)
+    want = attention._attention_backward_reference(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _rms_close(g, w, ATTN_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_match_plain_at_16384(cuda, dtype):
+    # B9's length: where the JAX package hands B1/B2's function to jax's own
+    # TPU kernel (L * C * 4 > 8 MiB), the port keeps its kernels
+    shape = (1, 16384, 256)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    want_o, want_lse = attention._attention_reference(q, k, v)
+    _rms_close(o, want_o, ATTN_REL_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    del want_o, want_lse
+    di = (do.float() * o.float()).sum(-1)
+    got = attention.attention_backward(q, k, v, o, lse, do)
+    want = attention._attention_backward_reference(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _rms_close(g, w, ATTN_REL_TOL[dtype])
+
+
 def test_kernels_raise_outside_their_shapes(cuda):
     q = torch.randn(1, 256, 96, device="cuda")
     with pytest.raises(ValueError, match="attention kernel takes"):

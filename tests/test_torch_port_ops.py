@@ -23,7 +23,7 @@ from generative_detection_tpu.ops.norm import _gn_reference as jax_gn
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
 from generative_detection_tpu_torch.losses import PoseLoss
 from generative_detection_tpu_torch.models import PoseAutoencoder
-from generative_detection_tpu_torch.ops import group_norm, single_head_attention
+from generative_detection_tpu_torch.ops import attention, group_norm, single_head_attention
 from generative_detection_tpu_torch.ops.norm import _gn_reference
 
 REPO = Path(__file__).resolve().parents[1]
@@ -114,6 +114,22 @@ def test_attention_matches_jax_reference_at_flagship_width():
     o = single_head_attention(*map(torch.from_numpy, (q, k, v)))
     want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     np.testing.assert_allclose(o.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "l, c, ok",
+    [(4096, 256, True), (256, 512, True), (16384, 256, True), (192, 256, False), (256, 96, False)],
+)
+def test_attention_kernel_gate(l, c, ok):
+    # every (L, C) the flagship detector and train step run, and L = 16384,
+    # pass the kernels' gate (L % 128 == 0, the JAX package's; C in 128, 256,
+    # 512); L = 192 and C = 96 are refused. Checked on CPU tensors.
+    q = torch.zeros(1, l, c, dtype=torch.bfloat16)
+    if ok:
+        attention._check_kernel_args(q, q, q)
+    else:
+        with pytest.raises(ValueError, match="attention kernel takes"):
+            attention._check_kernel_args(q, q, q)
 
 
 def test_attention_rejects_mismatched_inputs():

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Compare the bf16 attention kernels (B1 forward, B2 backward) of two
+checkouts of the PyTorch port on one card, each tree in its own process, in
+the order given.
+
+    python3 tools/ab_attention_kernels.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
+
+A tree is a directory holding a checkout (e.g. from ``git archive``); its
+``generative_detection_tpu_torch`` is imported and builds its own kernels.
+At every attention site of the flagship detector (batch 8) and train step
+(batch 16), and at L = 16384 (batch 1), each run times the forward
+(``single_head_attention`` with its lse) and the backward kernels
+(``_attention_backward_cuda``), mean of 20 launches after a warm-up (CUDA
+events), checks both against the plain versions (max |err| / RMS(plain)),
+splits the device time by kernel (``torch.profiler``, 3 calls: at small
+sites the host's launch cost exceeds the kernels' and sets the event time),
+and prints one JSON line with the card's bound (bf16 peak 989 TFLOP/s,
+3.35 TB/s) and the achieved TFLOP/s. The card's name and power limit come
+last.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+FWD_SITES = ((8, 4096, 256), (8, 256, 512), (1, 16384, 256))
+BWD_SITES = ((16, 4096, 256), (16, 256, 512), (1, 16384, 256))
+PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.pow(2).mean().sqrt()).item()
+
+
+def _kernel_split(fn, calls: int = 3) -> dict:
+    """Device ms per launch of each attention kernel that ``fn`` launches
+    (the mean over the launches the profiler recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        name = re.search(r"attn_\w+", e.key)
+        if name:
+            split[name.group(0)] = e.device_time_total / e.count / 1e3
+    return split
+
+
+def _bound_ms(flops: float, nbytes: float) -> float:
+    return max(flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def run_one(tree: str) -> dict:
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    from generative_detection_tpu_torch.ops import attention
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"tree": tree, "forward": [], "backward": []}
+    for b, l, c in FWD_SITES:
+        q, k, v = (torch.randn(b, l, c, device="cuda", generator=g).bfloat16() for _ in range(3))
+        o, _ = attention.single_head_attention(q, k, v, return_lse=True)
+        ms = _time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True))
+        flops = 4 * b * l * l * c
+        out["forward"].append({
+            "shape": [b, l, c], "ms": ms, "tflops": flops / ms / 1e9,
+            "bound_ms": _bound_ms(flops, 4 * q.numel() * 2 + b * l * 4),
+            "max_err_rel_rms": _rel_err(o, attention._attention_reference(q, k, v)[0]),
+            "kernel_ms": _kernel_split(
+                lambda: attention.single_head_attention(q, k, v, return_lse=True)),
+        })
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    for b, l, c in BWD_SITES:
+        q, k, v, do = (torch.randn(b, l, c, device="cuda", generator=g).bfloat16()
+                       for _ in range(4))
+        o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+        di = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, di)
+        got = attention._attention_backward_cuda(*args)
+        ms = _time_ms(lambda: attention._attention_backward_cuda(*args))
+        want = attention._attention_backward_reference(*args)
+        flops = 10 * b * l * l * c
+        out["backward"].append({
+            "shape": [b, l, c], "ms": ms, "tflops": flops / ms / 1e9,
+            "bound_ms": _bound_ms(flops, 7 * q.numel() * 2 + 2 * b * l * 4),
+            "max_err_rel_rms": max(_rel_err(x, y) for x, y in zip(got, want)),
+            "kernel_ms": _kernel_split(lambda: attention._attention_backward_cuda(*args)),
+        })
+        del q, k, v, do, o, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(run_one(argv[2])), flush=True)
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for tree in argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], check=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

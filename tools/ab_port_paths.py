@@ -56,7 +56,7 @@ def run_one(tree: str) -> dict:
     detect = make_detector_fn(model, net, hmin, hmax, 256)
     out = {"tree": tree, "detector": {}}
     rng = np.random.default_rng(0)
-    for b, n in ((1, 20), (8, 20), (32, 10)):
+    for b, n in ((1, 50), (8, 50), (32, 10)):
         args = [torch.as_tensor(a, device="cuda") for a in (
             rng.uniform(-1, 1, size=(b, 256, 256, 3)).astype(np.float32),
             np.full((b,), 1266.0, np.float32), np.tile(np.float32([800.0, 450.0]), (b, 1)),
