@@ -9,14 +9,16 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
-   kernels must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their
-   SASS (cuobjdump) and must not spill;
+   kernels and the bf16 row-Winograd weight gradient (B8) must hold wgmma
+   (HGMMA) and TMA (UTMALDG) instructions in their SASS (cuobjdump), B8 no
+   mma.sync (HMMA), and none may spill;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
 4. kernels, each against its plain PyTorch version on the card, with its
    time, the plain version's, one library call's (a yardstick the port never
-   calls) and the card's bound: the forward kernels at the flagship
+   calls) and the card's bound (for B7 and B8 the products the Winograd
+   form does, half the direct conv's at F(4,3)): the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
    flagship train step (batch 16), the fused GroupNorm+SiLU+conv (B6) at
    every fused detector site (batch 8), the row-Winograd forward, dgrad and
@@ -41,8 +43,10 @@ Phases (any failure raises and exits non-zero, before the result line):
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
    and the discriminator moved;
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
-   the same weights and draws on both, as it is and with GDT_WINOGRAD=fused;
-   losses, d_weight and both optimizers' Adam first moments must agree;
+   the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
+   then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
+   C = 32 and 64) with GDT_WINOGRAD unset; losses, d_weight and both
+   optimizers' Adam first moments must agree;
 8. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -55,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -80,6 +85,10 @@ from generative_detection_tpu_torch.serving import make_detector_fn
 from generative_detection_tpu_torch.train import create_train_state, make_train_step
 
 REPO = Path(__file__).resolve().parent
+# The weight-gradient kernel's flop count and design bytes, from its A/B tool
+_spec = importlib.util.spec_from_file_location("ab_wgrad", REPO / "tools/ab_wgrad_kernel.py")
+ab_wgrad = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ab_wgrad)
 FLAGSHIP = REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"
 TINY = REPO / "configs/autoencoder/pose/tiny_cpu.yaml"
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -135,12 +144,16 @@ TRAIN_LOSS_RTOL, MOMENT_REL = 1e-3, 1e-3
 # (v / (1 + e^-v) in the kernels, v * sigmoid(v) in the plain versions) can
 # round one bf16 ulp apart.
 CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows (h=w, C)
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
-# The bf16 attention kernels on wgmma and TMA (their names carry WGMMA_TAG).
+# The bf16 kernels on wgmma and TMA (their names carry WGMMA_TAG): attention
+# (B1, B2) and the row-Winograd weight gradient (B8, M = 2, 4 x GN off, on).
 WGMMA_TAG = "_wgmma_kernel"
-WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi128", "attn_fwd_wgmma_kernelILi256",
+WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128", "attn_fwd_wgmma_kernelILi256",
                  "attn_fwd_wgmma_kernelILi512", "attn_bwd_dkdv_wgmma_kernel",
-                 "attn_bwd_dq_wgmma_kernel")
+                 "attn_bwd_dq_wgmma_kernel", "wgrad_wgmma_kernelILi2ELb0",
+                 "wgrad_wgmma_kernelILi2ELb1", "wgrad_wgmma_kernelILi4ELb0",
+                 "wgrad_wgmma_kernelILi4ELb1")
 
 
 # Every launch counter of the port, by the name the kernels line uses.
@@ -156,9 +169,14 @@ COUNTED = {
 
 @contextlib.contextmanager
 def switches(**env):
-    """Set the JAX package's switches (GDT_*) for one phase, then restore."""
+    """Set (or, with None, unset) the JAX package's switches (GDT_*) for one
+    phase, then restore."""
     old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    for k, v in env.items():  # None: unset
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -212,8 +230,9 @@ def phase_device() -> tuple[str, str]:
 
 
 def _sass_counts(name: str) -> dict:
-    """Per kernel of the built ``csrc/<name>.cu``: the wgmma (HGMMA) and TMA
-    load (UTMALDG) instructions in its SASS, from ``cuobjdump -sass``."""
+    """Per kernel of the built ``csrc/<name>.cu``: the wgmma (HGMMA), TMA
+    load (UTMALDG) and mma.sync (HMMA) instructions in its SASS, from
+    ``cuobjdump -sass``."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -221,10 +240,10 @@ def _sass_counts(name: str) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             kernel = ln.split("Function :")[-1].strip()
-            counts[kernel] = {"HGMMA": 0, "UTMALDG": 0}
+            counts[kernel] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
         elif kernel is not None:
             for op in counts[kernel]:
-                counts[kernel][op] += op in ln
+                counts[kernel][op] += f" {op}." in ln or f" {op} " in ln
     return counts
 
 
@@ -246,10 +265,11 @@ def phase_build() -> None:
                 ptxas.setdefault(kernel, []).append(ln.strip())
             elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
                 warnings.append(ln.strip())
-    # the bf16 attention kernels (B1 at C = 128, 256, 512; B2's dK/dV and dQ
-    # at C = 256) must run on wgmma and TMA, and must not spill
+    # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
+    # at C = 256) and B8 must run on wgmma and TMA, and must not spill; B8 has
+    # no mma.sync left
     sass = {}
-    for n in ("attention", "attention_bwd"):
+    for n in ("attention", "attention_bwd", "conv3x3_wgrad"):
         sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings})
@@ -258,6 +278,7 @@ def phase_build() -> None:
         f"wgmma kernels in the SASS: {sorted(sass)}")
     for k, ops in sass.items():
         require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{k}: no HGMMA or UTMALDG ({ops})")
+        require("wgrad" not in k or ops["HMMA"] == 0, f"{k}: mma.sync left ({ops})")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
 
@@ -571,6 +592,7 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     out = wr.wino_rows_forward(x, u, bias, m, ab)
     dz = wr.wino_rows_dgrad(dy, u_rot, m)
     du = conv3x3.conv3x3_wgrad(x, dy, m, ab)
+    du_again = conv3x3.conv3x3_wgrad(x, dy, m, ab)
     want_out = wr._wino_rows_reference(x, u, bias, a, shift, m)
     want_dz = wr._wino_rows_reference(dy, u_rot, zero, None, None, m)
     want_du = wr._wino_wgrad_reference(x, dy, a, shift, m)
@@ -579,12 +601,21 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     errs = [rms_close(f"wino_rows {tag}", out, want_out, CONV_REL_TOL[dtype]),
             rms_close(f"wino_rows_dgrad {tag}", dz, want_dz, CONV_REL_TOL[dtype]),
             rms_close(f"wino_wgrad {tag}", du, want_du, CONV_REL_TOL[dtype])]
+    require(torch.equal(du, du_again), f"wino_wgrad {tag}: a repeat differs")
     z = fused_conv._silu_affine(x, a, shift)
     w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous()
     b_lib = bias.to(dtype)
-    isz, flops = x.element_size(), 2 * 9 * b * hw * hw * c * co
+    isz, flops = x.element_size(), ab_wgrad.winograd_flops(b, hw, hw, c, co, m)
     act_in, act_out = x.numel() * isz, b * hw * hw * co * isz
     common = {"shape": [b, hw, hw, c, co], "dtype": _dname(dtype)}
+    wgrad = {"name": "wino_wgrad", **common, "max_err": errs[2], "repeat_equal": True,
+             "kernel_ms": time_ms(lambda: conv3x3.conv3x3_wgrad(x, dy, m, ab)),
+             "plain_ms": time_ms(lambda: wr._wino_wgrad_reference(x, dy, a, shift, m), 3),
+             "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [False, True, False])),
+             **_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype)}
+    wgrad["bound_share"] = wgrad["bound_ms"] / wgrad["kernel_ms"]
+    if dtype == torch.bfloat16:  # the bytes the wgmma kernel's design moves
+        wgrad.update(ab_wgrad.wgrad_traffic(b, hw, hw, c, co, m))
     return [
         {"name": "wino_rows", **common, "max_err": errs[0],
          "err_vs_fp32_direct_rel": _vs_fp32_direct(out, x, a, shift, k, bias),
@@ -598,11 +629,7 @@ def wino_cases(g, hw, c, co, dtype) -> list:
              lambda: wr._wino_rows_reference(dy, u_rot, zero, None, None, m), 3),
          "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [True, False, False])),
          **_bound(flops, act_in + act_out + u_rot.numel() * isz, dtype)},
-        {"name": "wino_wgrad", **common, "max_err": errs[2],
-         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_wgrad(x, dy, m, ab)),
-         "plain_ms": time_ms(lambda: wr._wino_wgrad_reference(x, dy, a, shift, m), 3),
-         "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [False, True, False])),
-         **_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype)},
+        wgrad,
     ]
 
 
@@ -663,6 +690,16 @@ def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
             cases[(key, LONG_L, 256, dtype)] = r
             emit(r)
             torch.cuda.empty_cache()
+        # the tiny configs' width: attention at (2, 256, 64), GroupNorm at C = 32, 64
+        for fn, key in ((attn_case, "attention"), (attn_bwd_case, "attention_bwd")):
+            r = fn(g, 256, 64, dtype, 2)
+            cases[(key, 256, 64, dtype)] = r
+            emit(r)
+        for hw, c in TINY_GN_ROWS:
+            for fn, key in ((gn_case, "group_norm"), (gn_bwd_case, "group_norm_bwd")):
+                r = fn(g, hw, c, "silu", dtype)
+                cases[(key, hw, c, "silu", dtype)] = r
+                emit(r)
         hw0, c0, _ = max(sites["detector"], key=lambda k: k[0] * k[0] * k[1])
         r = gn_affine_case(g, hw0, c0, dtype)
         cases[("group_norm_affine", hw0, c0, dtype)] = r
@@ -867,11 +904,13 @@ def phase_train(expect: dict, winograd: str) -> dict:
     return {**counts, "result": result}
 
 
-def phase_train_card_vs_cpu(winograd: str) -> None:
-    """One fp32 step of tiny_cpu.yaml at ch 128 (attention at C = 256, a
-    kernel width; 32x32 sites in the Winograd band) from the same weights and
-    draws on the card and the CPU, with GDT_WINOGRAD=``winograd``."""
-    cfg = merge_configs([str(TINY)], ["model.params.ddconfig.ch=128"])
+def phase_train_card_vs_cpu(winograd, ch=128) -> None:
+    """One fp32 step of tiny_cpu.yaml from the same weights and draws on the
+    card and the CPU, with GDT_WINOGRAD=``winograd`` (None: unset). At ch 128
+    attention runs at C = 256 and 32x32 sites sit in the Winograd band; at
+    the config's own ch 32 (``ch`` None) attention runs at (2, 256, 64) and
+    GroupNorm at C = 32 and 64."""
+    cfg = merge_configs([str(TINY)], [] if ch is None else [f"model.params.ddconfig.ch={ch}"])
     model = instantiate_from_config(cfg["model"])
     rng = np.random.default_rng(5)
     host = model.example_batch(2)
@@ -901,6 +940,8 @@ def phase_train_card_vs_cpu(winograd: str) -> None:
     if winograd == "fused":
         require(launches["wino_rows"] > 0 and launches["wino_wgrad"] > 0,
                 f"tiny fused step ran no Winograd kernel: {launches}")
+    for name in ("attention", "attention_bwd", "group_norm", "group_norm_bwd"):
+        require(launches[name] > 0, f"tiny step ran no {name} kernel: {launches}")
     (got, got_m), (want, want_m) = out["cuda"], out["cpu"]
     for k, w in want.items():
         require(abs(got[k] - w) <= TRAIN_LOSS_RTOL * abs(w), f"card vs CPU {k}: {got[k]} vs {w}")
@@ -911,7 +952,8 @@ def phase_train_card_vs_cpu(winograd: str) -> None:
                 f"card vs CPU {name} Adam mu: max err {err}, scale {w_m.abs().max().item()}")
         errs.append(err)
     emit({"phase": "train_fp32_card_vs_cpu", "winograd": winograd,
-          "config": "tiny_cpu.yaml ch=128", "batch": 2, "card": got, "cpu": want,
+          "config": f"tiny_cpu.yaml ch={ch or cfg['model']['params']['ddconfig']['ch']}",
+          "batch": 2, "card": got, "cpu": want,
           "card_launches": launches,
           "mu_max_abs_err": dict(zip(("opt_ae", "opt_disc"), errs))})
 
@@ -1007,6 +1049,7 @@ def main() -> int:
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
+    phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
     emit(kernels_line(cases, det, det_fused, train, train_fused))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

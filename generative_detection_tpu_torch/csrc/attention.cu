@@ -27,8 +27,8 @@
 //                   `_mha_fwd_kernel`) and fed from registers as the A
 //                   operand; V, MN-major, through the descriptor's
 //                   transpose bit.
-// Per channel count (Cfg below): at C = 128 and 256 (the flagship's L = 4096
-// sites) a block owns 128 query rows and each warpgroup the whole O; at
+// Per channel count (Cfg below): at C = 64 (the tiny configs' (B, 256, 64)
+// sites), 128 and 256 (the flagship's L = 4096 sites) a block owns 128 query rows and each warpgroup the whole O; at
 // C = 512 (the (B, 256, 512) mid-block site, memory-bound and small) O does
 // not fit one warpgroup's registers, so both warpgroups take the same 64
 // rows, each 256 of O's channels, and each computes S itself.
@@ -44,6 +44,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "vec.cuh"
 
 namespace {
 
@@ -91,15 +92,6 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const __nv_bfloat16* s
   }
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(a, b);
-  h[1] = __floats2bfloat162_rn(c, d);
-}
-
 // T is the input and output type (fp32 for B1's fp32 path; fp32 or bf16 for
 // the forward-only flash variant, which computes in fp32 whatever T is).
 // LSE: write the row logsumexp (the flash variant writes none).
@@ -110,7 +102,8 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ lse, int L, float scale) {
   constexpr int BQ = kF32BQ, BK = kF32BK;
   constexpr int ST = F32Cfg<C>::ST, SST = F32Cfg<C>::SST;
-  constexpr int NJ = C / 128;  // float4 column chunks per lane in phase 3
+  // phase 3: a lane holds VW consecutive channels of each 32 VW-wide chunk
+  constexpr int VW = C >= 128 ? 4 : 2, NJ = C / (32 * VW);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -128,13 +121,13 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;      // phase 1
   const int p_row = threadIdx.x / 8, p_part = threadIdx.x % 8;  // phase 2
   float m_run = -INFINITY, l_run = 0.f;
-  float acc[4][NJ][4];                                          // phase 3
+  float acc[4][NJ][VW];                                         // phase 3
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+      for (int e = 0; e < VW; ++e) acc[r][j][e] = 0.f;
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     __syncthreads();
@@ -192,7 +185,7 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // ---- 3. rows warp*4 .. +3, columns lane*4 + 128 j
+    // ---- 3. rows warp*4 .. +3, columns lane*VW + 32 VW j
     {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -200,7 +193,7 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][j][e] *= al;
+          for (int e = 0; e < VW; ++e) acc[r][j][e] *= al;
       }
 #pragma unroll 4
       for (int kk = 0; kk < BK; ++kk) {
@@ -209,14 +202,12 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < 4; ++r) p[r] = Ss[(warp * 4 + r) * SST + kk];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + kk * ST + lane * 4 + 128 * j);
+          float vv[VW];
+          load_vw<VW>(Vs + kk * ST + lane * VW + 32 * VW * j, vv);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc[r][j][0] += p[r] * vv.x;
-            acc[r][j][1] += p[r] * vv.y;
-            acc[r][j][2] += p[r] * vv.z;
-            acc[r][j][3] += p[r] * vv.w;
-          }
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int e = 0; e < VW; ++e) acc[r][j][e] += p[r] * vv[e];
         }
       }
     }
@@ -233,8 +224,10 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / s_l[row];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      store4(o + img + (size_t)(q0 + row) * C + lane * 4 + 128 * j, acc[r][j][0] * inv,
-             acc[r][j][1] * inv, acc[r][j][2] * inv, acc[r][j][3] * inv);
+      float out[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) out[e] = acc[r][j][e] * inv;
+      store_vw<VW>(o + img + (size_t)(q0 + row) * C + lane * VW + 32 * VW * j, out);
     }
   }
 }
@@ -245,9 +238,10 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace wg {
 
-// C = 128, 256: a block owns 128 query rows, 64 per consumer warpgroup,
-//   each with the whole O (64 x 256 fp32 is 128 registers a thread); 64-row
-//   K/V tiles.
+// C = 64, 128, 256: a block owns 128 query rows, 64 per consumer
+//   warpgroup, each with the whole O (64 x 256 fp32 is 128 registers a
+//   thread); 64-row K/V tiles. At C = 64 a tile row is one 128-byte swizzle
+//   chunk and P V is an m64n64 wgmma.
 // C = 512: O (64 x 512) does not fit one warpgroup's registers. A block owns
 //   64 query rows; each consumer warpgroup holds 256 of O's channels and
 //   computes the same S itself (Q K^T runs twice: the (B, 256, 512) site is
@@ -465,7 +459,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
 extern "C" {
 
 // q, k, v, o: (B, L, C) contiguous, 16-byte aligned, fp32 (dtype 0) or bf16
-// (dtype 1); lse: (B, L) fp32. Takes C in {128, 256, 512} and L % 128 == 0
+// (dtype 1); lse: (B, L) fp32. Takes C in {64, 128, 256, 512} and L % 128 == 0
 // (the Python wrapper checks and raises outside them). Returns a CUDA error
 // code (cudaGetLastError() after the launch).
 int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -473,12 +467,14 @@ int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (C) {
+      case 64: return wg::launch<64>(q, k, v, o, lse, B, L, scale, s);
       case 128: return wg::launch<128>(q, k, v, o, lse, B, L, scale, s);
       case 256: return wg::launch<256>(q, k, v, o, lse, B, L, scale, s);
       case 512: return wg::launch<512>(q, k, v, o, lse, B, L, scale, s);
     }
   } else if (dtype == 0) {
     switch (C) {
+      case 64: return launch_f32<float, 64, true>(q, k, v, o, lse, B, L, scale, s);
       case 128: return launch_f32<float, 128, true>(q, k, v, o, lse, B, L, scale, s);
       case 256: return launch_f32<float, 256, true>(q, k, v, o, lse, B, L, scale, s);
       case 512: return launch_f32<float, 512, true>(q, k, v, o, lse, B, L, scale, s);
@@ -498,12 +494,15 @@ int gdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (C) {
+      case 64: return launch_f32<float, 64, false>(q, k, v, o, nullptr, B, L, scale, s);
       case 128: return launch_f32<float, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
       case 256: return launch_f32<float, 256, false>(q, k, v, o, nullptr, B, L, scale, s);
       case 512: return launch_f32<float, 512, false>(q, k, v, o, nullptr, B, L, scale, s);
     }
   } else if (dtype == 1) {
     switch (C) {
+      case 64:
+        return launch_f32<__nv_bfloat16, 64, false>(q, k, v, o, nullptr, B, L, scale, s);
       case 128:
         return launch_f32<__nv_bfloat16, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
       case 256:

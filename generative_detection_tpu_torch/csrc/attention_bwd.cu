@@ -44,9 +44,10 @@
 //     computes S and dP (wgmma), dS in registers, dQ += dS K.
 // Together they run the four products of the dK/dV pass once each and S,
 // dP, dQ in the dQ pass: 14 B L^2 C flops against the bound's 10.
-// bf16 at C = 128 and 512 keeps the mma.sync kernels below (FlashAttention-
-// 2's split with 128-channel slices that recompute S^T and dP^T); fp32 runs
-// the FMA kernels.
+// bf16 at C = 64, 128 and 512 keeps the mma.sync kernels below
+// (FlashAttention-2's split with min(C, 128)-channel slices that recompute
+// S^T and dP^T; one slice at C = 64, the tiny configs' (B, 256, 64) sites);
+// fp32 runs the FMA kernels.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,6 +55,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "vec.cuh"
 
 namespace {
 
@@ -192,7 +194,7 @@ __device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* out, int cs0,
 
 template <int C, int BQ>
 struct DkdvCfg {
-  static constexpr int BK = 64, CS = 128;
+  static constexpr int BK = 64, CS = C < 128 ? C : 128;  // channel slice per block
   static constexpr int ST = C + 8;   // padded row strides (elements): rows
   static constexpr int PST = BQ + 8; // shift by 4 banks, fragment loads conflict-free
   static constexpr size_t smem_bytes =
@@ -363,7 +365,11 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // fp32: FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kF32CS = 128;  // output channels per block: lane * 4 .. + 3
+// Output channels per block of the fp32 kernels, VW per lane: lane * VW ..
+// + VW - 1 (128 as 4 a lane; 64 at C = 64 as 2 a lane).
+template <int C> struct F32Slice {
+  static constexpr int CS = C < 128 ? C : 128, VW = CS / 32;
+};
 
 // Phase A for fp32: X[r][n] = A1[r] . B1[n] * scale and Y[r][n] = A2[r] . B2[n]
 // for an (RM x BN) tile; thread t owns column t % BN and rows t / BN + i *
@@ -395,35 +401,34 @@ __device__ __forceinline__ void phase_a_f32(const float* A1, const float* B1, co
   for (int i = 0; i < NE; ++i) x[i] *= scale;
 }
 
-// Phase B for fp32: acc[r][e] += sum_k Pm[row_r][k] Vm[k][c0 + lane * 4 + e]
+// Phase B for fp32: acc[r][e] += sum_k Pm[row_r][k] Vm[k][c0 + lane * VW + e]
 // over RM rows, warp w owning rows w * RM / 8 .. (RM / 8 rows each).
-template <int K, int PST, int ST, int RM>
+template <int K, int PST, int ST, int RM, int VW>
 __device__ __forceinline__ void phase_b_f32(const float* Pm, const float* Vm,
-                                            float (*acc)[4]) {
+                                            float (*acc)[VW]) {
   constexpr int RW = RM / 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll 4
   for (int kk = 0; kk < K; ++kk) {
-    const float4 vv = *reinterpret_cast<const float4*>(Vm + kk * ST + lane * 4);
+    float vv[VW];
+    load_vw<VW>(Vm + kk * ST + lane * VW, vv);
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const float p = Pm[(warp * RW + r) * PST + kk];
-      acc[r][0] += p * vv.x;
-      acc[r][1] += p * vv.y;
-      acc[r][2] += p * vv.z;
-      acc[r][3] += p * vv.w;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc[r][e] += p * vv[e];
     }
   }
 }
 
-template <int C, int RM>
-__device__ __forceinline__ void store_acc_f32(float* out, int cs0, const float (*acc)[4]) {
+template <int C, int RM, int VW>
+__device__ __forceinline__ void store_acc_f32(float* out, int cs0, const float (*acc)[VW]) {
   constexpr int RW = RM / 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
-    *reinterpret_cast<float4*>(out + (size_t)(warp * RW + r) * C + cs0 + lane * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  for (int r = 0; r < RW; ++r) {
+    store_vw<VW>(out + (size_t)(warp * RW + r) * C + cs0 + lane * VW, acc[r]);
+  }
 }
 
 template <int C>
@@ -464,15 +469,16 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   float* s_lse = dSs + BK * PST;
   float* s_di = s_lse + BQ;
 
-  const int b = blockIdx.y, k0 = blockIdx.x * BK, cs0 = blockIdx.z * kF32CS;
+  constexpr int VW = F32Slice<C>::VW;
+  const int b = blockIdx.y, k0 = blockIdx.x * BK, cs0 = blockIdx.z * F32Slice<C>::CS;
   const size_t img = (size_t)b * L * C;
   load_tile_f32<C>(Ks, k + img + (size_t)k0 * C, BK);
   load_tile_f32<C>(Vs, v + img + (size_t)k0 * C, BK);
-  float acc_dv[RW][4], acc_dk[RW][4];
+  float acc_dv[RW][VW], acc_dk[RW][VW];
 #pragma unroll
   for (int r = 0; r < RW; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) { acc_dv[r][e] = 0.f; acc_dk[r][e] = 0.f; }
+    for (int e = 0; e < VW; ++e) { acc_dv[r][e] = 0.f; acc_dk[r][e] = 0.f; }
 
   const int col = threadIdx.x % BQ, r0 = threadIdx.x / BQ;
   for (int q0 = 0; q0 < L; q0 += BQ) {
@@ -494,11 +500,11 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
     }
     __syncthreads();
-    phase_b_f32<BQ, PST, ST, BK>(Ps, dOs + cs0, acc_dv);
-    phase_b_f32<BQ, PST, ST, BK>(dSs, Qs + cs0, acc_dk);
+    phase_b_f32<BQ, PST, ST, BK, VW>(Ps, dOs + cs0, acc_dv);
+    phase_b_f32<BQ, PST, ST, BK, VW>(dSs, Qs + cs0, acc_dk);
   }
-  store_acc_f32<C, BK>(dk + img + (size_t)k0 * C, cs0, acc_dk);
-  store_acc_f32<C, BK>(dv + img + (size_t)k0 * C, cs0, acc_dv);
+  store_acc_f32<C, BK, VW>(dk + img + (size_t)k0 * C, cs0, acc_dk);
+  store_acc_f32<C, BK, VW>(dv + img + (size_t)k0 * C, cs0, acc_dv);
 }
 
 template <int C>
@@ -519,17 +525,18 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* s_lse = dSs + 2 * BQ * PST;
   float* s_di = s_lse + BK;
 
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ, cs0 = blockIdx.z * kF32CS;
+  constexpr int VW = F32Slice<C>::VW;
+  const int b = blockIdx.y, q0 = blockIdx.x * BQ, cs0 = blockIdx.z * F32Slice<C>::CS;
   const size_t img = (size_t)b * L * C;
   load_tile_f32<C>(Qs, q + img + (size_t)q0 * C, BQ);
   load_tile_f32<C>(dOs, dout + img + (size_t)q0 * C, BQ);
   load_rows_f32(s_lse, lse + (size_t)b * L + q0, BQ);
   load_rows_f32(s_di, di + (size_t)b * L + q0, BQ);
-  float acc[RW][4];
+  float acc[RW][VW];
 #pragma unroll
   for (int r = 0; r < RW; ++r)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < VW; ++e) acc[r][e] = 0.f;
 
   const int col = threadIdx.x % BK, r0 = threadIdx.x / BK;
   for (int k0 = 0; k0 < L; k0 += BK) {
@@ -548,9 +555,9 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    phase_b_f32<BK, PST, ST, BQ>(dSs, Ks + cs0, acc);
+    phase_b_f32<BK, PST, ST, BQ, VW>(dSs, Ks + cs0, acc);
   }
-  store_acc_f32<C, BQ>(dq + img + (size_t)q0 * C, cs0, acc);
+  store_acc_f32<C, BQ, VW>(dq + img + (size_t)q0 * C, cs0, acc);
 }
 
 template <typename K>
@@ -930,12 +937,12 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
   const float* f[6] = {static_cast<const float*>(q), static_cast<const float*>(k),
                        static_cast<const float*>(v), static_cast<const float*>(dout),
                        static_cast<const float*>(lse), static_cast<const float*>(di)};
-  kv_kernel<<<dim3(L / T::KEEP, B, C / kF32CS), kThreads, T::smem_bytes, stream>>>(
+  kv_kernel<<<dim3(L / T::KEEP, B, C / F32Slice<C>::CS), kThreads, T::smem_bytes, stream>>>(
       f[0], f[1], f[2], f[3], f[4], f[5], static_cast<float*>(dk), static_cast<float*>(dv),
       L, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<<<dim3(L / T::KEEP, B, C / kF32CS), kThreads, T::smem_bytes, stream>>>(
+  dq_kernel<<<dim3(L / T::KEEP, B, C / F32Slice<C>::CS), kThreads, T::smem_bytes, stream>>>(
       f[0], f[1], f[2], f[3], f[4], f[5], static_cast<float*>(dq), L, scale);
   return (int)cudaGetLastError();
 }
@@ -946,7 +953,7 @@ extern "C" {
 
 // q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, 16-byte aligned, fp32
 // (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned. Takes
-// C in {128, 256, 512} and L % 128 == 0 (the Python wrapper checks and
+// C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper checks and
 // raises outside them). Returns a CUDA error code (cudaGetLastError() after
 // the launches).
 int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
@@ -955,12 +962,14 @@ int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* d
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (C) {
+      case 64: return launch_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 128: return launch_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 256: return wg::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 512: return launch_bf16<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
     }
   } else if (dtype == 0) {
     switch (C) {
+      case 64: return launch_f32<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 128: return launch_f32<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 256: return launch_f32<256>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
       case 512: return launch_f32<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);

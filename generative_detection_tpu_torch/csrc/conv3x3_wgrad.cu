@@ -19,24 +19,58 @@
 // partial in device memory, and a second launch folds the partials in split
 // order. No atomics: the result repeats bit for bit.
 //
-// Each block keeps 64 input x 64 output channels and three accumulators (one
-// per dx). Per chunk of KP = 32 columns of one t-row it stages V_a for the
-// KP + 2 columns (the column shift is an offset into shared memory) and dM_a,
-// then multiplies: bf16 on the tensor cores (mma.sync m16n8k16, fp32
-// accumulate, both operands by ldmatrix.trans), fp32 with FMA.
+// bf16 runs wgrad_wgmma_kernel. Block (c tile of 64, co tile of 128, point
+// a, split s) walks chunks of KC = 32 columns of one t-row (the last chunk
+// of a row may run past W: zero there), three warpgroups:
+//   - thread 0 loads each chunk's raw rows by TMA two chunks ahead, into a
+//     two-stage ring paced by an mbarrier per stage (z: the M + 2 rows of
+//     the t-row, 64 channels; dy: its M rows, 128 channels, KC + 2 columns
+//     from x0 - 1; rows and columns outside the tensor read as zero);
+//   - all 384 threads then form the chunk's operands into a two-stage ring
+//     of 128-byte-swizzled tiles: silu(z a + b) recomputed in fp32 and
+//     rounded to bf16 (as the plain version), V_a summed in fp32 and cast to
+//     bf16, dM_a summed in bf16;
+//   - warpgroups 1 and 2, one per 64 output channels, then start
+//     m64n192k16 wgmma on the tiles and wait for them only before the next
+//     barrier (ptxas adds a wait where the accumulator leaves the consumers'
+//     branch, C7517; the products are a small share of a chunk's time).
+//     Both operands are MN-major:
+//     A = V_a^T (64 channels x KC positions, channels contiguous) and B =
+//     [dM_a shifted by 0 | 1 | 2 columns] (KC x 3 * 64). The dx shift is
+//     carried in N: row x of B's chunk dx holds dM_a[x + 1 - dx], so one
+//     64 x 192 fp32 accumulator (96 registers a thread) holds dU[a, 0..2]
+//     for the warpgroup's channels. A shift of V_a instead would move the
+//     operand by one K row, which breaks the 8-row swizzle atom.
+// One barrier a chunk orders it: operand writes, the async-proxy fence, the
+// wait for the previous chunk's products, the barrier, then the next TMA
+// and this chunk's wgmma. The point a is a template argument of the operand
+// code (form_chunk), so zero transform coefficients cost nothing.
+//
+// fp32 runs wgrad_f32_kernel: each block keeps 64 input x 64 output
+// channels and three accumulators (one per dx); per chunk of KP = 32 columns
+// it stages V_a for the KP + 2 columns (the column shift is an offset into
+// shared memory) and dM_a, then multiplies with FMA.
 //
 // Bound on the H100: compute, on the direct-conv yardstick (2 * 9 * B * H *
-// W * C * CO flops; the Winograd form does P * 3 / (9 * M) of them).
+// W * C * CO flops; the Winograd form does P * 3 / (9 * M) of them). What
+// holds the bf16 kernel back is forming the operands, not the products: it
+// reads z from L2 (M + 2) / M times per (point, co tile) and dy once per
+// (point, c tile), about 2.9 GB at 16x128x128x256->128, and recomputes the
+// activation once per (point, co tile).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <utility>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int TC = 64;   // input channels per block
-constexpr int TN = 64;   // output channels per block
+constexpr int TN = 64;   // output channels per block (fp32)
 constexpr int KP = 32;   // columns per chunk
 
 __constant__ float kBT2[4][4] = {{1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
@@ -57,52 +91,16 @@ __device__ __forceinline__ float at(int i, int a) {
 }
 
 template <typename T> struct Ty;
-template <> struct Ty<__nv_bfloat16> { static constexpr int VEC = 8, PITCH = 72; };
 template <> struct Ty<float> { static constexpr int VEC = 4, PITCH = 68; };
 
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   float4 u = *reinterpret_cast<const float4*>(p);
   out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 struct Geom {
   int B, H, W, C, CO;
@@ -193,74 +191,6 @@ __device__ __forceinline__ void chunk_coords(const Geom& g, int k, int* b, int* 
 // grid: (C/TC * CO/TN, P, splits); part: (splits, P*3, C, CO) fp32
 template <int M, bool GN>
 __global__ void __launch_bounds__(kThreads)
-wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ dy,
-                  const float* __restrict__ ga, const float* __restrict__ gb,
-                  float* __restrict__ part, Geom g) {
-  using T = __nv_bfloat16;
-  constexpr int P = M + 2, PITCH = Ty<T>::PITCH;
-  __shared__ __align__(16) T Vs[(KP + 2) * PITCH];
-  __shared__ __align__(16) T Ds[KP * PITCH];
-  const int n_tiles = g.CO / TN;
-  const int c0 = (blockIdx.x / n_tiles) * TC, co0 = (blockIdx.x % n_tiles) * TN;
-  const int a = blockIdx.y, s = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % 4, wn = warp / 4;  // 16 input channels, 32 output channels
-  const int gq = lane >> 2, tq = lane & 3;
-  // ldmatrix.trans lane roles: A = Vs^T (rows c, k = columns), B = Ds (k, n)
-  const int a_p = (lane & 7) + (lane >> 4) * 8, a_c = ((lane >> 3) & 1) * 8;
-  const int b_p = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
-
-  float acc[3][4][4];
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dx][j][e] = 0.f;
-
-  const int k0 = (int)((long long)s * g.n_chunks / g.splits);
-  const int k1 = (int)((long long)(s + 1) * g.n_chunks / g.splits);
-  for (int k = k0; k < k1; ++k) {
-    int b, t, x0;
-    chunk_coords(g, k, &b, &t, &x0);
-    __syncthreads();
-    stage_chunk<T, M, GN>(Vs, Ds, z, dy, ga, gb, g, a, b, t, x0, c0, co0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KP; kk += 16) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        uint32_t af[4];
-        ldmatrix_x4_trans(af, Vs + (kk + a_p + dx) * PITCH + wm * 16 + a_c);
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, Ds + (kk + b_p) * PITCH + wn * 32 + b_n + j * 8);
-          mma_bf16(acc[dx][j], af, bf[0], bf[1]);
-          mma_bf16(acc[dx][j + 1], af, bf[2], bf[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    float* dst = part + (((size_t)s * P + a) * 3 + dx) * g.C * g.CO;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + wn * 32 + j * 8 + 2 * tq;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = c0 + wm * 16 + gq + h * 8;
-        *reinterpret_cast<float2*>(dst + (size_t)c * g.CO + co) =
-            make_float2(acc[dx][j][2 * h], acc[dx][j][2 * h + 1]);
-      }
-    }
-  }
-}
-
-template <int M, bool GN>
-__global__ void __launch_bounds__(kThreads)
 wgrad_f32_kernel(const float* __restrict__ z, const float* __restrict__ dy,
                  const float* __restrict__ ga, const float* __restrict__ gb,
                  float* __restrict__ part, Geom g) {
@@ -326,37 +256,311 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
   out[i] = acc;
 }
 
-template <typename T, int M, bool GN>
+// ---------------------------------------------------------------------------
+// bf16: TMA + a transform-producer warpgroup + wgmma (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int KC = KP;         // positions (columns of one t-row) per chunk
+constexpr int TNW = 128;       // output channels per block, 64 per consumer warpgroup
+constexpr int RS = 2, OS = 2;  // stages of the raw and the operand ring
+
+template <int M>
+struct Cfg {
+  static constexpr int P = M + 2;
+  static constexpr uint32_t Z_BYTES = 64 * KC * P * 2;       // z box: 64 C x KC x P rows
+  static constexpr uint32_t DY_BOX = 64 * (KC + 2) * M * 2;  // dy box: 64 CO x (KC + 2) x M
+  static constexpr uint32_t RAW_BYTES = Z_BYTES + 2 * DY_BOX;
+  static constexpr uint32_t A_BYTES = KC * 128;      // V_a^T: KC rows of 64 channels
+  static constexpr uint32_t B_BYTES = 6 * KC * 128;  // [warpgroup][dx]: KC rows of 64 CO
+  static constexpr uint32_t OP_BYTES = A_BYTES + B_BYTES;
+  static constexpr size_t SMEM = 1024 + OS * OP_BYTES + RS * RAW_BYTES + 8 * RS;
+  static_assert(OP_BYTES % 1024 == 0 && RAW_BYTES % 128 == 0 && DY_BOX % 128 == 0, "align");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Row k, 16-byte unit u of a 128-byte-swizzled tile (base 1024-aligned).
+__device__ __forceinline__ uint32_t swz(int k, int u) {
+  return k * 128 + ((u ^ (k & 7)) << 4);
+}
+
+// The F(M,3) transforms as compile-time values, so that the point loops below
+// drop zero coefficients and multiplies by one.
+__host__ __device__ constexpr float bt_c(int m, int a, int u) {
+  constexpr float t2[4][4] = {{1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
+  constexpr float t4[6][6] = {{4, 0, -5, 0, 1, 0},  {0, -4, -4, 1, 1, 0}, {0, 4, -4, -1, 1, 0},
+                              {0, -2, -1, 2, 1, 0}, {0, 2, -1, -2, 1, 0}, {0, 4, 0, -5, 0, 1}};
+  return m == 2 ? t2[a][u] : t4[a][u];
+}
+__host__ __device__ constexpr float at_c(int m, int i, int a) {
+  constexpr float t2[2][4] = {{1, 1, 1, 0}, {0, 1, -1, -1}};
+  constexpr float t4[4][6] = {
+      {1, 1, 1, 1, 1, 0}, {0, 1, -1, 2, -2, 0}, {0, 1, 1, 4, 4, 0}, {0, 1, -1, 8, -8, 1}};
+  return m == 2 ? t2[i][a] : t4[i][a];
+}
+
+// v += BT[A, R] act(z row R) on the 4 channels at byte `off` of column k;
+// z row R outside the image (R = 0 of the first t-row, R = M + 1 of the
+// last) adds nothing.
+template <int M, bool GN, int A, int R>
+__device__ __forceinline__ void add_z_row(float (&v)[4], const unsigned char* rz, int k, int off,
+                                          bool first, bool last, const float4& ga4,
+                                          const float4& gb4) {
+  constexpr float cf = bt_c(M, A, R);
+  if constexpr (cf != 0.f) {
+    if ((R == 0 && first) || (R == M + 1 && last)) return;
+    const uint2 raw = *reinterpret_cast<const uint2*>(rz + (R * KC + k) * 128 + off);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 z01 = __bfloat1622float2(h[0]), z23 = __bfloat1622float2(h[1]);
+    float zr[4] = {z01.x, z01.y, z23.x, z23.y};
+    if constexpr (GN) {
+      const float gav[4] = {ga4.x, ga4.y, ga4.z, ga4.w}, gbv[4] = {gb4.x, gb4.y, gb4.z, gb4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float w = fmaf(zr[j], gav[j], gbv[j]);
+        zr[j] = bf16_round(__fdividef(w, 1.f + __expf(-w)));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = cf == 1.f ? v[j] + zr[j] : fmaf(cf, zr[j], v[j]);
+  }
+}
+
+// d += AT[R, A] dy row R in bf16, one rounding per add (bf16x2 fma: the
+// product by a power of two is exact, so one rounding of d + cf r equals the
+// plain version's fp32 add rounded to bf16).
+template <int M, int A, int R>
+__device__ __forceinline__ void add_dy_row(__nv_bfloat162 (&d)[4], const unsigned char* row) {
+  constexpr float cf = at_c(M, R, A);
+  if constexpr (cf != 0.f) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + R * ((KC + 2) * 128));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const __nv_bfloat162 c2 = __float2bfloat162_rn(cf);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = __hfma2(c2, h[j], d[j]);
+  }
+}
+
+template <int M, bool GN, int A, int... R>
+__device__ __forceinline__ void add_z_rows(std::integer_sequence<int, R...>, float (&v)[4],
+                                           const unsigned char* rz, int k, int off, bool first,
+                                           bool last, const float4& ga4, const float4& gb4) {
+  (add_z_row<M, GN, A, R>(v, rz, k, off, first, last, ga4, gb4), ...);
+}
+
+template <int M, int A, int... R>
+__device__ __forceinline__ void add_dy_rows(std::integer_sequence<int, R...>,
+                                            __nv_bfloat162 (&d)[4], const unsigned char* row) {
+  (add_dy_row<M, A, R>(d, row), ...);
+}
+
+// One chunk's operands for point A, formed by thread `tid` of 384:
+// - V_a^T into the A tile: item (k, u, h) is column x0 + k, channels c0 +
+//   8 u + 4 h .. + 3 (zero past the image's last column); 2 KC * 8 items,
+//   one or two a thread (the activation is most of a chunk's work);
+// - dM_a into B, by threads 128..383: item (jr, q) is column x0 - 1 + jr,
+//   channels co0 + 8 q .. + 7, written to B chunk (q / 8, dx) at row k =
+//   jr - 2 + dx, so that B_dx[k] = dM_a[x0 + k + 1 - dx].
+template <int M, bool GN, int A>
+__device__ __forceinline__ void form_chunk(unsigned char* op_a, const unsigned char* rz,
+                                           const float* __restrict__ ga,
+                                           const float* __restrict__ gb, const Geom& g, int b,
+                                           int t, int x0, int c0, int tid) {
+  constexpr int NV = KC * 16, ND = (KC + 2) * 16;
+  const bool first = t == 0, last = t == g.HT - 1;
+  for (int it = tid; it < NV; it += 384) {
+    const int k = it >> 4, off = (it & 15) * 8;  // byte offset of the 4 channels in the row
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (!GN || x0 + k < g.W) {
+      float4 ga4, gb4;
+      if constexpr (GN) {
+        ga4 = *reinterpret_cast<const float4*>(ga + (size_t)b * g.C + c0 + off / 2);
+        gb4 = *reinterpret_cast<const float4*>(gb + (size_t)b * g.C + c0 + off / 2);
+      }
+      add_z_rows<M, GN, A>(std::make_integer_sequence<int, M + 2>{}, v, rz, k, off, first, last,
+                           ga4, gb4);
+    }
+    uint2 out;
+    out.x = hopper::pack_bf16(v[0], v[1]);
+    out.y = hopper::pack_bf16(v[2], v[3]);
+    *reinterpret_cast<uint2*>(op_a + swz(k, off >> 4) + (off & 8)) = out;
+  }
+  if (tid < 128) return;
+  unsigned char* op_b = op_a + Cfg<M>::A_BYTES;
+  const unsigned char* rdy = rz + Cfg<M>::Z_BYTES;
+  for (int it = tid - 128; it < ND; it += 256) {
+    const int jr = it >> 4, q = it & 15;
+    const int cc = q >> 3, u = q & 7;
+    __nv_bfloat162 d[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[j] = __float2bfloat162_rn(0.f);
+    const unsigned char* row = rdy + cc * Cfg<M>::DY_BOX + jr * 128 + u * 16;
+    add_dy_rows<M, A>(std::make_integer_sequence<int, M>{}, d, row);
+    const uint4 out = *reinterpret_cast<const uint4*>(d);
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int k = jr - 2 + dx;
+      if (k >= 0 && k < KC)
+        *reinterpret_cast<uint4*>(op_b + (cc * 3 + dx) * (KC * 128) + swz(k, u)) = out;
+    }
+  }
+}
+
+template <int M, bool GN, int A = 0>
+__device__ __forceinline__ void form_chunk_at(int a, unsigned char* op_a,
+                                              const unsigned char* rz, const float* ga,
+                                              const float* gb, const Geom& g, int b, int t,
+                                              int x0, int c0, int tid) {
+  if constexpr (A < M + 2) {
+    if (a == A)
+      form_chunk<M, GN, A>(op_a, rz, ga, gb, g, b, t, x0, c0, tid);
+    else
+      form_chunk_at<M, GN, A + 1>(a, op_a, rz, ga, gb, g, b, t, x0, c0, tid);
+  }
+}
+
+// grid: ((C / 64) * (CO / 128) * P, splits); part: (splits, P*3, C, CO) fp32
+template <int M, bool GN>
+__global__ void __launch_bounds__(384, 1)
+wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_z,
+                   const __grid_constant__ CUtensorMap tm_dy, const float* __restrict__ ga,
+                   const float* __restrict__ gb, float* __restrict__ part, Geom g) {
+  using namespace hopper;
+  using K = Cfg<M>;
+  constexpr int P = K::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ops = align_1024(smem_raw);    // [OS][A | B]
+  unsigned char* raws = ops + OS * K::OP_BYTES;  // [RS][z | dy chunk 0 | dy chunk 1]
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(raws + RS * K::RAW_BYTES);
+
+  int bx = blockIdx.x;
+  const int a = bx % P;
+  bx /= P;
+  const int n_cot = g.CO / TNW;
+  const int co0 = (bx % n_cot) * TNW, c0 = (bx / n_cot) * TC;
+  const int s = blockIdx.y;
+  const int k0 = (int)((long long)s * g.n_chunks / g.splits);
+  const int nk = (int)((long long)(s + 1) * g.n_chunks / g.splits) - k0;
+  const int tid = threadIdx.x;
+
+  auto load_chunk = [&](int i) {  // thread 0: the raw rows of chunk i
+    int b, t, x0;
+    chunk_coords(g, k0 + i, &b, &t, &x0);
+    unsigned char* dst = raws + (i % RS) * K::RAW_BYTES;
+    uint64_t* bar = &raw_full[i % RS];
+    mbar_expect_tx(bar, K::RAW_BYTES);
+    tma_load_4d(dst, &tm_z, bar, c0, x0, M * t - 1, b);
+    tma_load_4d(dst + K::Z_BYTES, &tm_dy, bar, co0, x0 - 1, M * t, b);
+    tma_load_4d(dst + K::Z_BYTES + K::DY_BOX, &tm_dy, bar, co0 + 64, x0 - 1, M * t, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < RS; ++i) mbar_init(&raw_full[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < RS && i < nk; ++i) load_chunk(i);
+  }
+  __syncthreads();
+
+  // warpgroup 0 (threads 0..127) only forms operands; warpgroups 1 and 2 also
+  // multiply, w taking output channels co0 + 64 w .. + 63
+  const int w = __shfl_sync(0xffffffffu, tid / 128, 0) - 1;  // warp-uniform for ptxas
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  const uint32_t b_off = K::A_BYTES + (w < 0 ? 0 : w) * 3 * (KC * 128);
+  for (int i = 0; i < nk; ++i) {
+    // chunk i's operands into stage i % OS, formed by every thread; the
+    // products of chunk i - 2 read the stage last, and the consumers waited
+    // for them before the previous barrier
+    int b, t, x0;
+    chunk_coords(g, k0 + i, &b, &t, &x0);
+    mbar_wait(&raw_full[i % RS], (i / RS) & 1);
+    form_chunk_at<M, GN>(a, ops + (i % OS) * K::OP_BYTES, raws + (i % RS) * K::RAW_BYTES, ga,
+                         gb, g, b, t, x0, c0, tid);
+    fence_proxy_async();
+    if (w >= 0) {
+      wgmma_wait<0>();  // chunk i - 1's products: stage (i + 1) % OS is free after the barrier
+      fence_regs(acc);
+    }
+    __syncthreads();
+    if (tid == 0 && i + RS < nk) load_chunk(i + RS);  // raw stage i % RS has been read
+    if (w >= 0) {
+      const uint32_t a_addr = smem_u32(ops + (i % OS) * K::OP_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_ss_n192_tt(acc, desc_mnmajor(a_addr + kk * 2048, KC * 128),
+                         desc_mnmajor(a_addr + b_off + kk * 2048, KC * 128));
+      wgmma_commit();
+    }
+  }
+  if (w < 0) return;
+  wgmma_wait<0>();
+  fence_regs(acc);
+  // rows c0 + 16 warp + g (+ 8), columns n = 8 j + 2 tq (+ 1): dx = n / 64
+  const int g8 = lane >> 2, tq = lane & 3;
+  const size_t plane = (size_t)g.C * g.CO;
+  float* base = part + ((size_t)s * P + a) * 3 * plane + (size_t)(c0 + 16 * warp + g8) * g.CO +
+                co0 + 64 * w + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    float* dst = base + (j / 8) * plane + 8 * (j % 8);
+    *reinterpret_cast<float2*>(dst) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(dst + 8 * g.CO) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+template <int M, bool GN>
 int launch(const void* z, const void* dy, const void* ga, const void* gb, void* part,
-           void* out, const Geom& g, cudaStream_t stream) {
-  constexpr int P = M + 2;
-  dim3 grid((g.C / TC) * (g.CO / TN), P, g.splits);
-  if constexpr (sizeof(T) == 2)
-    wgrad_bf16_kernel<M, GN><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<const float*>(ga), static_cast<const float*>(gb),
-        static_cast<float*>(part), g);
-  else
-    wgrad_f32_kernel<M, GN><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(z), static_cast<const float*>(dy),
-        static_cast<const float*>(ga), static_cast<const float*>(gb),
-        static_cast<float*>(part), g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)P * 3 * g.C * g.CO;
-  fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), n, g.splits);
+           const Geom& g, cudaStream_t stream) {
+  using K = Cfg<M>;
+  CUtensorMap tz, tdy;
+  const uint64_t dz[4] = {(uint64_t)g.C, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
+  const uint64_t ddy[4] = {(uint64_t)g.CO, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
+  const uint32_t bz[4] = {64, KC, M + 2, 1};
+  const uint32_t bdy[4] = {64, KC + 2, M, 1};
+  int err = hopper::make_map_bf16_4d(&tz, z, dz, bz);
+  if (!err) err = hopper::make_map_bf16_4d(&tdy, dy, ddy, bdy);
+  if (err) return err;
+  auto kernel = wgrad_wgmma_kernel<M, GN>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((g.C / TC) * (g.CO / TNW) * K::P, g.splits);
+  kernel<<<grid, 384, K::SMEM, stream>>>(tz, tdy, static_cast<const float*>(ga),
+                                         static_cast<const float*>(gb),
+                                         static_cast<float*>(part), g);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* z, const void* dy, const void* ga, const void* gb, void* part,
-             void* out, const Geom& g, int m, int gn, cudaStream_t s) {
-  if (m == 2 && !gn) return launch<T, 2, false>(z, dy, ga, gb, part, out, g, s);
-  if (m == 2 && gn) return launch<T, 2, true>(z, dy, ga, gb, part, out, g, s);
-  if (m == 4 && !gn) return launch<T, 4, false>(z, dy, ga, gb, part, out, g, s);
-  if (m == 4 && gn) return launch<T, 4, true>(z, dy, ga, gb, part, out, g, s);
-  return (int)cudaErrorInvalidValue;
+}  // namespace wg
+
+template <int M, bool GN>
+int launch_f32(const void* z, const void* dy, const void* ga, const void* gb, void* part,
+               const Geom& g, cudaStream_t stream) {
+  dim3 grid((g.C / TC) * (g.CO / TN), M + 2, g.splits);
+  wgrad_f32_kernel<M, GN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(z), static_cast<const float*>(dy),
+      static_cast<const float*>(ga), static_cast<const float*>(gb), static_cast<float*>(part),
+      g);
+  return (int)cudaGetLastError();
+}
+
+template <int M, bool GN>
+int launch(const void* z, const void* dy, const void* ga, const void* gb, void* part,
+           void* out, const Geom& g, int dtype, cudaStream_t stream) {
+  const int err = dtype == 1 ? wg::launch<M, GN>(z, dy, ga, gb, part, g, stream)
+                             : launch_f32<M, GN>(z, dy, ga, gb, part, g, stream);
+  if (err) return err;
+  const size_t n = (size_t)(M + 2) * 3 * g.C * g.CO;
+  fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), n, g.splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -366,16 +570,19 @@ extern "C" {
 // z: (B, H, W, C) (raw x when gn); dy: (B, H, W, CO), both dtype (0 fp32,
 // 1 bf16); ga, gb: (B, C) fp32 when gn, else unused; part: (splits, P*3, C,
 // CO) fp32 scratch; out: (P*3, C, CO) fp32 with P = m + 2. The Python wrapper
-// checks: contiguous, 16-byte aligned, C % 64 == 0, CO % 64 == 0, H % m == 0.
-// Returns cudaGetLastError().
+// checks: contiguous, 16-byte aligned, C % 64 == 0, H % m == 0, and CO % 128
+// == 0 (bf16) or CO % 64 == 0 (fp32). Returns cudaGetLastError().
 int gdt_conv3x3_wgrad(const void* z, const void* dy, const void* ga, const void* gb,
                       void* part, void* out, int B, int H, int W, int C, int CO, int m,
                       int gn, int splits, int dtype, void* stream) {
   const int ht = H / m, n_xc = (W + KP - 1) / KP;
   Geom g{B, H, W, C, CO, ht, n_xc, B * ht * n_xc, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(z, dy, ga, gb, part, out, g, m, gn, s);
-  if (dtype == 0) return dispatch<float>(z, dy, ga, gb, part, out, g, m, gn, s);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (m == 2 && !gn) return launch<2, false>(z, dy, ga, gb, part, out, g, dtype, s);
+  if (m == 2 && gn) return launch<2, true>(z, dy, ga, gb, part, out, g, dtype, s);
+  if (m == 4 && !gn) return launch<4, false>(z, dy, ga, gb, part, out, g, dtype, s);
+  if (m == 4 && gn) return launch<4, true>(z, dy, ga, gb, part, out, g, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,7 +23,7 @@ Kernel notes:
   two deterministic launches: dK/dV per key tile, then dQ per query tile.
   bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
   one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
-  C = 128 and 512 run ``mma.sync`` over 128-channel slices. di =
+  C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices. di =
   rowsum(dO * O) is a torch reduction, as it is XLA outside the Pallas body
   in the JAX package.
 - forward-only flash variant: ``flash_attention_forward`` replaces
@@ -42,7 +42,7 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_CHANNELS = (128, 256, 512)
+KERNEL_CHANNELS = (64, 128, 256, 512)
 KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
 
 

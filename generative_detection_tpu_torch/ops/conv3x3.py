@@ -20,9 +20,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BM = 64  # output positions per block of the forward kernel
 BN = 64  # output channels per block (both kernels)
 KC = 16  # input-channel chunk of the forward kernel
-TC = 64  # input channels per block of the weight-gradient kernel
-# weight-gradient blocks to aim for: a few per SM of the H100's 132
-_TARGET_BLOCKS = 528
+TC = 64  # input channels per block of the weight-gradient kernels
+TN_BF16 = 128  # output channels per block of the bf16 weight-gradient kernel
+KP = 32  # columns per chunk of the weight-gradient kernels
+# weight-gradient blocks to aim for: a few per SM of the H100's 132 (fp32),
+# two waves of one block per SM (bf16: 177 KB of shared memory a block)
+_TARGET_BLOCKS = {torch.float32: 528, torch.bfloat16: 264}
 
 
 def _lib() -> ctypes.CDLL:
@@ -117,37 +120,39 @@ def conv3x3_forward(
     return (out, z) if emit_z else out
 
 
-def _wgrad_splits(b: int, h: int, w: int, c: int, co: int, m: int) -> int:
+def _wgrad_splits(b: int, h: int, w: int, c: int, co: int, m: int, dtype) -> int:
     """Split-K factor of the weight-gradient kernel: enough blocks to fill
     the card, at most one per position chunk."""
-    chunks = b * (h // m) * math.ceil(w / 32)
-    blocks = (c // TC) * (co // BN) * (m + 2)
-    return max(1, min(math.ceil(_TARGET_BLOCKS / blocks), chunks))
+    chunks = b * (h // m) * math.ceil(w / KP)
+    tn = TN_BF16 if dtype == torch.bfloat16 else BN
+    blocks = (c // TC) * (co // tn) * (m + 2)
+    return max(1, min(math.ceil(_TARGET_BLOCKS[dtype] / blocks), chunks))
 
 
 def conv3x3_wgrad(
     z: torch.Tensor, dy: torch.Tensor, m: int, gn_ab: Optional[tuple] = None
 ) -> torch.Tensor:
     """Launch ``csrc/conv3x3_wgrad.cu``: z (B, H, W, C) (raw x with
-    ``gn_ab``), dy (B, H, W, CO) in z's dtype. Returns dU ((m+2)*3, C, CO)
-    float32."""
+    ``gn_ab``), dy (B, H, W, CO) in z's dtype (bf16: TMA + ``wgmma``, any W;
+    fp32: FMA). Returns dU ((m+2)*3, C, CO) float32."""
     b, h, w, c = z.shape
     co = dy.shape[-1]
     ga, gb = _affine_args(gn_ab, b, c, z.device)
     _check(z, dy, ga, gb, dtype=z.dtype)
+    tn = TN_BF16 if z.dtype == torch.bfloat16 else BN
     if (
         m not in (2, 4)
         or dy.shape != (b, h, w, co)
         or dy.dtype != z.dtype
         or c % TC
-        or co % BN
+        or co % tn
         or h % m
     ):
         raise ValueError(
-            f"conv3x3 wgrad kernel takes C % {TC} == 0, CO % {BN} == 0 and H % m == 0, "
-            f"got z {tuple(z.shape)}, dy {tuple(dy.shape)} {dy.dtype}, m {m}"
+            f"conv3x3 wgrad kernel takes C % {TC} == 0, CO % {tn} == 0 ({z.dtype}) and "
+            f"H % m == 0, got z {tuple(z.shape)}, dy {tuple(dy.shape)} {dy.dtype}, m {m}"
         )
-    splits = _wgrad_splits(b, h, w, c, co, m)
+    splits = _wgrad_splits(b, h, w, c, co, m, z.dtype)
     pts = m + 2
     part = torch.empty((splits, pts * 3, c, co), dtype=torch.float32, device=z.device)
     du = torch.empty((pts * 3, c, co), dtype=torch.float32, device=z.device)

@@ -19,7 +19,10 @@ from generative_detection_tpu_torch.train import create_train_state, make_train_
 pytestmark = pytest.mark.gpu
 REPO = Path(__file__).resolve().parents[1]
 
-GN_ROWS = [(256, 128), (128, 128), (64, 128), (64, 256), (32, 256), (16, 256), (16, 512)]
+# (h=w, C): the flagship's rows, and the tiny configs' C = 32 and 64 (one and
+# two channels per group)
+GN_ROWS = [(256, 128), (128, 128), (64, 128), (64, 256), (32, 256), (16, 256), (16, 512),
+           (16, 32), (32, 32), (16, 64)]
 # fp32: the same fp32 arithmetic in another order. bf16: both sides round the
 # fp32 result to bf16 (one ulp is 2^-8 relative) from values that differ in
 # the last bits.
@@ -76,7 +79,8 @@ def test_group_norm_kernel_is_deterministic(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128), (2, 256, 64),
+                                   (4, 1024, 64)])
 def test_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.single_head_attention.launches
@@ -130,7 +134,8 @@ def test_group_norm_autograd_runs_the_backward_kernel(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128), (2, 256, 64),
+                                   (4, 1024, 64)])
 def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
@@ -251,6 +256,12 @@ def test_tiny_train_step_card_matches_cpu(cuda):
     _tiny_train_step_card_vs_cpu()
 
 
+def test_tiny_train_step_at_its_own_width_card_matches_cpu(cuda):
+    """The same step at tiny_cpu.yaml's own ch 32: attention at (2, 256, 64)
+    and GroupNorm at C = 32 and 64 run their kernels on the card."""
+    _tiny_train_step_card_vs_cpu(ch=None)
+
+
 def test_tiny_fused_winograd_train_step_card_matches_cpu(cuda, monkeypatch):
     """The same step with GDT_WINOGRAD=fused: the in-band (32x32) norm+conv
     pairs run the fused GroupNorm+SiLU+Winograd forward, dgrad and weight
@@ -264,9 +275,11 @@ def test_tiny_fused_winograd_train_step_card_matches_cpu(cuda, monkeypatch):
     assert [b - a for a, b in zip(before, after)] == [6, 6, 6]
 
 
-def _tiny_train_step_card_vs_cpu():
+def _tiny_train_step_card_vs_cpu(ch=128):
+    """tiny_cpu.yaml at ``ch`` (None: the config's own 32)."""
     cfg = merge_configs(
-        [str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")], ["model.params.ddconfig.ch=128"]
+        [str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")],
+        [] if ch is None else [f"model.params.ddconfig.ch={ch}"],
     )
     model = instantiate_from_config(cfg["model"])
     rng = np.random.default_rng(1)
@@ -376,8 +389,11 @@ def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gn", [False, True])
 @pytest.mark.parametrize("m", [2, 4])
-@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (16, 256, 128)])
+@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (16, 256, 128), (128, 256, 128),
+                                       (48, 128, 128)])
 def test_wino_wgrad_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
+    # (128, 256, 128): the fused step's largest site, at batch 2; W = 48: the
+    # bf16 kernel's last 32-column chunk of each row runs past the image
     from generative_detection_tpu_torch.ops import conv3x3
     from generative_detection_tpu_torch.ops import winograd_rows as wr
 
@@ -416,7 +432,7 @@ def test_conv_autograd_runs_the_kernels(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128), (2, 256, 64)])
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.flash_attention_forward.launches
@@ -477,3 +493,6 @@ def test_conv_kernels_raise_outside_their_shapes(cuda):
     with pytest.raises(ValueError, match="C % 64 == 0"):
         z = torch.zeros(1, 8, 8, 32, device="cuda")
         conv3x3.conv3x3_wgrad(z, torch.zeros(1, 8, 8, 128, device="cuda"), 4)
+    with pytest.raises(ValueError, match="CO % 128 == 0"):
+        z = torch.zeros(1, 8, 8, 64, device="cuda", dtype=torch.bfloat16)
+        conv3x3.conv3x3_wgrad(z, torch.zeros(1, 8, 8, 64, device="cuda", dtype=torch.bfloat16), 4)

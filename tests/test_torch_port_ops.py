@@ -118,12 +118,14 @@ def test_attention_matches_jax_reference_at_flagship_width():
 
 @pytest.mark.parametrize(
     "l, c, ok",
-    [(4096, 256, True), (256, 512, True), (16384, 256, True), (192, 256, False), (256, 96, False)],
+    [(4096, 256, True), (256, 512, True), (16384, 256, True), (256, 64, True), (192, 256, False),
+     (256, 96, False)],
 )
 def test_attention_kernel_gate(l, c, ok):
-    # every (L, C) the flagship detector and train step run, and L = 16384,
-    # pass the kernels' gate (L % 128 == 0, the JAX package's; C in 128, 256,
-    # 512); L = 192 and C = 96 are refused. Checked on CPU tensors.
+    # every (L, C) the flagship detector and train step run, L = 16384 and
+    # the tiny configs' (256, 64) pass the kernels' gate (L % 128 == 0, the
+    # JAX package's; C in 64, 128, 256, 512); L = 192 and C = 96 are refused.
+    # Checked on CPU tensors.
     q = torch.zeros(1, l, c, dtype=torch.bfloat16)
     if ok:
         attention._check_kernel_args(q, q, q)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch port on one card: the default bf16
-detector (p50 and peak memory at batch 1, 8, 32) and the default flagship
-bf16 train step (p50 at batch 16), each tree in its own process, in the
-order given.
+detector (p50 and peak memory at batch 1, 8, 32) and the flagship bf16
+train step (p50 at batch 16), default and with GDT_WINOGRAD=fused, each
+tree in its own process, in the order given.
 
     python3 tools/ab_port_paths.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
 
@@ -93,6 +93,12 @@ def run_one(tree: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out["train"] = {"batch": b, "p50_ms": _p50(one_step, 10),
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    os.environ["GDT_WINOGRAD"] = "fused"  # read per call by the port's blocks
+    torch.cuda.reset_peak_memory_stats()
+    out["train_winograd_fused"] = {
+        "batch": b, "p50_ms": _p50(one_step, 10),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del os.environ["GDT_WINOGRAD"]
     return out
 
 
