@@ -9,9 +9,9 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
-   kernels and the bf16 row-Winograd weight gradient (B8) must hold wgmma
-   (HGMMA) and TMA (UTMALDG) instructions in their SASS (cuobjdump), B8 no
-   mma.sync (HMMA), and none may spill;
+   kernels and the bf16 row-Winograd forward (B7) and weight gradient (B8)
+   must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
+   (cuobjdump), B7 and B8 no mma.sync (HMMA), and none may spill;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    detector's shapes (batch 8), the backward kernels at every shape of the
    flagship train step (batch 16), the fused GroupNorm+SiLU+conv (B6) at
    every fused detector site (batch 8), the row-Winograd forward, dgrad and
-   weight gradient (B7, B8) at every fused train site (batch 16), the
+   weight gradient (B7, B8) at every fused train site (batch 16, each with a
+   bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
    the attention forward and backward at L = 16384 (B9's length), in bf16
    and fp32;
@@ -147,13 +148,14 @@ CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows (h=w, C)
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The bf16 kernels on wgmma and TMA (their names carry WGMMA_TAG): attention
-# (B1, B2) and the row-Winograd weight gradient (B8, M = 2, 4 x GN off, on).
+# (B1, B2), the row-Winograd forward (B7) and weight gradient (B8), each at
+# M = 2, 4 x GN off, on. B7 and B8 have no mma.sync (HMMA) left.
 WGMMA_TAG = "_wgmma_kernel"
-WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128", "attn_fwd_wgmma_kernelILi256",
-                 "attn_fwd_wgmma_kernelILi512", "attn_bwd_dkdv_wgmma_kernel",
-                 "attn_bwd_dq_wgmma_kernel", "wgrad_wgmma_kernelILi2ELb0",
-                 "wgrad_wgmma_kernelILi2ELb1", "wgrad_wgmma_kernelILi4ELb0",
-                 "wgrad_wgmma_kernelILi4ELb1")
+_WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
+              for m in (2, 4) for gn in (0, 1))
+WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128",
+                 "attn_fwd_wgmma_kernelILi256", "attn_fwd_wgmma_kernelILi512",
+                 "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel") + _WINO
 
 
 # Every launch counter of the port, by the name the kernels line uses.
@@ -266,10 +268,10 @@ def phase_build() -> None:
             elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
-    # at C = 256) and B8 must run on wgmma and TMA, and must not spill; B8 has
-    # no mma.sync left
+    # at C = 256), B7 and B8 must run on wgmma and TMA, and must not spill; B7
+    # and B8 have no mma.sync left
     sass = {}
-    for n in ("attention", "attention_bwd", "conv3x3_wgrad"):
+    for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
         sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings})
@@ -278,7 +280,8 @@ def phase_build() -> None:
         f"wgmma kernels in the SASS: {sorted(sass)}")
     for k, ops in sass.items():
         require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{k}: no HGMMA or UTMALDG ({ops})")
-        require("wgrad" not in k or ops["HMMA"] == 0, f"{k}: mma.sync left ({ops})")
+        require(not any(w in k for w in ("wgrad", "wino")) or ops["HMMA"] == 0,
+                f"{k}: mma.sync left ({ops})")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
 
@@ -591,6 +594,8 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     zero = torch.zeros(c, device="cuda")
     out = wr.wino_rows_forward(x, u, bias, m, ab)
     dz = wr.wino_rows_dgrad(dy, u_rot, m)
+    out_again = conv3x3.conv3x3_forward(x, u, bias, m, gn_ab=ab)
+    dz_again = conv3x3.conv3x3_forward(dy, u_rot, zero, m)
     du = conv3x3.conv3x3_wgrad(x, dy, m, ab)
     du_again = conv3x3.conv3x3_wgrad(x, dy, m, ab)
     want_out = wr._wino_rows_reference(x, u, bias, a, shift, m)
@@ -601,7 +606,9 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     errs = [rms_close(f"wino_rows {tag}", out, want_out, CONV_REL_TOL[dtype]),
             rms_close(f"wino_rows_dgrad {tag}", dz, want_dz, CONV_REL_TOL[dtype]),
             rms_close(f"wino_wgrad {tag}", du, want_du, CONV_REL_TOL[dtype])]
-    require(torch.equal(du, du_again), f"wino_wgrad {tag}: a repeat differs")
+    for name, got, again in (("wino_rows", out, out_again), ("wino_rows_dgrad", dz, dz_again),
+                             ("wino_wgrad", du, du_again)):
+        require(torch.equal(got, again), f"{name} {tag}: a repeat differs")
     z = fused_conv._silu_affine(x, a, shift)
     w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous()
     b_lib = bias.to(dtype)
@@ -613,17 +620,16 @@ def wino_cases(g, hw, c, co, dtype) -> list:
              "plain_ms": time_ms(lambda: wr._wino_wgrad_reference(x, dy, a, shift, m), 3),
              "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [False, True, False])),
              **_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype)}
-    wgrad["bound_share"] = wgrad["bound_ms"] / wgrad["kernel_ms"]
     if dtype == torch.bfloat16:  # the bytes the wgmma kernel's design moves
         wgrad.update(ab_wgrad.wgrad_traffic(b, hw, hw, c, co, m))
-    return [
-        {"name": "wino_rows", **common, "max_err": errs[0],
+    cases = [
+        {"name": "wino_rows", **common, "max_err": errs[0], "repeat_equal": True,
          "err_vs_fp32_direct_rel": _vs_fp32_direct(out, x, a, shift, k, bias),
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, u, bias, m, gn_ab=ab)),
          "plain_ms": time_ms(lambda: wr._wino_rows_reference(x, u, bias, a, shift, m), 3),
          "library_ms": time_ms(lambda: F.conv2d(z.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)),
          **_bound(flops, act_in + act_out + u.numel() * isz + (2 * b * c + co) * 4, dtype)},
-        {"name": "wino_rows_dgrad", **common, "max_err": errs[1],
+        {"name": "wino_rows_dgrad", **common, "max_err": errs[1], "repeat_equal": True,
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(dy, u_rot, zero, m)),
          "plain_ms": time_ms(
              lambda: wr._wino_rows_reference(dy, u_rot, zero, None, None, m), 3),
@@ -631,17 +637,22 @@ def wino_cases(g, hw, c, co, dtype) -> list:
          **_bound(flops, act_in + act_out + u_rot.numel() * isz, dtype)},
         wgrad,
     ]
+    for r in cases:
+        r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+    return cases
 
 
 def flash_case(g, l, c, dtype):
     """B5, the forward-only flash variant (fp32 products whatever the input
-    dtype, no lse), at the detector's attention shapes."""
+    dtype, no lse), at the detector's attention shapes. Its yardstick is SDPA
+    on fp32 copies of q, k, v (TF32 off, as the kernel phase sets it): the
+    like-for-like library call for fp32 products."""
     q, k, v = (torch.randn(BATCH, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     err = rms_close(f"flash attention {tuple(q.shape)} {dtype}", o, want, ATTN_REL_TOL[dtype])
-    q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+    q4, k4, v4 = (t.float()[:, None] for t in (q, k, v))
     nbytes = 4 * q.numel() * q.element_size()
     # the products run in fp32 whatever the input dtype: fp32's peak
     return {
@@ -964,7 +975,40 @@ def _largest(cases, name):
     return cases[max(keys, key=lambda k: math.prod(cases[k]["shape"]))]
 
 
-def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict):
+def wino_routed(wino: Counter) -> dict:
+    """The fused step's sites (h=w, C, CO) -> count per step that take each
+    row-Winograd kernel: every fused site the forward; the dgrad and the
+    weight gradient where the JAX package's tile rules take the kernel, else
+    cuDNN (XLA there)."""
+    return {
+        "wino_rows": dict(wino),
+        "wino_rows_dgrad": {k: n for k, n in wino.items()
+                            if wr._pick_tile(k[0], k[0], k[2], k[1], 2, 4) is not None},
+        "wino_wgrad": {k: n for k, n in wino.items()
+                       if wr._wgrad_tile(k[0], k[0], k[1], k[2], 2, 4) is not None},
+    }
+
+
+def wino_step_sums(cases: dict, wino: Counter) -> dict:
+    """Per row-Winograd kernel: its bf16 ms, cuDNN's and the bound summed
+    over one fused step's sites (each site's time times its count), and
+    each site's numbers."""
+    sums = {}
+    for name, routed in wino_routed(wino).items():
+        rows = [(k, n, cases[(name, *k, torch.bfloat16)]) for k, n in sorted(routed.items())]
+        sums[name] = {
+            "fused_step_ms": sum(n * r["kernel_ms"] for _, n, r in rows),
+            "fused_step_library_ms": sum(n * r["library_ms"] for _, n, r in rows),
+            "fused_step_bound_ms": sum(n * r["bound_ms"] for _, n, r in rows),
+            "sites": [{"shape": r["shape"], "per_step": n, "ms": r["kernel_ms"],
+                       "library_ms": r["library_ms"], "bound_share": r["bound_share"],
+                       "max_err": r["max_err"]} for _, n, r in rows],
+        }
+    return sums
+
+
+def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
+                 step_sums: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -972,7 +1016,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     train step with GDT_WINOGRAD=fused (B7, B8). B5 is on no path of the
     port (the JAX package reaches it only from its availability probe, whose
     role the kernel check here plays). ``kernels_per_call`` device kernels
-    run per counted call."""
+    run per counted call. B7 and B8 also give their share of the bound and
+    their times summed over a fused step's sites (``step_sums``)."""
     bf16 = torch.bfloat16
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -992,9 +1037,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
          fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3.cu", "fused_conv.py:196", 1,
          fdet_n["fused_conv"]),
-        (_largest(cases, "wino_rows"), "conv3x3.cu", "winograd_pallas.py:252", 1,
+        (_largest(cases, "wino_rows"), "conv3x3_wino.cu", "winograd_pallas.py:252", 1,
          train_fused["wino_rows"]),
-        (_largest(cases, "wino_rows_dgrad"), "conv3x3.cu", "winograd_pallas.py:252", 1,
+        (_largest(cases, "wino_rows_dgrad"), "conv3x3_wino.cu", "winograd_pallas.py:252", 1,
          train_fused["wino_rows_dgrad"]),
         (_largest(cases, "wino_wgrad"), "conv3x3_wgrad.cu", "winograd_pallas.py:430", 2,
          train_fused["wino_wgrad"]),
@@ -1009,6 +1054,10 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
             "shape": r["shape"], "dtype": r["dtype"], "kernels_per_call": per_call,
         })
     entries[4]["on_main_path"] = False
+    for e, r in zip(entries, (row[0] for row in rows)):
+        if e["name"] in step_sums:
+            e["bound_share"] = r["bound_share"]
+            e.update({k: v for k, v in step_sums[e["name"]].items() if k != "sites"})
     return {"kernels": entries}
 
 
@@ -1023,10 +1072,9 @@ def main() -> int:
     n_wino = sum(wino.values())
     # the backward takes the dgrad and weight-gradient kernels where the
     # JAX package's tile rules do, else cuDNN (XLA there)
-    n_dgrad = sum(n for (hw, c, co), n in wino.items()
-                  if wr._pick_tile(hw, hw, co, c, 2, 4) is not None)
-    n_wgrad = sum(n for (hw, c, co), n in wino.items()
-                  if wr._wgrad_tile(hw, hw, c, co, 2, 4) is not None)
+    routed = wino_routed(wino)
+    n_dgrad = sum(routed["wino_rows_dgrad"].values())
+    n_wgrad = sum(routed["wino_wgrad"].values())
     emit({"phase": "sites", "train_group_norm": n_gn, "train_attention": n_attn,
           "group_norm_shapes": sorted([list(k) + [n] for k, n in gn_train.items()], key=str),
           "attention_shapes": sorted([list(k) + [n] for k, n in attn_train.items()]),
@@ -1037,6 +1085,8 @@ def main() -> int:
           "winograd_shapes": sorted([list(k) + [n] for k, n in wino.items()])})
     require(n_b6 > 0 and n_wino > 0, "no fused-conv site found")
     cases = phase_kernels(gn_train, attn_train, sites)
+    step_sums = wino_step_sums(cases, wino)
+    emit({"phase": "winograd_fused_step_sums", **step_sums})
     det = phase_detector({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD},
                          fuse=False)
     det_fused = phase_detector({"group_norm": n_det_gn, "attention": ATTN_PER_FORWARD,
@@ -1050,7 +1100,7 @@ def main() -> int:
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
-    emit(kernels_line(cases, det, det_fused, train, train_fused))
+    emit(kernels_line(cases, det, det_fused, train, train_fused, step_sums))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

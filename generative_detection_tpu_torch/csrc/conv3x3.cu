@@ -15,8 +15,10 @@
 //     optionally writing z (`emit_z`, the training variant's saved
 //     activation);
 //   - generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
-//     (kernel `_wino_rows_kernel`): MODE 2/4, with or without the prologue;
-//     the same launch with the rotated, io-swapped kernel is the dgrad.
+//     (kernel `_wino_rows_kernel`) in fp32: MODE 2/4, with or without the
+//     prologue; the same launch with the rotated, io-swapped kernel is the
+//     dgrad. bf16 MODE 2/4 runs conv3x3_wino.cu (TMA + wgmma); the bf16
+//     template here is instantiated for the direct mode only.
 //
 // The rounding is the TPU kernels': the prologue runs in fp32 and is rounded
 // to T (the kernels keep z in a T scratch), rows and columns outside the
@@ -468,10 +470,12 @@ int dispatch(const void* x, const void* U, const void* bias, const void* ga, con
   if (mode == 1 && gn && emit_z)
     return launch<T, 1, true, true>(x, U, bias, ga, gb, out, zout, B, g, s);
   if (emit_z) return (int)cudaErrorInvalidValue;
-  if (mode == 2 && !gn) return launch<T, 2, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 2 && gn) return launch<T, 2, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 4 && !gn) return launch<T, 4, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 4 && gn) return launch<T, 4, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+  if constexpr (sizeof(T) == 4) {  // bf16 rows run conv3x3_wino.cu
+    if (mode == 2 && !gn) return launch<T, 2, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+    if (mode == 2 && gn) return launch<T, 2, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+    if (mode == 4 && !gn) return launch<T, 4, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+    if (mode == 4 && gn) return launch<T, 4, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -483,7 +487,7 @@ extern "C" {
 // K[dy, dx]) or mode + 2 (the row-Winograd U[a, dx]); bias: (CO,) fp32;
 // ga, gb: (B, C) fp32 GroupNorm affine when gn, else unused; out:
 // (B, H, W, CO); zout: (B, H, W, C) when emit_z (mode 1 with gn only).
-// dtype 0 fp32, 1 bf16. The Python wrapper checks the rest: contiguous,
+// dtype 0 fp32, 1 bf16 (mode 1 only). The Python wrapper checks the rest: contiguous,
 // 16-byte aligned, C % 16 == 0, CO % 64 == 0, H % mode == 0, tw * tt <= 64,
 // W % tw == 0. Returns cudaGetLastError().
 int gdt_conv3x3_fwd(const void* x, const void* U, const void* bias, const void* ga,

@@ -65,6 +65,7 @@
 #include <utility>
 
 #include "hopper.cuh"
+#include "winograd.cuh"
 
 namespace {
 
@@ -289,21 +290,6 @@ __device__ __forceinline__ uint32_t swz(int k, int u) {
   return k * 128 + ((u ^ (k & 7)) << 4);
 }
 
-// The F(M,3) transforms as compile-time values, so that the point loops below
-// drop zero coefficients and multiplies by one.
-__host__ __device__ constexpr float bt_c(int m, int a, int u) {
-  constexpr float t2[4][4] = {{1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
-  constexpr float t4[6][6] = {{4, 0, -5, 0, 1, 0},  {0, -4, -4, 1, 1, 0}, {0, 4, -4, -1, 1, 0},
-                              {0, -2, -1, 2, 1, 0}, {0, 2, -1, -2, 1, 0}, {0, 4, 0, -5, 0, 1}};
-  return m == 2 ? t2[a][u] : t4[a][u];
-}
-__host__ __device__ constexpr float at_c(int m, int i, int a) {
-  constexpr float t2[2][4] = {{1, 1, 1, 0}, {0, 1, -1, -1}};
-  constexpr float t4[4][6] = {
-      {1, 1, 1, 1, 1, 0}, {0, 1, -1, 2, -2, 0}, {0, 1, 1, 4, 4, 0}, {0, 1, -1, 8, -8, 1}};
-  return m == 2 ? t2[i][a] : t4[i][a];
-}
-
 // v += BT[A, R] act(z row R) on the 4 channels at byte `off` of column k;
 // z row R outside the image (R = 0 of the first t-row, R = M + 1 of the
 // last) adds nothing.
@@ -524,8 +510,8 @@ int launch(const void* z, const void* dy, const void* ga, const void* gb, void* 
   const uint64_t ddy[4] = {(uint64_t)g.CO, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
   const uint32_t bz[4] = {64, KC, M + 2, 1};
   const uint32_t bdy[4] = {64, KC + 2, M, 1};
-  int err = hopper::make_map_bf16_4d(&tz, z, dz, bz);
-  if (!err) err = hopper::make_map_bf16_4d(&tdy, dy, ddy, bdy);
+  int err = hopper::make_map_bf16_nd(&tz, z, dz, bz);
+  if (!err) err = hopper::make_map_bf16_nd(&tdy, dy, ddy, bdy);
   if (err) return err;
   auto kernel = wgrad_wgmma_kernel<M, GN>;
   cudaError_t e =

@@ -101,6 +101,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// TMA: the box at coordinates (x0, x1, x2) of a 3-D tensor map into shared memory.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x0, int x1, int x2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x0), "r"(x1), "r"(x2)
+      : "memory");
+}
+
+// TMA: a shared-memory tile to the box at (x0, x1, x2, x3) of a 4-D tensor
+// map; elements outside the tensor are not written. Commit with
+// bulk_commit(); bulk_wait_read() in the same thread waits until the tile
+// has been read, so its shared memory may be written again.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int x0,
+                                             int x1, int x2, int x3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(x0), "r"(x1), "r"(x2),
+      "r"(x3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Make this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma operand reads), before it signals the consumers.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -125,6 +156,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
          (1ull << 62);
+}
+
+// Descriptor of a K-major operand without swizzle: 8-row x 16-byte core
+// matrices, rows 16 bytes apart (so 8-row groups 128 bytes apart), the two
+// 8-element halves of a K step of 16 `k_bytes` apart. The start may sit at
+// any 16-byte boundary, so a shift of the operand by whole rows is a shift
+// of the address.
+__device__ __forceinline__ uint64_t desc_kmajor_plain(uint32_t addr, uint32_t k_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(k_bytes >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
 }
 
 // Descriptor of an MN-major operand (the output dimension contiguous): the
@@ -160,6 +201,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
 }
 
 template <int N>
@@ -200,6 +247,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), A and B bf16 in shared
+// memory, A K-major (desc_kmajor or desc_kmajor_plain), B MN-major
+// (desc_mnmajor; the transpose bit of B is set).
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -416,22 +483,28 @@ inline int make_map_bf16(CUtensorMap* map, const void* ptr, uint64_t rows, uint6
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A tensor map over a 4-D bf16 tensor with dims[0] innermost (contiguous),
-// read in boxes of box[0..3] elements without swizzle; elements outside the
-// tensor read as zero. Returns a CUDA error code (0 on success).
-inline int make_map_bf16_4d(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
-                            const uint32_t (&box)[4]) {
+// A tensor map over an R-D bf16 tensor with dims[0] innermost (contiguous),
+// read or written in boxes of box[0..R-1] elements; elements outside the
+// tensor read as zero (and are not written). With the 128-byte swizzle
+// box[0] must be 64 (128 bytes). Returns a CUDA error code (0 on success).
+template <int R>
+inline int make_map_bf16_nd(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[R],
+                            const uint32_t (&box)[R],
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
-  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
-                                 dims[0] * dims[1] * dims[2] * 2};
-  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), d,
-                        strides, bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t d[R], strides[R - 1];
+  cuuint32_t bx[R], elem_strides[R];
+  uint64_t pitch = 2;
+  for (int i = 0; i < R; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    elem_strides[i] = 1;
+    if (i + 1 < R) strides[i] = pitch *= dims[i];
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), d,
+                        strides, bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

@@ -21,8 +21,9 @@ m - 1:
 
 A CPU tensor takes the plain versions (``_wino_rows_reference``,
 ``_wino_wgrad_reference``: the same V/U/G/AT algorithm and rounding in torch
-ops); a CUDA tensor takes ``csrc/conv3x3.cu`` (forward and dgrad, replacing
-``_wino_rows_pallas``) and ``csrc/conv3x3_wgrad.cu`` (replacing
+ops); a CUDA tensor takes ``csrc/conv3x3_wino.cu`` (bf16) or
+``csrc/conv3x3.cu`` (fp32) for the forward and dgrad, replacing
+``_wino_rows_pallas``, and ``csrc/conv3x3_wgrad.cu`` (replacing
 ``_wino_wgrad_pallas``), or raises. The TPU's tile pickers stay as routing
 rules, so the same sites take these kernels as on the TPU.
 """
@@ -238,7 +239,7 @@ def wino_rows_dgrad(dy, u3n_rot, m_out):
     return out
 
 
-wino_rows_forward.launches = 0  # calls that launched csrc/conv3x3.cu as the forward
+wino_rows_forward.launches = 0  # calls that launched the forward kernel as the forward
 wino_rows_dgrad.launches = 0  # calls that launched it as the dgrad
 
 

@@ -371,8 +371,12 @@ def test_fused_conv_kernel_matches_plain(cuda, hw, c, co, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gn", [False, True])
 @pytest.mark.parametrize("m", [2, 4])
-@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (64, 256, 128), (16, 128, 128)])
+@pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (64, 256, 128), (16, 128, 128),
+                                       (128, 256, 128), (32, 512, 256), (48, 128, 128)])
 def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
+    # (128, 256, 128): the fused step's largest site, at batch 2; (32, 512,
+    # 256): C = 512 and two output-channel tiles; W = 48: the bf16 kernel's
+    # 64-column tile runs past the image
     from generative_detection_tpu_torch.ops import winograd_rows as wr
 
     x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
@@ -384,6 +388,28 @@ def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
     torch.cuda.synchronize()
     assert wr.wino_rows_forward.launches == before + 1
     _rel_close(got, want, CONV_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("hw, c, co", [(128, 256, 128), (32, 512, 256)])
+def test_wino_rows_kernel_repeats_bit_equal(cuda, hw, c, co, m):
+    """The bf16 forward with the GroupNorm prologue and the dgrad (the same
+    kernel on dy with the rotated, io-swapped kernel) give the same bits on a
+    repeat: every output element is written by one block."""
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    dtype = torch.bfloat16
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    dy = torch.randn(2, hw, hw, co, device="cuda", generator=cuda).to(dtype)
+    u = wr._u3n(k, dtype, m)
+    u_rot = wr._u3n(k.flip(0, 1).transpose(2, 3), dtype, m)
+    out = [wr.wino_rows_forward(x, u, bias, m, (a, b)) for _ in range(2)]
+    dz = [wr.wino_rows_dgrad(dy, u_rot, m) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+    assert torch.equal(dz[0], dz[1])
+    zero = torch.zeros(c, device="cuda")
+    _rel_close(dz[0], wr._wino_rows_reference(dy, u_rot, zero, None, None, m), CONV_REL_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -490,6 +516,15 @@ def test_conv_kernels_raise_outside_their_shapes(cuda):
     with pytest.raises(TypeError):
         conv3x3.conv3x3_forward(torch.zeros(1, 8, 8, 128, device="cuda", dtype=torch.float16),
                                 u.half(), bias, 1)
+    # the bf16 row-Winograd kernel: any W, but 128 output channels a block
+    u4 = torch.zeros(18, 128, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CO % 128 == 0"):
+        conv3x3.conv3x3_forward(torch.zeros(1, 8, 96, 128, device="cuda", dtype=torch.bfloat16),
+                                u4, bias[:64], 4)
+    with pytest.raises(ValueError, match="H % mode == 0"):
+        conv3x3.conv3x3_forward(torch.zeros(1, 6, 96, 128, device="cuda", dtype=torch.bfloat16),
+                                torch.zeros(18, 128, 128, device="cuda", dtype=torch.bfloat16),
+                                bias, 4)
     with pytest.raises(ValueError, match="C % 64 == 0"):
         z = torch.zeros(1, 8, 8, 32, device="cuda")
         conv3x3.conv3x3_wgrad(z, torch.zeros(1, 8, 8, 128, device="cuda"), 4)

@@ -49,9 +49,13 @@ from chip_smoke import (  # noqa: E402
 )
 from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E402
 
+# Kernel classes by substrings of the (demangled, lower-cased) kernel name,
+# first match wins: the port's kernels before the library classes, whose
+# keys ("wgrad", "conv") would also match them.
 CLASSES = (
-    ("conv3x3_kernel", ("conv3x3_bf16", "conv3x3_f32")),
-    ("conv3x3_wgrad_kernel", ("::wgrad_bf16", "::wgrad_f32", "::fold_kernel")),
+    ("wino_rows_kernel", ("wino_rows_wgmma_kernel",)),  # B7 bf16, forward and dgrad
+    ("conv3x3_kernel", ("conv3x3_bf16", "conv3x3_f32")),  # B6; B7 in fp32
+    ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "::fold_kernel")),  # B8
     ("group_norm_kernel", ("gn_stats", "gn_apply", "gn_affine")),
     ("group_norm_bwd_kernel", ("gn_bwd",)),
     ("attention_kernel", ("attn_fwd",)),
