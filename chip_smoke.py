@@ -9,9 +9,10 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
-   kernels and the bf16 row-Winograd forward (B7) and weight gradient (B8)
-   must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
-   (cuobjdump), B7 and B8 no mma.sync (HMMA), and none may spill;
+   kernels, the bf16 fused GroupNorm+SiLU+conv (B6), row-Winograd forward
+   (B7) and weight gradient (B8) must hold wgmma (HGMMA) and TMA (UTMALDG)
+   instructions in their SASS (cuobjdump), B6-B8 and the fp32 conv kernels
+   of conv3x3.cu no mma.sync (HMMA), and none of the wgmma kernels may spill;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -21,7 +22,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    form does, half the direct conv's at F(4,3)): the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
    flagship train step (batch 16), the fused GroupNorm+SiLU+conv (B6) at
-   every fused detector site (batch 8), the row-Winograd forward, dgrad and
+   every fused detector site and at W = 96 (batch 8, with a bit-equal
+   repeat), the row-Winograd forward, dgrad and
    weight gradient (B7, B8) at every fused train site (batch 16, each with a
    bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
@@ -148,14 +150,21 @@ CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows (h=w, C)
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The bf16 kernels on wgmma and TMA (their names carry WGMMA_TAG): attention
-# (B1, B2), the row-Winograd forward (B7) and weight gradient (B8), each at
-# M = 2, 4 x GN off, on. B7 and B8 have no mma.sync (HMMA) left.
+# (B1, B2), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2 or 4
+# image rows, with and without emit_z), the row-Winograd forward (B7) and
+# weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 have no
+# mma.sync (HMMA) left.
 WGMMA_TAG = "_wgmma_kernel"
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
+_B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
 WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128",
                  "attn_fwd_wgmma_kernelILi256", "attn_fwd_wgmma_kernelILi512",
-                 "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel") + _WINO
+                 "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel") + _B6 + _WINO
+NO_HMMA = ("fused_conv", "wino", "wgrad")  # wgmma kernels with no mma.sync left
+# The device kernel behind each conv entry of the kernels line
+CONV_KERNELS = {"fused_conv": "fused_conv_wgmma_kernel", "wino_rows": "wino_rows_wgmma_kernel",
+                "wino_rows_dgrad": "wino_rows_wgmma_kernel", "wino_wgrad": "wgrad_wgmma_kernel"}
 
 
 # Every launch counter of the port, by the name the kernels line uses.
@@ -268,20 +277,24 @@ def phase_build() -> None:
             elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
-    # at C = 256), B7 and B8 must run on wgmma and TMA, and must not spill; B7
-    # and B8 have no mma.sync left
+    # at C = 256), B6, B7 and B8 must run on wgmma and TMA, and must not spill;
+    # B6-B8 have no mma.sync left, nor has the fp32 conv3x3.cu
     sass = {}
     for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
         sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
+    fp32_conv = _sass_counts("conv3x3")
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
-          "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings})
+          "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings,
+          "conv3x3_hmma": sum(ops["HMMA"] for ops in fp32_conv.values())})
     require(len(sass) == len(WGMMA_KERNELS) and all(
         any(name in k for k in sass) for name in WGMMA_KERNELS),
         f"wgmma kernels in the SASS: {sorted(sass)}")
     for k, ops in sass.items():
         require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{k}: no HGMMA or UTMALDG ({ops})")
-        require(not any(w in k for w in ("wgrad", "wino")) or ops["HMMA"] == 0,
+        require(not any(w in k for w in NO_HMMA) or ops["HMMA"] == 0,
                 f"{k}: mma.sync left ({ops})")
+    require(fp32_conv and not any(ops["HMMA"] for ops in fp32_conv.values()),
+            f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
 
@@ -498,8 +511,8 @@ def _bound(flops, nbytes, dtype) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def _conv_inputs(g, b, hw, c, co, dtype):
-    x = (torch.randn(b, hw, hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+def _conv_inputs(g, b, hw, c, co, dtype, w=None):
+    x = (torch.randn(b, hw, w or hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
     beta = 0.1 * torch.randn(c, device="cuda", generator=g)
     k = torch.randn(3, 3, c, co, device="cuda", generator=g) / (9 * c) ** 0.5
@@ -538,20 +551,24 @@ def gn_affine_case(g, hw, c, dtype):
     }
 
 
-def fused_conv_case(g, hw, c, co, dtype):
-    """B6 at batch 8: the direct mode of csrc/conv3x3.cu with the GroupNorm
-    prologue, from the stats kernel's affine; also with emit_z."""
-    b = BATCH
-    x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype)
+def fused_conv_case(g, hw, c, co, dtype, w=None):
+    """B6 at batch 8 (bf16: fused_conv_wgmma_kernel of csrc/conv3x3_wino.cu;
+    fp32: the direct mode of csrc/conv3x3.cu) with the GroupNorm prologue,
+    from the stats kernel's affine; also with emit_z, and a repeat that must
+    give the same bits. ``w``: a width other than ``hw``."""
+    b, w = BATCH, w or hw
+    x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype, w)
     a, shift, _ = norm.group_norm_affine(x, gamma, beta)
     got, _ = fused_conv._fused_forward(x, a, shift, k, bias, False)
     got_z, z = fused_conv._fused_forward(x, a, shift, k, bias, True)
+    again_z, again = fused_conv._fused_forward(x, a, shift, k, bias, True)
     want_z = fused_conv._silu_affine(x, a, shift)
     want = fused_conv._conv_bias(want_z, k, bias)
     torch.cuda.synchronize()
     name = f"fused_conv {tuple(x.shape)}->{co} {dtype}"
     err = rms_close(name, got, want, CONV_REL_TOL[dtype])
     require(torch.equal(got, got_z), f"{name}: emit_z changed the output")
+    require(torch.equal(got_z, again_z) and torch.equal(z, again), f"{name}: a repeat differs")
     rms_close(f"{name} z", z, want_z, CONV_REL_TOL[dtype])
     w9 = k.to(dtype).reshape(9, c, co).contiguous()
     w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous()
@@ -562,16 +579,19 @@ def fused_conv_case(g, hw, c, co, dtype):
         return F.conv2d(y.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)
 
     isz = x.element_size()
-    nbytes = (x.numel() + b * hw * hw * co + 9 * c * co) * isz + (2 * b * c + co) * 4
-    return {
-        "name": "fused_conv", "shape": [b, hw, hw, c, co], "dtype": _dname(dtype),
-        "max_err": err, "err_vs_fp32_direct_rel": _vs_fp32_direct(got, x, a, shift, k, bias),
+    nbytes = (x.numel() + b * hw * w * co + 9 * c * co) * isz + (2 * b * c + co) * 4
+    r = {
+        "name": "fused_conv", "shape": [b, hw, w, c, co], "dtype": _dname(dtype),
+        "max_err": err, "repeat_equal": True,
+        "err_vs_fp32_direct_rel": _vs_fp32_direct(got, x, a, shift, k, bias),
         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, w9, bias, 1, gn_ab=(a, shift))),
         "plain_ms": time_ms(lambda: fused_conv._conv_bias(
             fused_conv._silu_affine(x, a, shift), k, bias), 5),
         "library_ms": time_ms(library),
-        **_bound(2 * 9 * b * hw * hw * c * co, nbytes, dtype),
+        **_bound(2 * 9 * b * hw * w * c * co, nbytes, dtype),
     }
+    r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+    return r
 
 
 def _cudnn_grads(dy, z, k, dtype, mask):
@@ -719,6 +739,8 @@ def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
             r = fused_conv_case(g, hw, c, co, dtype)
             cases[("fused_conv", hw, c, co, dtype)] = r
             emit(r)
+        # a width the JAX package's gate admits past a 64-column tile (C2)
+        emit(fused_conv_case(g, 64, 128, 128, dtype, w=96))
         for hw, c, co in sorted(sites["train"], reverse=True):
             for r in wino_cases(g, hw, c, co, dtype):
                 cases[(r["name"], hw, c, co, dtype)] = r
@@ -989,22 +1011,25 @@ def wino_routed(wino: Counter) -> dict:
     }
 
 
-def wino_step_sums(cases: dict, wino: Counter) -> dict:
-    """Per row-Winograd kernel: its bf16 ms, cuDNN's and the bound summed
-    over one fused step's sites (each site's time times its count), and
+def site_sums(cases: dict, name: str, routed: dict, per: str) -> dict:
+    """Kernel ``name``'s bf16 ms, the library call's and the bound summed
+    over the sites of one ``per`` (each site's time times its count), and
     each site's numbers."""
-    sums = {}
-    for name, routed in wino_routed(wino).items():
-        rows = [(k, n, cases[(name, *k, torch.bfloat16)]) for k, n in sorted(routed.items())]
-        sums[name] = {
-            "fused_step_ms": sum(n * r["kernel_ms"] for _, n, r in rows),
-            "fused_step_library_ms": sum(n * r["library_ms"] for _, n, r in rows),
-            "fused_step_bound_ms": sum(n * r["bound_ms"] for _, n, r in rows),
-            "sites": [{"shape": r["shape"], "per_step": n, "ms": r["kernel_ms"],
-                       "library_ms": r["library_ms"], "bound_share": r["bound_share"],
-                       "max_err": r["max_err"]} for _, n, r in rows],
-        }
-    return sums
+    rows = [(n, cases[(name, *k, torch.bfloat16)]) for k, n in sorted(routed.items())]
+    return {
+        f"{per}_ms": sum(n * r["kernel_ms"] for n, r in rows),
+        f"{per}_library_ms": sum(n * r["library_ms"] for n, r in rows),
+        f"{per}_bound_ms": sum(n * r["bound_ms"] for n, r in rows),
+        "sites": [{"shape": r["shape"], "count": n, "ms": r["kernel_ms"],
+                   "library_ms": r["library_ms"], "bound_share": r["bound_share"],
+                   "max_err": r["max_err"]} for n, r in rows],
+    }
+
+
+def wino_step_sums(cases: dict, wino: Counter) -> dict:
+    """``site_sums`` of each row-Winograd kernel over one fused step."""
+    return {name: site_sums(cases, name, routed, "fused_step")
+            for name, routed in wino_routed(wino).items()}
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
@@ -1017,7 +1042,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     port (the JAX package reaches it only from its availability probe, whose
     role the kernel check here plays). ``kernels_per_call`` device kernels
     run per counted call. B7 and B8 also give their share of the bound and
-    their times summed over a fused step's sites (``step_sums``)."""
+    their times summed over a fused step's sites, B6 over a fused detector
+    request's (``step_sums``)."""
     bf16 = torch.bfloat16
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -1035,7 +1061,7 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         (cases[("flash_attention", 4096, 256, bf16)], "attention.cu", "attention.py:92", 1, 0),
         (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
          fdet_n["group_norm_affine"]),
-        (_largest(cases, "fused_conv"), "conv3x3.cu", "fused_conv.py:196", 1,
+        (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
          fdet_n["fused_conv"]),
         (_largest(cases, "wino_rows"), "conv3x3_wino.cu", "winograd_pallas.py:252", 1,
          train_fused["wino_rows"]),
@@ -1055,6 +1081,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         })
     entries[4]["on_main_path"] = False
     for e, r in zip(entries, (row[0] for row in rows)):
+        if e["name"] in CONV_KERNELS:
+            e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]
         if e["name"] in step_sums:
             e["bound_share"] = r["bound_share"]
             e.update({k: v for k, v in step_sums[e["name"]].items() if k != "sites"})
@@ -1087,6 +1115,9 @@ def main() -> int:
     cases = phase_kernels(gn_train, attn_train, sites)
     step_sums = wino_step_sums(cases, wino)
     emit({"phase": "winograd_fused_step_sums", **step_sums})
+    # B6 over one fused detector request's sites at batch 8
+    step_sums["fused_conv"] = site_sums(cases, "fused_conv", sites["detector"], "fused_request")
+    emit({"phase": "fused_detector_request_sums", **step_sums["fused_conv"]})
     det = phase_detector({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD},
                          fuse=False)
     det_fused = phase_detector({"group_norm": n_det_gn, "attention": ATTN_PER_FORWARD,

@@ -1,58 +1,82 @@
-// Row-Winograd 3x3 stride-1 SAME convolution over NHWC in bf16, with an
-// optional GroupNorm+SiLU prologue, for Hopper (sm_90a):
+// 3x3 stride-1 SAME convolution over NHWC in bf16 for Hopper (sm_90a), in
+// two row forms that share one pipeline:
 //
-//   V_a[t]  = sum_u BT[a, u] z[M t + u - 1]      (fp32 sum, cast to bf16)
-//   G_a     = sum_dx shift_dx(V_a) @ U[a, dx]    (fp32 accumulate)
-//   out[M t + i] = sum_a AT[i, a] G_a + bias     (fp32, one rounding to bf16)
+//   row-Winograd F(2,3) (M = 2) and F(4,3) (M = 4), P = M + 2 points, with
+//   U[a, dx] = sum_ky G[a, ky] K[ky, dx] computed outside (a torch op):
+//     V_a[t]  = sum_u BT[a, u] z[M t + u - 1]      (fp32 sum, cast to bf16)
+//     G_a     = sum_dx shift_dx(V_a) @ U[a, dx]    (fp32 accumulate)
+//     out[M t + i] = sum_a AT[i, a] G_a + bias     (fp32, one rounding to bf16)
+//   The same launch on dy with the rotated, io-swapped kernel is the dgrad.
 //
-// for F(2,3) (M = 2) and F(4,3) (M = 4), P = M + 2 points, with U[a, dx] =
-// sum_ky G[a, ky] K[ky, dx] computed outside (a torch op). With `gn`, z =
-// silu(x a + b) from the (B, C) fp32 affine, in fp32 and rounded to bf16;
-// rows and columns outside the image are zero AFTER the activation. The same
-// launch on dy with the rotated, io-swapped kernel is the dgrad.
+//   direct, a tile's raw rows as the points:
+//     out[y] = sum_{dy, dx} shift_dx(z[y + dy - 1]) @ K[dy, dx] + bias
 //
-// Replaces generative_detection_tpu/ops/winograd_pallas.py
-// `_wino_rows_pallas` (kernel `_wino_rows_kernel`) in bf16; fp32 keeps the
-// FMA kernel of conv3x3.cu.
+// With `gn`, z = silu(x a + b) from the (B, C) fp32 affine, in fp32 and
+// rounded to bf16; rows and columns outside the image are zero AFTER the
+// activation. The direct form always takes the prologue and may also write
+// z (`emit_z`, the training variant's saved activation).
 //
-// Design (wino_rows_wgmma_kernel<M, GN>). A tile is TP = 64 output
-// positions (columns x0 .. x0 + 63 of one t-row: M output rows) by TN = 128
-// output channels, so V_a and the prologue are formed once for 128 output
-// channels. One persistent block per SM takes tiles in turn and runs their
-// chunks of KC = 16 input channels as one sequence, so the loads of a tile's
-// first chunks fly during the previous tile's last chunks and its epilogue:
+// Replaces, in bf16 (fp32 keeps the FMA kernel of conv3x3.cu):
+//   - generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
+//     (kernel `_wino_rows_kernel`): wino_rows_wgmma_kernel<M, GN>;
+//   - generative_detection_tpu/ops/fused_conv.py `_fused_pallas` (kernel
+//     `_fused_kernel`): fused_conv_wgmma_kernel<TT, PK, EMIT_Z>, the direct
+//     form.
+//
+// Design (conv_rows<Form, GN, EMIT_Z>). A tile is ROWS image rows of TW
+// columns by TN = 128 output channels, so the points and the prologue are
+// formed once for 128 output channels: Winograd, M rows of 64 columns;
+// direct, 4 accumulators of PK image rows of 64 / PK columns each (PK = 1;
+// 2 or 4 where W is 32 or 16, which would leave half or three quarters of a
+// 64-column tile empty). One persistent block per SM takes tiles in turn and
+// runs their chunks of KC = 16 input channels as one sequence, so the loads
+// of a tile's first chunks fly during the previous tile's last chunks and
+// its epilogue:
 //   - thread 0 keeps two chunks in flight by TMA, each stage paced by an
-//     mbarrier: the raw rows (16 channels x 66 columns from x0 - 1 x P rows
-//     from M t - 1, zero outside the tensor) into a ring of two, and U[:, :,
-//     chunk, co tile] (P * 3 slabs of 16 x 64, twice, 128-byte swizzle)
-//     into another ring of two once the products that read the stage are done;
-//   - the 256 threads form the chunk's V_a for every point from the raw
-//     rows in one round (4 channels of one column a thread, the two halo
-//     columns one channel a lane of the last warp; the activation once per
-//     raw element) into a tile without swizzle: 16 bytes (8 channels) per
-//     column, so A = V_a shifted by dx columns is the same tile at an
-//     address 16 dx bytes on (wgmma's no-swizzle K-major layout takes any
-//     16-byte start; the 128-byte swizzle's 8-row atom would not);
-//   - two warpgroups, 64 output channels each, run P * 3 m64n64k16 wgmma
-//     (A and B from shared memory, B MN-major) into P fp32 accumulators (P *
-//     32 registers a thread) and form the next chunk's V while they run.
+//     mbarrier: the raw rows (16 channels x TW + 2 columns from x0 - 1 x P
+//     rows from ROWS t - 1, zero outside the tensor) into a ring of two, and
+//     the weight slabs (U[a, dx] or K[dy, dx], 16 x 64, twice, 128-byte
+//     swizzle) into another ring of two once the products that read the
+//     stage are done;
+//   - the 256 threads form the chunk's points from the raw rows (the
+//     activation once per raw element) into a tile without swizzle: 16
+//     bytes (8 channels) per column, so A = a point shifted by dx columns is
+//     the same tile at an address 16 dx bytes on (wgmma's no-swizzle K-major
+//     layout takes any 16-byte start; the 128-byte swizzle's 8-row atom
+//     would not), formed in one round (4 channels of one column a thread,
+//     the two halo columns one channel a lane of the last warp). Packed (PK
+//     > 1), an accumulator's 64 positions run over PK rows, which the one
+//     tile cannot give at a uniform stride past the halo columns: the points
+//     go into three copies, copy dx shifted by dx columns, rows TW columns
+//     apart, each activated element stored into the copies that hold it;
+//   - two warpgroups run SS wgmma (A and B from shared memory, B MN-major)
+//     and form the next chunk's points while they run. Winograd: 64 output
+//     channels each, P * 3 m64n64k16 products into P fp32 accumulators, one
+//     a point. Direct: two of the four accumulators each, over all 128
+//     output channels; the 9 taps of an accumulator of rows r read point r +
+//     dy at offset dx, all into its m64n128 accumulator, so each raw element
+//     is activated (ROWS + 2) / ROWS times, not 3 times, and each operand
+//     read from shared memory feeds 128 columns (at N = 64, the products
+//     alone would take all of shared memory's 128 bytes a clock at the
+//     tensor cores' peak).
 // One barrier a chunk orders it. A tile's first products start the sums
 // (scale-d 0), so no instruction but wgmma writes the accumulators inside
-// the pipeline. The epilogue applies AT and the bias in fp32 from the
-// accumulators, stages the bf16 tile in the U stage the last chunk read
-// (128-byte swizzle) and writes it with TMA stores, which clip columns past
-// the image; the stage's next load waits until they have read it. Every
-// output element is written by one block: no atomics, and a repeat is
-// bit-equal.
+// the pipeline. The epilogue applies AT (Winograd) and the bias in fp32 from
+// the accumulators, stages the bf16 tile (128-byte swizzle) in the weight
+// stage the last chunk read, or in a buffer of its own where it does not
+// fit (direct), and writes it with TMA stores, which clip rows and columns
+// past the image (any H and W). Every output element is written by one
+// block: no atomics, and a repeat is bit-equal.
 //
 // Bound on the H100: the products, 2 * P * 3 * B * (H / M) * W * C * CO
-// flops (half the direct conv's at F(4,3)). What holds it back (inferred
-// from ablations timed on the card, not read from a counter: ncu does not
-// run on the card's machine): with the prologue, forming V (two MUFU
-// operations per activated raw element, each raw row activated for the
-// (M + 2) / M t-rows that read it); without it, the chunk pipeline's fixed
-// cost (waits and one barrier a chunk). Reloading U from L2 for every tile
-// costs little: a kernel that skipped it was no faster.
+// flops for Winograd (half the direct conv's at F(4,3)), 2 * 9 * B * H * W
+// * C * CO for the direct form. What holds them back (inferred from
+// ablations timed on the card, not read from a counter: ncu does not run on
+// the card's machine): with the prologue, forming the points (two MUFU
+// operations per activated raw element) beside the products rather than
+// under them; the direct form without its formation or without its products
+// ran in about two thirds of its full time each. Without the prologue, the
+// chunk pipeline's fixed cost (waits and one barrier a chunk).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,33 +89,91 @@
 
 namespace {
 
-constexpr int KC = 16;         // input channels per chunk
-constexpr int TP = 64;         // output positions per block (columns of one t-row)
-constexpr int COLS = TP + 2;   // V columns: x0 - 1 .. x0 + TP
-constexpr int TN = 128;        // output channels per block, 64 per warpgroup
-constexpr int kThreads = 256;  // two warpgroups
+constexpr int KC = 16;          // input channels per chunk
+constexpr int TP = 64;          // output positions per accumulator (wgmma's M)
+constexpr int TN = 128;         // output channels per tile
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kDirectRows = 4;  // accumulators a tile of the direct form
 
+// A form says what the points are, how a tile is laid out (ROWS image rows of
+// TW columns, read with COLS raw columns; PK image rows of TW = 64 / PK
+// columns an accumulator), how the two warpgroups split it (SPLIT_CO: 64
+// output channels each, every row; else half of the accumulator rows each,
+// all 128 output channels), and which products feed each of a warpgroup's
+// NACC accumulators of N = WG_N columns: accumulator n takes
+// shift_dx(point(n, dy)) times slab(n, dy, dx) for dy < TAPS, dx < 3, and its
+// accumulator row i (64 positions) is sum_n at(i, n) acc_n, for the
+// warpgroup's WG_ROWS rows. Points 1 .. IN_ROWS - 1 lie inside the image
+// whenever their tile does, so formation tests only the others.
+//
+// F(M,3): point a is V_a = sum_u BT[a, u] z_u; its accumulator G_a takes the
+// products shift_dx(V_a) U[a, dx]; out[i] = sum_a AT[i, a] G_a.
 template <int M>
+struct Wino {
+  static constexpr int ROWS = M, P = M + 2, SLABS = 3 * P, TAPS = 1;
+  static constexpr int PK = 1, TW = TP, COLS = TW + 2;
+  static constexpr int IN_ROWS = P - 1;  // H % M == 0: only points 0 and P - 1 can fall outside
+  static constexpr bool IDENTITY = false, SPLIT_CO = true;
+  static constexpr int WG_N = 64, WG_ROWS = M, NACC = P;
+  __device__ static constexpr float bt(int a, int u) { return bt_c(M, a, u); }
+  __device__ static constexpr float at(int i, int n) { return at_c(M, i, n); }
+  __device__ static constexpr int point(int n, int) { return n; }
+  __device__ static constexpr int slab(int n, int, int dx) { return 3 * n + dx; }
+};
+
+// The direct form, TT accumulators of PK image rows each: point u is the
+// activated raw row u; the accumulator of a warpgroup's row n takes the
+// products shift_dx(z_{n PK + dy}) K[dy, dx] (points counted from the
+// warpgroup's first row) over all 128 output channels, so each operand read
+// from shared memory feeds twice the columns of a 64-channel split. PK > 1
+// (W = 64 / PK: 32 or 16) packs PK image rows into an accumulator's 64
+// positions, where a 64-column tile would leave 1 - 1 / PK of them empty.
+template <int TT, int PK_>
+struct Direct {
+  static constexpr int PK = PK_, TW = TP / PK, COLS = TW + 2;
+  static constexpr int ROWS = TT * PK, P = ROWS + 2, SLABS = 9, TAPS = 3;
+  static constexpr int IN_ROWS = 2;  // any H: points from 2 on can fall past the image
+  static constexpr bool IDENTITY = true, SPLIT_CO = false;
+  static constexpr int WG_N = 128, WG_ROWS = TT / 2, NACC = TT / 2;
+  static_assert(TT % 2 == 0, "the two warpgroups take half of the rows each");
+  __device__ static constexpr float at(int i, int n) { return i == n ? 1.f : 0.f; }
+  __device__ static constexpr int point(int n, int dy) { return n * PK + dy; }
+  __device__ static constexpr int slab(int, int dy, int dx) { return 3 * dy + dx; }
+};
+
+template <class F>
 struct Cfg {
-  static constexpr int P = M + 2;
-  static constexpr uint32_t U_SLAB = KC * 128;        // U[a, dx]: 16 rows of 64 CO (128 B)
-  static constexpr uint32_t U_HALF = P * 3 * U_SLAB;  // every (a, dx) for 64 CO
+  static constexpr int P = F::P;
+  static constexpr uint32_t U_SLAB = KC * 128;            // a weight slab: 16 rows of 64 CO
+  static constexpr uint32_t U_HALF = F::SLABS * U_SLAB;   // every slab for 64 CO
   static constexpr uint32_t U_BYTES = 2 * U_HALF;
-  static constexpr uint32_t RAW_BYTES = P * COLS * KC * 2;  // [u][column][16 channels]
-  static constexpr uint32_t V_PLANE = COLS * 16;            // 8 channels of every column
-  static constexpr uint32_t V_POINT = 2 * V_PLANE;
-  static constexpr uint32_t V_BYTES = P * V_POINT;  // [a][channel half][column][8 channels]
-  static constexpr uint32_t OUT_HALF = M * TP * 128;  // a warpgroup's [i][column][64 CO]
-  static constexpr size_t SMEM = 1024 + 2 * (U_BYTES + RAW_BYTES + V_BYTES) + 4 * 8;
+  static constexpr uint32_t RAW_BYTES = P * F::COLS * KC * 2;  // [u][column][16 channels]
+  // The point tile: [point][channel half][column][8 channels], so A shifted
+  // by dx is the tile at 16 dx bytes on; or, packed (PK > 1), three copies
+  // shifted by dx, each [channel half][point][column][8 channels], so an
+  // accumulator's 64 positions over PK rows sit at the uniform 16-byte
+  // stride that wgmma's no-swizzle A takes. V_PLANE apart: the two channel
+  // halves (the descriptor's K step); V_ROW: points; V_DX: dx shifts.
+  static constexpr bool PACKED = F::PK > 1;
+  static constexpr uint32_t V_PLANE = PACKED ? P * F::TW * 16 : F::COLS * 16;
+  static constexpr uint32_t V_ROW = PACKED ? F::TW * 16 : 2 * V_PLANE;
+  static constexpr uint32_t V_DX = PACKED ? 2 * V_PLANE : 16;
+  static constexpr uint32_t V_BYTES = PACKED ? 3 * 2 * V_PLANE : P * V_ROW;
+  static constexpr uint32_t OUT_HALF = F::ROWS * F::TW * 128;  // [row][column][64 CO]
+  // the output tile is staged in the weight stage the last chunk read, or in
+  // a buffer of its own where it does not fit there
+  static constexpr bool OUT_OWN = OUT_HALF > U_HALF;
+  static constexpr uint32_t OUT_PITCH = OUT_OWN ? OUT_HALF : U_HALF;
+  static constexpr uint32_t OUT_BYTES = OUT_OWN ? 2 * OUT_HALF : 0;
+  static constexpr size_t SMEM = 1024 + 2 * (U_BYTES + RAW_BYTES + V_BYTES) + OUT_BYTES + 4 * 8;
   static_assert(U_HALF % 1024 == 0 && RAW_BYTES % 128 == 0 && V_BYTES % 128 == 0, "align");
-  static_assert(OUT_HALF <= U_HALF, "a warpgroup's output tile fits its half of a U stage");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
 struct Geom {
   int B, H, W, C, CO;
-  int HT;       // t-rows per image: H / M
-  int n_xt;     // column tiles per t-row: ceil(W / TP)
+  int HT;       // row tiles per image: ceil(H / ROWS)
+  int n_xt;     // column tiles per row tile: ceil(W / TW)
   int n_cot;    // output-channel tiles: CO / TN
   int n_tiles;  // B * HT * n_xt * n_cot
 };
@@ -122,84 +204,112 @@ __device__ __forceinline__ void store_bf16(unsigned char* p, const float (&v)[NC
   }
 }
 
+// The GroupNorm affine of NCH channels from offset off of the (B, C) arrays
+template <int NCH>
+__device__ __forceinline__ void load_affine(const float* __restrict__ ga,
+                                            const float* __restrict__ gb, size_t off,
+                                            float (&a)[NCH], float (&b)[NCH]) {
+  if constexpr (NCH == 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(ga + off);
+    const float4 b4 = *reinterpret_cast<const float4*>(gb + off);
+    a[0] = a4.x; a[1] = a4.y; a[2] = a4.z; a[3] = a4.w;
+    b[0] = b4.x; b[1] = b4.y; b[2] = b4.z; b[3] = b4.w;
+  } else {
+    a[0] = ga[off];
+    b[0] = gb[off];
+  }
+}
+
+// z = silu(z a + b) in fp32, rounded to bf16 (z a + b rounded twice, as the
+// plain version's product and sum)
+template <int NCH>
+__device__ __forceinline__ void activate(float (&z)[NCH], const float (&a)[NCH],
+                                         const float (&b)[NCH]) {
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const float w = __fadd_rn(__fmul_rn(z[j], a[j]), b[j]);
+    z[j] = __fdividef(w, 1.f + __expf(-w));
+  }
+  if constexpr (NCH == 4) {  // rounded to bf16 two at a time
+#pragma unroll
+    for (int j = 0; j < NCH; j += 2) {
+      const float2 r = __bfloat1622float2(__floats2bfloat162_rn(z[j], z[j + 1]));
+      z[j] = r.x;
+      z[j + 1] = r.y;
+    }
+  } else {
+    z[0] = __bfloat162float(__float2bfloat16_rn(z[0]));
+  }
+}
+
 // v += BT[A, U] z_U, skipped at compile time where the coefficient is zero
-template <int M, int NCH, int A, int U>
-__device__ __forceinline__ void add_term(float (&v)[NCH], const float (&z)[M + 2][NCH]) {
-  constexpr float cf = bt_c(M, A, U);
+template <class F, int NCH, int A, int U>
+__device__ __forceinline__ void add_term(float (&v)[NCH], const float (&z)[F::P][NCH]) {
+  constexpr float cf = F::bt(A, U);
   if constexpr (cf != 0.f) {
 #pragma unroll
     for (int j = 0; j < NCH; ++j) v[j] = cf == 1.f ? v[j] + z[U][j] : fmaf(cf, z[U][j], v[j]);
   }
 }
 
-// V_A of the item's channels into the V tile (rounded to bf16 once)
-template <int M, int NCH, int A, int... U>
+// Point A of the item's channels into the point tile (rounded to bf16 once)
+template <class F, int NCH, int A, int... U>
 __device__ __forceinline__ void store_point(std::integer_sequence<int, U...>,
-                                            const float (&z)[M + 2][NCH], unsigned char* dst) {
-  float v[NCH];
+                                            const float (&z)[F::P][NCH], unsigned char* dst) {
+  if constexpr (F::IDENTITY) {
+    store_bf16<NCH>(dst + A * Cfg<F>::V_ROW, z[A]);
+  } else {
+    float v[NCH];
 #pragma unroll
-  for (int j = 0; j < NCH; ++j) v[j] = 0.f;
-  (add_term<M, NCH, A, U>(v, z), ...);
-  store_bf16<NCH>(dst + A * Cfg<M>::V_POINT, v);
+    for (int j = 0; j < NCH; ++j) v[j] = 0.f;
+    (add_term<F, NCH, A, U>(v, z), ...);
+    store_bf16<NCH>(dst + A * Cfg<F>::V_ROW, v);
+  }
 }
 
-template <int M, int NCH, int... A>
+template <class F, int NCH, int... A>
 __device__ __forceinline__ void store_points(std::integer_sequence<int, A...>,
-                                             const float (&z)[M + 2][NCH], unsigned char* dst) {
-  (store_point<M, NCH, A>(std::make_integer_sequence<int, M + 2>{}, z, dst), ...);
+                                             const float (&z)[F::P][NCH], unsigned char* dst) {
+  (store_point<F, NCH, A>(std::make_integer_sequence<int, F::P>{}, z, dst), ...);
 }
 
-// V_a of every point for channels ch .. ch + NCH - 1 of the chunk at V column
-// col (image column x0 - 1 + col): its raw rows are activated once (with GN)
-// and combined into every point; rows and columns outside the image are zero.
-template <int M, bool GN, int NCH>
+// Every point for channels ch .. ch + NCH - 1 of the chunk at point column
+// col (image column x0 - 1 + col): its raw rows (image rows y0 + u) are
+// activated once (with GN) and combined into every point; rows and columns
+// outside the image are zero. With EMIT_Z and zout, the activated body rows
+// y0 + 1 .. y0 + ROWS of the body columns also go to zout.
+template <class F, bool GN, bool EMIT_Z, int NCH>
 __device__ __forceinline__ void form_item(unsigned char* vt, const unsigned char* raw,
                                           const float* __restrict__ ga,
-                                          const float* __restrict__ gb, const Geom& g, int b,
-                                          int x0, int c0, bool first, bool last, int col,
-                                          int ch) {
-  constexpr int P = M + 2;
+                                          const float* __restrict__ gb,
+                                          __nv_bfloat16* __restrict__ zout, const Geom& g, int b,
+                                          int x0, int y0, int c0, int col, int ch) {
+  constexpr int P = F::P;
   const int xx = x0 - 1 + col;
   float z[P][NCH];
   if (xx >= 0 && xx < g.W) {
     float gav[NCH], gbv[NCH];
-    if constexpr (GN) {
-      const size_t off = (size_t)b * g.C + c0 + ch;
-      if constexpr (NCH == 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(ga + off);
-        const float4 b4 = *reinterpret_cast<const float4*>(gb + off);
-        gav[0] = a4.x; gav[1] = a4.y; gav[2] = a4.z; gav[3] = a4.w;
-        gbv[0] = b4.x; gbv[1] = b4.y; gbv[2] = b4.z; gbv[3] = b4.w;
-      } else {
-        gav[0] = ga[off];
-        gbv[0] = gb[off];
-      }
-    }
+    if constexpr (GN) load_affine<NCH>(ga, gb, (size_t)b * g.C + c0 + ch, gav, gbv);
 #pragma unroll
     for (int u = 0; u < P; ++u) {
-      if ((u == 0 && first) || (u == P - 1 && last)) {  // a row outside the image
+      // a row outside the image: point 0 above it, or, from point IN_ROWS
+      // on (known at compile time), a point past it
+      if ((u == 0 && y0 < 0) || (u >= F::IN_ROWS && y0 + u >= g.H)) {
 #pragma unroll
         for (int j = 0; j < NCH; ++j) z[u][j] = 0.f;
         continue;
       }
-      load_bf16<NCH>(raw + (u * COLS + col) * (KC * 2) + ch * 2, z[u]);
-      if constexpr (GN) {
+      load_bf16<NCH>(raw + (u * F::COLS + col) * (KC * 2) + ch * 2, z[u]);
+      if constexpr (GN) activate<NCH>(z[u], gav, gbv);
+    }
+    if constexpr (EMIT_Z && NCH == 4) {  // NCH == 4: the body columns
+      if (zout != nullptr) {
 #pragma unroll
-        for (int j = 0; j < NCH; ++j) {
-          // x a + b rounded twice, as the plain version's product and sum
-          const float w = __fadd_rn(__fmul_rn(z[u][j], gav[j]), gbv[j]);
-          z[u][j] = __fdividef(w, 1.f + __expf(-w));
-        }
-        if constexpr (NCH == 4) {  // the activation rounded to bf16, two at a time
-#pragma unroll
-          for (int j = 0; j < NCH; j += 2) {
-            const float2 r = __bfloat1622float2(__floats2bfloat162_rn(z[u][j], z[u][j + 1]));
-            z[u][j] = r.x;
-            z[u][j + 1] = r.y;
-          }
-        } else {
-          z[u][0] = __bfloat162float(__float2bfloat16_rn(z[u][0]));
-        }
+        for (int u = 1; u <= F::ROWS; ++u)
+          if (y0 + u < g.H)
+            store_bf16<NCH>(reinterpret_cast<unsigned char*>(
+                                zout + (((size_t)b * g.H + y0 + u) * g.W + xx) * g.C + c0 + ch),
+                            z[u]);
       }
     }
   } else {
@@ -208,24 +318,57 @@ __device__ __forceinline__ void form_item(unsigned char* vt, const unsigned char
 #pragma unroll
       for (int j = 0; j < NCH; ++j) z[u][j] = 0.f;
   }
-  store_points<M, NCH>(std::make_integer_sequence<int, P>{}, z,
-                       vt + (ch >> 3) * Cfg<M>::V_PLANE + col * 16 + (ch & 7) * 2);
+  store_points<F, NCH>(std::make_integer_sequence<int, P>{}, z,
+                       vt + (ch >> 3) * Cfg<F>::V_PLANE + col * 16 + (ch & 7) * 2);
 }
 
-// One chunk's V tile, every point, by the 256 threads in one round: thread
-// tid takes 4 channels of V column 1 + tid / 4 (image columns x0 .. x0 + 63),
-// and the last warp also one channel a lane of the halo columns 0 and 65.
-template <int M, bool GN>
+// One chunk's point tile by the 256 threads. One copy: in one round, thread
+// tid takes 4 channels of point column 1 + tid / 4 (image columns x0 .. x0 +
+// 63), and the last warp also one channel a lane of the halo columns 0 and
+// 65. Packed (the direct form, so with the prologue): items of (point, raw
+// column, 4 channels), each activated once and stored into the copies that
+// hold it, copy dx holding image column x0 + c + dx - 1 in its column c.
+template <class F, bool GN, bool EMIT_Z>
 __device__ __forceinline__ void form_chunk(unsigned char* vt, const unsigned char* raw,
                                            const float* __restrict__ ga,
-                                           const float* __restrict__ gb, const Geom& g, int b,
-                                           int x0, int c0, bool first, bool last, int tid) {
-  static_assert(TP * 4 == kThreads, "one 4-channel item a thread");
-  form_item<M, GN, 4>(vt, raw, ga, gb, g, b, x0, c0, first, last, 1 + (tid >> 2), (tid & 3) * 4);
-  if (tid >= kThreads - 32) {
-    const int lane = tid & 31;
-    form_item<M, GN, 1>(vt, raw, ga, gb, g, b, x0, c0, first, last, (lane >> 4) * (COLS - 1),
-                        lane & 15);
+                                           const float* __restrict__ gb,
+                                           __nv_bfloat16* __restrict__ zout, const Geom& g, int b,
+                                           int x0, int y0, int c0, int tid) {
+  using K = Cfg<F>;
+  if constexpr (!K::PACKED) {
+    static_assert(F::TW * 4 == kThreads, "one 4-channel item a thread");
+    form_item<F, GN, EMIT_Z, 4>(vt, raw, ga, gb, zout, g, b, x0, y0, c0, 1 + (tid >> 2),
+                                (tid & 3) * 4);
+    if (tid >= kThreads - 32) {
+      const int lane = tid & 31;
+      form_item<F, GN, EMIT_Z, 1>(vt, raw, ga, gb, zout, g, b, x0, y0, c0,
+                                  (lane >> 4) * (F::COLS - 1), lane & 15);
+    }
+  } else {
+    static_assert(GN && F::IDENTITY, "packed: the direct form with the prologue");
+    for (int it = tid; it < F::P * F::COLS * 4; it += kThreads) {
+      const int ch = (it & 3) * 4, xr = (it >> 2) % F::COLS, u = (it >> 2) / F::COLS;
+      const int y = y0 + u, xx = x0 - 1 + xr;
+      float z[4] = {0.f, 0.f, 0.f, 0.f};
+      if (y >= 0 && y < g.H && xx >= 0 && xx < g.W) {
+        float a[4], bb[4];
+        load_affine<4>(ga, gb, (size_t)b * g.C + c0 + ch, a, bb);
+        load_bf16<4>(raw + (u * F::COLS + xr) * (KC * 2) + ch * 2, z);
+        activate<4>(z, a, bb);
+        if constexpr (EMIT_Z) {
+          if (zout != nullptr && u >= 1 && u <= F::ROWS)
+            store_bf16<4>(reinterpret_cast<unsigned char*>(
+                              zout + (((size_t)b * g.H + y) * g.W + xx) * g.C + c0 + ch),
+                          z);
+        }
+      }
+      unsigned char* dst = vt + (ch >> 3) * K::V_PLANE + u * K::V_ROW + (ch & 7) * 2;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int c = xr - dx;
+        if (c >= 0 && c < F::TW) store_bf16<4>(dst + dx * K::V_DX + c * 16, z);
+      }
+    }
   }
 }
 
@@ -234,35 +377,38 @@ struct Tile {
 };
 
 // Tile number tl: output-channel tile fastest (the tiles that share raw rows
-// run together), then column tile, t-row, image.
+// run together), then column tile, row tile, image.
+template <class F>
 __device__ __forceinline__ Tile tile_at(const Geom& g, int tl) {
   Tile r;
   r.co0 = (tl % g.n_cot) * TN;
   tl /= g.n_cot;
-  r.x0 = (tl % g.n_xt) * TP;
+  r.x0 = (tl % g.n_xt) * F::TW;
   tl /= g.n_xt;
   r.t = tl % g.HT;
   r.b = tl / g.HT;
   return r;
 }
 
-// grid: min(n_tiles, SMs) persistent blocks of 256 threads; block k takes
-// tiles k, k + gridDim.x, ... and runs their chunks as one sequence q, so the
-// loads of the next tile's first chunks fly during this tile's last ones and
-// its epilogue
-template <int M, bool GN>
-__global__ void __launch_bounds__(kThreads, 1)
-wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
-                       const __grid_constant__ CUtensorMap tm_u,
-                       const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ bias,
-                       const float* __restrict__ ga, const float* __restrict__ gb, Geom g) {
+// The body of both kernels. grid: min(n_tiles, SMs) persistent blocks of 256
+// threads; block k takes tiles k, k + gridDim.x, ... and runs their chunks as
+// one sequence q, so the loads of the next tile's first chunks fly during
+// this tile's last ones and its epilogue.
+template <class F, bool GN, bool EMIT_Z>
+__device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtensorMap* tm_u,
+                                          const CUtensorMap* tm_out,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ ga,
+                                          const float* __restrict__ gb,
+                                          __nv_bfloat16* __restrict__ zout, const Geom& g) {
   using namespace hopper;
-  using K = Cfg<M>;
-  constexpr int P = K::P;
+  using K = Cfg<F>;
+  constexpr int ROWS = F::ROWS;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* us = align_1024(smem_raw);        // [2][U half 0 | U half 1]
-  unsigned char* raws = us + 2 * K::U_BYTES;       // [2][raw rows]
-  unsigned char* vs = raws + 2 * K::RAW_BYTES;     // [2][V tile]
+  unsigned char* us = align_1024(smem_raw);        // [2][weights half 0 | half 1]
+  unsigned char* outs = us + 2 * K::U_BYTES;       // the output tile's own buffer, if any
+  unsigned char* raws = outs + K::OUT_BYTES;       // [2][raw rows]
+  unsigned char* vs = raws + 2 * K::RAW_BYTES;     // [2][point tile]
   uint64_t* raw_full = reinterpret_cast<uint64_t*>(vs + 2 * K::V_BYTES);
   uint64_t* u_full = raw_full + 2;
 
@@ -271,20 +417,20 @@ wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int nq = n_mine * nk;  // chunk q: tile q / nk of this block, channels (q % nk) * KC
 
   auto load_raw = [&](int q) {  // thread 0: chunk q's raw rows
-    const Tile tt = tile_at(g, blockIdx.x + (q / nk) * gridDim.x);
+    const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
     uint64_t* bar = &raw_full[q & 1];
     mbar_expect_tx(bar, K::RAW_BYTES);
-    tma_load_4d(raws + (q & 1) * K::RAW_BYTES, &tm_x, bar, (q % nk) * KC, tt.x0 - 1,
-                M * tt.t - 1, tt.b);
+    tma_load_4d(raws + (q & 1) * K::RAW_BYTES, tm_x, bar, (q % nk) * KC, tt.x0 - 1,
+                ROWS * tt.t - 1, tt.b);
   };
-  auto load_u = [&](int q) {  // thread 0: chunk q's U for both warpgroups
-    const Tile tt = tile_at(g, blockIdx.x + (q / nk) * gridDim.x);
+  auto load_u = [&](int q) {  // thread 0: chunk q's weights for both warpgroups
+    const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
     uint64_t* bar = &u_full[q & 1];
     unsigned char* dst = us + (q & 1) * K::U_BYTES;
-    bulk_wait_read();  // the previous tile's output has left the stage
+    if constexpr (!K::OUT_OWN) bulk_wait_read();  // the previous tile's output has left the stage
     mbar_expect_tx(bar, K::U_BYTES);
-    tma_load_3d(dst, &tm_u, bar, tt.co0, (q % nk) * KC, 0);
-    tma_load_3d(dst + K::U_HALF, &tm_u, bar, tt.co0 + 64, (q % nk) * KC, 0);
+    tma_load_3d(dst, tm_u, bar, tt.co0, (q % nk) * KC, 0);
+    tma_load_3d(dst + K::U_HALF, tm_u, bar, tt.co0 + 64, (q % nk) * KC, 0);
   };
   if (tid == 0) {
     for (int s = 0; s < 4; ++s) mbar_init(&raw_full[s], 1);
@@ -296,74 +442,91 @@ wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
   __syncthreads();
 
-  const int wg = tid >> 7;  // output channels co0 + 64 wg .. + 63
+  // warpgroup wg: output channels co0 + 64 wg .. + 63 of every row
+  // (SPLIT_CO), or every output channel of rows WG_ROWS wg .. + WG_ROWS - 1
+  const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g8 = lane >> 2, tq = lane & 3;
-  const uint32_t v_addr = smem_u32(vs), u_addr = smem_u32(us) + wg * K::U_HALF;
-  float acc[P][32];  // each tile's first products overwrite it (scale-d 0)
+  const int co_wg = F::SPLIT_CO ? 64 * wg : 0, row_wg = F::SPLIT_CO ? 0 : F::WG_ROWS * wg;
+  const uint32_t v_addr = smem_u32(vs) + row_wg * F::PK * K::V_ROW;
+  const uint32_t u_addr = smem_u32(us) + (F::SPLIT_CO ? wg * K::U_HALF : 0);
+  float acc[F::NACC][F::WG_N / 2];  // each tile's first products overwrite it (scale-d 0)
 #pragma unroll
-  for (int a = 0; a < P; ++a)
+  for (int n = 0; n < F::NACC; ++n)
 #pragma unroll
-    for (int e = 0; e < 32; ++e) acc[a][e] = 0.f;
+    for (int e = 0; e < F::WG_N / 2; ++e) acc[n][e] = 0.f;
   for (int k = 0; k < n_mine; ++k) {
-    const Tile tt = tile_at(g, blockIdx.x + k * gridDim.x);
-    const bool first = tt.t == 0, last = tt.t == g.HT - 1;
+    const Tile tt = tile_at<F>(g, blockIdx.x + k * gridDim.x);
+    __nv_bfloat16* zt = EMIT_Z && tt.co0 == 0 ? zout : nullptr;  // z from co tile 0 only
     for (int i = 0; i < nk; ++i) {
       const int q = k * nk + i, s = q & 1;
       const uint32_t phase = (q >> 1) & 1;
-      // chunk q's V into stage s: the products of chunk q - 2 read it last,
-      // and every thread waited for them before the previous barrier
+      // chunk q's points into stage s: the products of chunk q - 2 read it
+      // last, and every thread waited for them before the previous barrier
       mbar_wait(&raw_full[s], phase);
-      form_chunk<M, GN>(vs + s * K::V_BYTES, raws + s * K::RAW_BYTES, ga, gb, g, tt.b, tt.x0,
-                        i * KC, first, last, tid);
+      form_chunk<F, GN, EMIT_Z>(vs + s * K::V_BYTES, raws + s * K::RAW_BYTES, ga, gb, zt, g,
+                                tt.b, tt.x0, ROWS * tt.t - 1, i * KC, tid);
       fence_proxy_async();
-      wgmma_wait<0>();  // chunk q - 1's products: its U stage is free after the barrier
+      wgmma_wait<0>();  // chunk q - 1's products: its weight stage is free after the barrier
       fence_regs(acc);
+      // the previous tile's output has left its own buffer before the epilogue
+      if (K::OUT_OWN && tid == 0 && i == nk - 1) bulk_wait_read();
       __syncthreads();
       if (tid == 0) {
         if (q + 2 < nq) load_raw(q + 2);          // raw stage s has been read
-        if (q >= 1 && q + 1 < nq) load_u(q + 1);  // U stage (q + 1) % 2 has been read
+        if (q >= 1 && q + 1 < nq) load_u(q + 1);  // weight stage (q + 1) % 2 has been read
       }
       mbar_wait(&u_full[s], phase);
       const uint32_t va = v_addr + s * K::V_BYTES, ua = u_addr + s * K::U_BYTES;
       wgmma_fence();
 #pragma unroll
-      for (int a = 0; a < P; ++a)
+      for (int n = 0; n < F::NACC; ++n)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          wgmma_ss_n64_mn(acc[a], desc_kmajor_plain(va + a * K::V_POINT + dx * 16, K::V_PLANE),
-                          desc_mnmajor(ua + (a * 3 + dx) * K::U_SLAB, K::U_SLAB),
-                          i > 0 || dx > 0);  // the tile's first product starts the sum
+        for (int dy = 0; dy < F::TAPS; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            wgmma_ss_mn<F::WG_N>(
+                acc[n],
+                desc_kmajor_plain(va + F::point(n, dy) * K::V_ROW + dx * K::V_DX, K::V_PLANE),
+                desc_mnmajor(ua + F::slab(n, dy, dx) * K::U_SLAB, K::U_HALF),  // 64-col chunks
+                i > 0 || dy > 0 || dx > 0);  // the tile's first product starts the sum
       wgmma_commit();
     }
     wgmma_wait<0>();
     fence_regs(acc);
 
-    // out[M t + i, x0 + r, co] = sum_a AT[i, a] G_a + bias for the
-    // accumulator's rows r = 16 warp + g8 (+ 8) and columns co = co0 + 64 wg
-    // + 8 j + 2 tq (+ 1), staged as [i][r][64 co] (128-byte swizzle: unit j
-    // of row R at j ^ (R mod 8)) in the warpgroup's half of the U stage the
-    // last chunk read (its next load waits for the store), then written by
-    // TMA, which clips columns past the image
-    unsigned char* ot = us + ((k * nk + nk - 1) & 1) * K::U_BYTES + wg * K::U_HALF;
+    // out[ROWS t + row_wg + i, x0 + r, co] = sum_n at(i, n) acc_n + bias
+    // for the accumulator's rows r = 16 warp + g8 (+ 8) and columns co = co0
+    // + co_wg + 8 j + 2 tq (+ 1), staged per 64 output channels as
+    // [row][r][64 co] (128-byte swizzle: unit j of row R at j ^ (R mod 8))
+    // in the output's buffer or in the weight stage the last chunk read (its
+    // next load waits for the store), then written by TMA, which clips rows
+    // and columns past the image
+    unsigned char* obase = K::OUT_OWN ? outs : us + ((k * nk + nk - 1) & 1) * K::U_BYTES;
+    unsigned char* owg = obase + (F::SPLIT_CO ? wg * K::OUT_PITCH : 0);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 bj = *reinterpret_cast<const float2*>(bias + tt.co0 + 64 * wg + 8 * j + 2 * tq);
+    for (int j = 0; j < F::WG_N / 8; ++j) {
+      const float2 bj =
+          *reinterpret_cast<const float2*>(bias + tt.co0 + co_wg + 8 * j + 2 * tq);
+      unsigned char* ot = owg + (F::SPLIT_CO ? 0 : (j >> 3) * K::OUT_PITCH);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = 16 * warp + g8 + 8 * h;
 #pragma unroll
-        for (int i = 0; i < M; ++i) {
+        for (int i = 0; i < F::WG_ROWS; ++i) {
           float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-          for (int a = 0; a < P; ++a) {
-            const float cf = at_c(M, i, a);
-            if (cf != 0.f) {
-              v0 = fmaf(cf, acc[a][4 * j + 2 * h], v0);
-              v1 = fmaf(cf, acc[a][4 * j + 2 * h + 1], v1);
+          for (int n = 0; n < F::NACC; ++n) {
+            const float cf = F::at(i, n);
+            if (cf == 1.f) {
+              v0 += acc[n][4 * j + 2 * h];
+              v1 += acc[n][4 * j + 2 * h + 1];
+            } else if (cf != 0.f) {
+              v0 = fmaf(cf, acc[n][4 * j + 2 * h], v0);
+              v1 = fmaf(cf, acc[n][4 * j + 2 * h + 1], v1);
             }
           }
-          const int R = i * TP + r;
-          *reinterpret_cast<uint32_t*>(ot + R * 128 + ((j ^ (R & 7)) << 4) + tq * 4) =
+          const int R = (row_wg + i) * TP + r;
+          *reinterpret_cast<uint32_t*>(ot + R * 128 + (((j & 7) ^ (R & 7)) << 4) + tq * 4) =
               pack_bf16(v0 + bj.x, v1 + bj.y);
         }
       }
@@ -372,12 +535,33 @@ wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     __syncthreads();
     if (tid == 0) {
       for (int w = 0; w < 2; ++w)
-        tma_store_4d(&tm_out, ot - wg * K::U_HALF + w * K::U_HALF, tt.co0 + 64 * w, tt.x0,
-                     M * tt.t, tt.b);
+        tma_store_4d(tm_out, obase + w * K::OUT_PITCH, tt.co0 + 64 * w, tt.x0, ROWS * tt.t, tt.b);
       bulk_commit();
     }
   }
   if (tid == 0) bulk_wait_read();  // the last tile's output has left shared memory
+}
+
+// B7: the row-Winograd forward (and, on dy, the dgrad)
+template <int M, bool GN>
+__global__ void __launch_bounds__(kThreads, 1)
+wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_u,
+                       const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ bias,
+                       const float* __restrict__ ga, const float* __restrict__ gb,
+                       __nv_bfloat16* __restrict__, Geom g) {
+  conv_rows<Wino<M>, GN, false>(&tm_x, &tm_u, &tm_out, bias, ga, gb, nullptr, g);
+}
+
+// B6: the direct conv with the GroupNorm+SiLU prologue
+template <int TT, int PK, bool EMIT_Z>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_u,
+                        const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ bias,
+                        const float* __restrict__ ga, const float* __restrict__ gb,
+                        __nv_bfloat16* __restrict__ zout, Geom g) {
+  conv_rows<Direct<TT, PK>, true, EMIT_Z>(&tm_x, &tm_u, &tm_out, bias, ga, gb, zout, g);
 }
 
 int sm_count() {
@@ -391,29 +575,32 @@ int sm_count() {
   return n;
 }
 
-template <int M, bool GN>
-int launch(const void* x, const void* u, const void* bias, const void* ga, const void* gb,
-           void* out, const Geom& g, cudaStream_t stream) {
-  using K = Cfg<M>;
+template <class F, typename Kernel>
+int launch(Kernel kernel, const void* x, const void* u, const void* bias, const void* ga,
+           const void* gb, void* out, void* zout, int B, int H, int W, int C, int CO,
+           cudaStream_t stream) {
+  using K = Cfg<F>;
+  const int ht = (H + F::ROWS - 1) / F::ROWS, n_xt = (W + F::TW - 1) / F::TW;
+  const Geom g{B, H, W, C, CO, ht, n_xt, CO / TN, B * ht * n_xt * (CO / TN)};
   CUtensorMap tx, tu, to;
-  const uint64_t dx[4] = {(uint64_t)g.C, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
-  const uint32_t bx[4] = {KC, COLS, M + 2, 1};
-  const uint64_t du[3] = {(uint64_t)g.CO, (uint64_t)g.C, (uint64_t)(M + 2) * 3};
-  const uint32_t bu[3] = {64, KC, (M + 2) * 3};
+  const uint64_t dx[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint32_t bx[4] = {KC, F::COLS, F::P, 1};
+  const uint64_t du[3] = {(uint64_t)CO, (uint64_t)C, (uint64_t)F::SLABS};
+  const uint32_t bu[3] = {64, KC, F::SLABS};
+  const uint64_t dout[4] = {(uint64_t)CO, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+  const uint32_t bout[4] = {64, F::TW, F::ROWS, 1};
   int err = hopper::make_map_bf16_nd(&tx, x, dx, bx);
-  const uint64_t dout[4] = {(uint64_t)g.CO, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
-  const uint32_t bout[4] = {64, TP, M, 1};
   if (!err) err = hopper::make_map_bf16_nd(&tu, u, du, bu, CU_TENSOR_MAP_SWIZZLE_128B);
   if (!err) err = hopper::make_map_bf16_nd(&to, out, dout, bout, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
-  auto kernel = wino_rows_wgmma_kernel<M, GN>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int grid = g.n_tiles < sm_count() ? g.n_tiles : sm_count();
   kernel<<<grid, kThreads, K::SMEM, stream>>>(tx, tu, to, static_cast<const float*>(bias),
                                               static_cast<const float*>(ga),
-                                              static_cast<const float*>(gb), g);
+                                              static_cast<const float*>(gb),
+                                              static_cast<__nv_bfloat16*>(zout), g);
   return (int)cudaGetLastError();
 }
 
@@ -421,21 +608,38 @@ int launch(const void* x, const void* u, const void* bias, const void* ga, const
 
 extern "C" {
 
-// x: (B, H, W, C) bf16; u: ((m+2)*3, C, CO) bf16, the row-Winograd U[a, dx];
-// bias: (CO,) fp32; ga, gb: (B, C) fp32 GroupNorm affine when gn, else
-// unused; out: (B, H, W, CO) bf16. The Python wrapper checks the rest:
-// contiguous, 16-byte aligned, C % 16 == 0, CO % 128 == 0, H % m == 0.
-// Returns cudaGetLastError().
+// x: (B, H, W, C) bf16; u: (S, C, CO) bf16, the weight slabs: mode 1 (the
+// direct form, gn required) K[dy, dx] at dy * 3 + dx, S = 9; mode 2 or 4 the
+// row-Winograd U[a, dx] at a * 3 + dx, S = (mode + 2) * 3; bias: (CO,) fp32;
+// ga, gb: (B, C) fp32 GroupNorm affine when gn, else unused; out: (B, H, W,
+// CO) bf16; zout: (B, H, W, C) bf16 when emit_z (mode 1 only). The Python
+// wrapper checks the rest: contiguous, 16-byte aligned, C % 16 == 0, CO % 128
+// == 0, H % mode == 0. Returns cudaGetLastError().
 int gdt_conv3x3_wino(const void* x, const void* u, const void* bias, const void* ga,
-                     const void* gb, void* out, int B, int H, int W, int C, int CO, int m,
-                     int gn, void* stream) {
-  const int ht = H / m, n_xt = (W + TP - 1) / TP;
-  Geom g{B, H, W, C, CO, ht, n_xt, CO / TN, B * ht * n_xt * (CO / TN)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 2 && !gn) return launch<2, false>(x, u, bias, ga, gb, out, g, s);
-  if (m == 2 && gn) return launch<2, true>(x, u, bias, ga, gb, out, g, s);
-  if (m == 4 && !gn) return launch<4, false>(x, u, bias, ga, gb, out, g, s);
-  if (m == 4 && gn) return launch<4, true>(x, u, bias, ga, gb, out, g, s);
+                     const void* gb, void* out, void* zout, int B, int H, int W, int C, int CO,
+                     int m, int gn, int emit_z, void* stream) {
+  auto run = [&](auto form, auto kernel) {
+    return launch<decltype(form)>(kernel, x, u, bias, ga, gb, out, zout, B, H, W, C, CO,
+                                  static_cast<cudaStream_t>(stream));
+  };
+  constexpr int TT = kDirectRows;
+  if (m == 1 && gn) {  // PK image rows an accumulator where W = 64 / PK (32 or 16)
+    if (W == TP / 2)
+      return emit_z ? run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, true>)
+                    : run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, false>);
+    if (W == TP / 4)
+      return emit_z ? run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, true>)
+                    : run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, false>);
+    return emit_z ? run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, true>)
+                  : run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, false>);
+  }
+  if (emit_z) return (int)cudaErrorInvalidValue;
+  if (m == 2)
+    return gn ? run(Wino<2>{}, wino_rows_wgmma_kernel<2, true>)
+              : run(Wino<2>{}, wino_rows_wgmma_kernel<2, false>);
+  if (m == 4)
+    return gn ? run(Wino<4>{}, wino_rows_wgmma_kernel<4, true>)
+              : run(Wino<4>{}, wino_rows_wgmma_kernel<4, false>);
   return (int)cudaErrorInvalidValue;
 }
 

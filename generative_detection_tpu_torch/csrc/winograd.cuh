@@ -1,6 +1,7 @@
 // The 1-D F(2,3) and F(4,3) row-Winograd transforms (Lavin & Gray points
 // {0, +-1, +-2, inf}) as compile-time values, shared by the row-Winograd
-// forward (conv3x3_wino.cu) and weight-gradient (conv3x3_wgrad.cu) kernels:
+// forward (conv3x3_wino.cu; in fp32 conv3x3.cu) and weight-gradient
+// (conv3x3_wgrad.cu) kernels:
 // loops over points that read them through a constexpr drop zero
 // coefficients and multiplies by one.
 

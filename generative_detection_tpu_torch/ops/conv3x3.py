@@ -1,7 +1,8 @@
-"""ctypes bindings of the 3x3 convolution kernels: ``csrc/conv3x3.cu`` (the
-direct forward with the GroupNorm+SiLU prologue, and the fp32 row-Winograd
-forward), ``csrc/conv3x3_wino.cu`` (the bf16 row-Winograd forward, TMA +
-``wgmma``) and ``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient).
+"""ctypes bindings of the 3x3 convolution kernels: ``csrc/conv3x3_wino.cu``
+(bf16, TMA + ``wgmma``: the direct forward with the GroupNorm+SiLU prologue,
+B6, and the row-Winograd forward and dgrad, B7), ``csrc/conv3x3.cu`` (the
+same three forms in fp32, FMA) and ``csrc/conv3x3_wgrad.cu`` (the
+row-Winograd weight gradient).
 
 These launch and check; they count nothing. The wrappers that own the
 launch counts are in ``ops.fused_conv`` and ``ops.winograd_rows``.
@@ -18,10 +19,10 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BM = 64  # output positions per block of the forward kernel
-BN = 64  # output channels per block (both kernels)
+BM = 64  # output positions per block of the fp32 forward kernel
+BN = 64  # output channels per block of the fp32 kernels
 KC = 16  # input-channel chunk of the forward kernels
-TN_WINO = 128  # output channels per block of the bf16 row-Winograd forward
+TN_WINO = 128  # output channels per tile of the bf16 forward kernels
 TC = 64  # input channels per block of the weight-gradient kernels
 TN_BF16 = 128  # output channels per block of the bf16 weight-gradient kernel
 KP = 32  # columns per chunk of the weight-gradient kernels
@@ -34,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3")
     if lib.gdt_conv3x3_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_conv3x3_fwd.argtypes = [p] * 7 + [i] * 11 + [p]
+        lib.gdt_conv3x3_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
         lib.gdt_conv3x3_fwd.restype = i
     return lib
 
@@ -43,7 +44,7 @@ def _wino_lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wino")
     if lib.gdt_conv3x3_wino.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_conv3x3_wino.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.gdt_conv3x3_wino.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.gdt_conv3x3_wino.restype = i
     return lib
 
@@ -77,7 +78,8 @@ def _affine_args(gn_ab, b, c, device):
 
 
 def _tile(w: int) -> tuple[int, int]:
-    """The direct/fp32 forward kernel's block tile: ``tt`` t-rows of ``tw`` columns."""
+    """The fp32 forward kernel's block tile: ``tt`` t-rows of ``tw`` columns
+    (the last column tile may run past the image)."""
     tw = min(w, BM)
     return tw, BM // tw
 
@@ -85,23 +87,22 @@ def _tile(w: int) -> tuple[int, int]:
 def forward_shape_error(shape, co: int, dtype, mode: int, gn: bool = False,
                         emit_z: bool = False) -> Optional[str]:
     """Why ``conv3x3_forward`` refuses an input of ``shape`` (B, H, W, C) with
-    ``co`` output channels, or None when a kernel takes it. bf16 with mode 2
-    or 4 (the row-Winograd forward and dgrad) runs ``csrc/conv3x3_wino.cu``:
-    C % 16, CO % 128, H % mode, any W. Everything else runs
-    ``csrc/conv3x3.cu``: C % 16, CO % 64, H % mode, W <= 64 or W % 64 == 0."""
+    ``co`` output channels, or None when a kernel takes it. bf16 runs
+    ``csrc/conv3x3_wino.cu`` (mode 1, the direct form, is B6; mode 2 or 4,
+    the row-Winograd forward and dgrad, B7): C % 16, CO % 128, H % mode.
+    fp32 runs ``csrc/conv3x3.cu``: C % 16, CO % 64, H % mode. Both take any
+    W. Mode 1 runs only with the GroupNorm prologue."""
     _, h, w, c = shape
     if mode not in (1, 2, 4):
         return f"mode {mode} is not 1, 2 or 4"
     if emit_z and (mode != 1 or not gn):
         return "emit_z needs mode 1 with the GroupNorm prologue"
-    if dtype == torch.bfloat16 and mode != 1:
-        if c % KC or co % TN_WINO or h % mode:
-            return (f"the bf16 row-Winograd kernel takes C % {KC} == 0, CO % {TN_WINO} == 0 "
-                    f"and H % mode == 0, got {tuple(shape)}->{co}, mode {mode}")
-        return None
-    if c % KC or co % BN or h % mode or w % _tile(w)[0]:
-        return (f"conv3x3 kernel takes C % {KC} == 0, CO % {BN} == 0, H % mode == 0 and "
-                f"W <= {BM} or W % {BM} == 0, got {tuple(shape)}->{co}, mode {mode}")
+    tn = TN_WINO if dtype == torch.bfloat16 else BN
+    if c % KC or co % tn or h % mode:
+        return (f"the {dtype} conv3x3 kernel takes C % {KC} == 0, CO % {tn} == 0 and "
+                f"H % mode == 0, got {tuple(shape)}->{co}, mode {mode}")
+    if mode == 1 and not gn:
+        return "mode 1 (the direct conv) runs only with the GroupNorm prologue"
     return None
 
 
@@ -116,9 +117,9 @@ def conv3x3_forward(
     """Launch the forward kernel: x (B, H, W, C), u (P*3, C, CO) in x's dtype
     (P = 3 for ``mode`` 1, the direct kernel; mode + 2 for F(mode,3)), bias
     (CO,) fp32, ``gn_ab`` the (B, C) fp32 GroupNorm affine of the prologue.
-    bf16 with mode 2 or 4 takes ``csrc/conv3x3_wino.cu``, the rest
-    ``csrc/conv3x3.cu`` (``forward_shape_error`` gives the shapes each takes).
-    Returns out (B, H, W, CO), and z (B, H, W, C) with ``emit_z``."""
+    bf16 takes ``csrc/conv3x3_wino.cu``, fp32 ``csrc/conv3x3.cu``
+    (``forward_shape_error`` gives the shapes each takes). Returns out (B, H,
+    W, CO), and z (B, H, W, C) with ``emit_z``."""
     b, h, w, c = x.shape
     co = u.shape[-1]
     pts = 3 if mode == 1 else mode + 2
@@ -131,26 +132,18 @@ def conv3x3_forward(
     if err is not None:
         raise ValueError(err)
     out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ga_p = ga.data_ptr() if ga is not None else None
-    gb_p = gb.data_ptr() if gb is not None else None
-    if x.dtype == torch.bfloat16 and mode != 1:
-        lib = _wino_lib()
-        rc = lib.gdt_conv3x3_wino(
-            x.data_ptr(), u.data_ptr(), bias.data_ptr(), ga_p, gb_p, out.data_ptr(),
-            b, h, w, c, co, mode, int(gn_ab is not None), stream,
-        )
-        _build.check(lib, rc, "conv3x3 row-Winograd kernel launch")
-        return out
     z = torch.empty_like(x) if emit_z else None
-    tw, tt = _tile(w)
-    lib = _lib()
-    rc = lib.gdt_conv3x3_fwd(
-        x.data_ptr(), u.data_ptr(), bias.data_ptr(), ga_p, gb_p,
-        out.data_ptr(), z.data_ptr() if z is not None else None,
-        b, h, w, c, co, mode, int(gn_ab is not None), int(emit_z), tw, tt,
-        _DTYPES[x.dtype], stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), u.data_ptr(), bias.data_ptr(),
+            ga.data_ptr() if ga is not None else None, gb.data_ptr() if gb is not None else None,
+            out.data_ptr(), z.data_ptr() if z is not None else None)
+    flags = (b, h, w, c, co, mode, int(gn_ab is not None), int(emit_z))
+    if x.dtype == torch.bfloat16:
+        lib = _wino_lib()
+        rc = lib.gdt_conv3x3_wino(*ptrs, *flags, stream)
+    else:
+        lib = _lib()
+        rc = lib.gdt_conv3x3_fwd(*ptrs, *flags, *_tile(w), stream)
     _build.check(lib, rc, "conv3x3 kernel launch")
     return (out, z) if emit_z else out
 

@@ -4,7 +4,8 @@ package), over NHWC activations and HWIO (3, 3, C, CO) kernels.
 ``gn_silu_conv`` computes the per-(image, channel) affine (a, b) of the
 GroupNorm (``norm.group_norm_affine``: the stats kernel on the card), then
 conv(silu(x a + b)) + bias with the activation made inside the convolution:
-on the card the direct mode of ``csrc/conv3x3.cu``, on the CPU the plain
+on the card ``fused_conv_wgmma_kernel`` of ``csrc/conv3x3_wino.cu`` in bf16
+(the direct mode of ``csrc/conv3x3.cu`` in fp32), on the CPU the plain
 ``gn_silu_conv_reference``. Two backward variants, one
 ``torch.autograd.Function`` each, as the JAX package's two custom VJPs:
 
@@ -21,9 +22,11 @@ the card) from the stats the forward kept.
 Kernel note: replaces ``_fused_pallas`` (kernel ``_fused_kernel``), which
 DMAs row tiles plus halos into VMEM, activates them there and runs nine
 tile-wide MXU products with masked rolls for the column shifts. The Hopper
-kernel is described in ``csrc/conv3x3.cu``; it tiles its own way, so
-``_pick_tile`` below only decides which sites are routed to it, exactly as
-on the TPU.
+kernel, ``fused_conv_wgmma_kernel`` (``csrc/conv3x3_wino.cu``, the direct
+form of B7's pipeline: raw rows by TMA, activated once per 128 output
+channels, nine SS ``wgmma`` taps per output row, TMA-store epilogue), tiles
+its own way and takes any W, so ``_pick_tile`` below only decides which
+sites are routed to it, exactly as on the TPU.
 """
 
 from __future__ import annotations
@@ -45,7 +48,9 @@ def _itemsize(dtype) -> int:
 
 
 def _pick_tile(h: int, w: int, c: int, co: int, itemsize: int) -> Optional[int]:
-    """Largest row tile TR dividing h whose TPU scratch fits the budget."""
+    """Largest row tile TR dividing h whose TPU scratch fits the budget: the
+    TPU kernel's routing rule, not the Hopper kernel's tile (four
+    accumulators of 64 positions by 128 output channels, any H and W)."""
     for tr in (32, 16, 8, 4, 2, 1):
         if h % tr:
             continue
@@ -183,4 +188,4 @@ def gn_silu_conv(
         return gn_silu_conv_reference(x, gamma, beta, w, bias, num_groups, eps)
 
 
-gn_silu_conv.launches = 0  # calls that launched the fused kernel (direct mode of conv3x3.cu)
+gn_silu_conv.launches = 0  # calls that launched the fused kernel (B6)

@@ -350,11 +350,19 @@ def test_group_norm_affine_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw, c, co", [(64, 128, 256), (16, 512, 512), (8, 128, 128), (32, 256, 128)])
-def test_fused_conv_kernel_matches_plain(cuda, hw, c, co, dtype):
+@pytest.mark.parametrize("shape, co", [((2, 64, 64, 128), 256), ((2, 16, 16, 512), 512),
+                                       ((2, 8, 8, 128), 128), ((2, 32, 32, 256), 128),
+                                       ((2, 256, 256, 128), 128), ((2, 128, 128, 128), 128),
+                                       ((1, 8, 72, 128), 128), ((2, 6, 96, 128), 256),
+                                       ((2, 12, 32, 128), 128), ((1, 20, 16, 256), 128)])
+def test_fused_conv_kernel_matches_plain(cuda, shape, co, dtype):
+    # (256, 128, 128) and (128, 128, 128): the fused detector's largest sites;
+    # W = 72 and 96: a 64-column tile past the image (C2); H = 6: a 4-row
+    # tile past the image; W = 32 and 16 (bf16: 2 or 4 image rows an
+    # accumulator) with H past a tile's 8 or 16 rows
     from generative_detection_tpu_torch.ops import fused_conv
 
-    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, shape, co, dtype)
     before = fused_conv.gn_silu_conv.launches
     out, z = fused_conv._fused_forward(x, a, b, k, bias, emit_z=True)
     out2, _ = fused_conv._fused_forward(x, a, b, k, bias, emit_z=False)
@@ -362,24 +370,40 @@ def test_fused_conv_kernel_matches_plain(cuda, hw, c, co, dtype):
     want = fused_conv._conv_bias(want_z, k, bias)
     torch.cuda.synchronize()
     assert fused_conv.gn_silu_conv.launches == before + 2
-    assert out.dtype == dtype and out.shape == (2, hw, hw, co)
+    assert out.dtype == dtype and out.shape == shape[:3] + (co,)
     assert torch.equal(out, out2)
     _rel_close(out, want, CONV_REL_TOL[dtype])
     _rel_close(z, want_z, CONV_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape, co", [((2, 256, 256, 128), 128), ((2, 16, 16, 512), 512),
+                                       ((2, 8, 96, 128), 256)])
+def test_fused_conv_kernel_repeats_bit_equal(cuda, shape, co):
+    """The bf16 B6 kernel gives the same bits on a repeat, z too: every
+    output element is written by one block."""
+    from generative_detection_tpu_torch.ops import fused_conv
+
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, shape, co, torch.bfloat16)
+    runs = [fused_conv._fused_forward(x, a, b, k, bias, emit_z=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gn", [False, True])
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("hw, c, co", [(32, 128, 256), (64, 256, 128), (16, 128, 128),
-                                       (128, 256, 128), (32, 512, 256), (48, 128, 128)])
+                                       (128, 256, 128), (32, 512, 256), (48, 128, 128),
+                                       ((8, 96), 128, 128)])
 def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
     # (128, 256, 128): the fused step's largest site, at batch 2; (32, 512,
-    # 256): C = 512 and two output-channel tiles; W = 48: the bf16 kernel's
-    # 64-column tile runs past the image
+    # 256): C = 512 and two output-channel tiles; W = 48 and (H, W) = (8,
+    # 96): a 64-column tile runs past the image (96: C2, in fp32 too)
     from generative_detection_tpu_torch.ops import winograd_rows as wr
 
-    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
+    h, w = hw if isinstance(hw, tuple) else (hw, hw)
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, h, w, c), co, dtype)
     u = wr._u3n(k, dtype, m)
     ab = (a, b) if gn else None
     before = wr.wino_rows_forward.launches
@@ -508,7 +532,7 @@ def test_conv_kernels_raise_outside_their_shapes(cuda):
 
     u = torch.zeros(9, 128, 128, device="cuda")
     bias = torch.zeros(128, device="cuda")
-    with pytest.raises(ValueError, match="W <= 64 or W % 64 == 0"):
+    with pytest.raises(ValueError, match="runs only with the GroupNorm prologue"):
         conv3x3.conv3x3_forward(torch.zeros(1, 8, 96, 128, device="cuda"), u, bias, 1)
     with pytest.raises(ValueError, match="CO % 64 == 0"):
         conv3x3.conv3x3_forward(torch.zeros(1, 8, 8, 128, device="cuda"),

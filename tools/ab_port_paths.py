@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Compare two checkouts of the PyTorch port on one card: the default bf16
-detector (p50 and peak memory at batch 1, 8, 32) and the flagship bf16
-train step (p50 at batch 16), default and with GDT_WINOGRAD=fused, each
-tree in its own process, in the order given.
+"""Compare two checkouts of the PyTorch port on one card: the bf16 detector
+(p50 and peak memory at batch 1, 8, 32), default and with
+GDT_FUSE_INFERENCE=1, and the flagship bf16 train step (p50 at batch 16),
+default and with GDT_WINOGRAD=fused, each tree in its own process, in the
+order given.
 
     python3 tools/ab_port_paths.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
 
@@ -37,24 +38,14 @@ def _p50(fn, n: int, warmup: int = 3) -> float:
     return statistics.median(lat) * 1e3
 
 
-def run_one(tree: str) -> dict:
-    tree = os.path.abspath(tree)
-    os.chdir(tree)
-    sys.path.insert(0, tree)
+def _detector(make_detector_fn, model, net) -> dict:
+    """p50 and peak memory of the bf16 detector at batch 1, 8, 32."""
     import numpy as np
     import torch
 
-    from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
-    from generative_detection_tpu_torch.serving import make_detector_fn
-    from generative_detection_tpu_torch.train import create_train_state, make_train_step
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device")
-    model = instantiate_from_config(merge_configs([FLAGSHIP])["model"])
-    net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
     hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
     detect = make_detector_fn(model, net, hmin, hmax, 256)
-    out = {"tree": tree, "detector": {}}
+    out = {}
     rng = np.random.default_rng(0)
     for b, n in ((1, 50), (8, 50), (32, 10)):
         args = [torch.as_tensor(a, device="cuda") for a in (
@@ -66,9 +57,30 @@ def run_one(tree: str) -> dict:
         detect(*args)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out["detector"][b] = {"p50_ms": _p50(lambda: detect(*args), n),
-                              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    del detect, net
+        out[b] = {"p50_ms": _p50(lambda: detect(*args), n),
+                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def run_one(tree: str) -> dict:
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
+    from generative_detection_tpu_torch.serving import make_detector_fn
+    from generative_detection_tpu_torch.train import create_train_state, make_train_step
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    model = instantiate_from_config(merge_configs([FLAGSHIP])["model"])
+    net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
+    out = {"tree": tree, "detector": _detector(make_detector_fn, model, net)}
+    os.environ["GDT_FUSE_INFERENCE"] = "1"  # read when the detector builds its net
+    out["detector_fused"] = _detector(make_detector_fn, model, net)
+    del os.environ["GDT_FUSE_INFERENCE"]
+    del net
     torch.cuda.empty_cache()
 
     b, size = 16, model.input_size

@@ -46,8 +46,9 @@ _spec.loader.exec_module(ab_wgrad)
 _time_ms, winograd_flops = ab_wgrad._time_ms, ab_wgrad.winograd_flops
 
 
-def _kernel_split(fn, calls: int = 3) -> dict:
-    """Device ms per call of each conv kernel that ``fn`` launches."""
+def _kernel_split(fn, calls: int = 3,
+                  pattern: str = r"(wino_rows_wgmma_kernel|conv3x3_bf16_kernel)") -> dict:
+    """Device ms per call of each conv kernel (named by ``pattern``) that ``fn`` launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,7 +58,7 @@ def _kernel_split(fn, calls: int = 3) -> dict:
         torch.cuda.synchronize()
     split = {}
     for e in prof.key_averages():
-        name = re.search(r"(wino_rows_wgmma_kernel|conv3x3_bf16_kernel)", e.key)
+        name = re.search(pattern, e.key)
         if name:
             split[name.group(0)] = split.get(name.group(0), 0.0) + e.device_time_total / calls / 1e3
     return split

@@ -54,7 +54,10 @@ from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E40
 # keys ("wgrad", "conv") would also match them.
 CLASSES = (
     ("wino_rows_kernel", ("wino_rows_wgmma_kernel",)),  # B7 bf16, forward and dgrad
-    ("conv3x3_kernel", ("conv3x3_bf16", "conv3x3_f32")),  # B6; B7 in fp32
+    # B6 bf16; conv3x3_bf16 is its earlier mma.sync kernel, for profiling an
+    # older checkout with this tool
+    ("fused_conv_kernel", ("fused_conv_wgmma_kernel", "conv3x3_bf16")),
+    ("conv3x3_kernel", ("conv3x3_f32",)),  # B6 and B7 in fp32
     ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "::fold_kernel")),  # B8
     ("group_norm_kernel", ("gn_stats", "gn_apply", "gn_affine")),
     ("group_norm_bwd_kernel", ("gn_bwd",)),
