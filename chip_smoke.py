@@ -9,10 +9,13 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
-   kernels, the bf16 fused GroupNorm+SiLU+conv (B6), row-Winograd forward
-   (B7) and weight gradient (B8) must hold wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in their SASS (cuobjdump), B6-B8 and the fp32 conv kernels
-   of conv3x3.cu no mma.sync (HMMA), and none of the wgmma kernels may spill;
+   kernels (B1 and the flash variant B5), the fp32 split-precision attention
+   forward (B1 and B5 in fp32 at C <= 256), the bf16 fused
+   GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
+   (B8) must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
+   (cuobjdump), B6-B8, the split-precision kernel and the fp32 conv kernels
+   of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may spill,
+   and ptxas may not serialize the split-precision kernel's wgmma;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -28,7 +31,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
    the attention forward and backward at L = 16384 (B9's length), in bf16
-   and fp32;
+   and fp32; the attention forward's bound counts the products each route
+   runs (fp32 at C <= 256: six bf16 piece products for each of S and P V);
 5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
    serves requests at batch 1, 8 and 32 in bf16, first as it is, then with
@@ -36,7 +40,9 @@ Phases (any failure raises and exits non-zero, before the result line):
    sites per request (28 GroupNorm and 3 attention launches, or 4 GroupNorm,
    24 fused convs and their 24 affines). Then the same weights and inputs at
    batch 2 in fp32 on the card and on the CPU (which runs the plain
-   versions) must agree, in both settings;
+   versions) must agree, in both settings. Then the flagship as its config
+   ships it, in fp32: the detector at batch 8 and 32 (p50, peak memory, the
+   split-precision attention launches per request);
 6. train: the flagship train step at full width and depth, batch 16, bf16
    compute with fp32 master weights, past the whole curriculum (pixel,
    LPIPS, KL, pose and GAN terms and d_weight live): 3 warm-up and 10 timed
@@ -44,7 +50,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    show one forward and one backward per site per step (with fused, one
    Winograd forward, dgrad and weight gradient per in-band site), every
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
-   and the discriminator moved;
+   and the discriminator moved; then the config's own fp32 step (3 warm-up
+   and 5 timed steps, TF32 off as the kernel phase left it);
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
@@ -136,6 +143,7 @@ GN_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 8e-3)}
 TRAIN_BATCH = 16
 CURRICULUM_END = 30000 + 45000 + 45000
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_STEPS_FP32 = 5  # the config's own fp32 step: slower, fewer timed steps
 # Card against CPU, tiny fp32 train step (TF32 off): losses and d_weight
 # relative; Adam first moments (the clipped gradients) within 1e-3 of each
 # optimizer's largest, since the composite loss is ~1e6 and summation noise
@@ -149,19 +157,23 @@ TRAIN_LOSS_RTOL, MOMENT_REL = 1e-3, 1e-3
 CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows (h=w, C)
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
-# The bf16 kernels on wgmma and TMA (their names carry WGMMA_TAG): attention
-# (B1, B2), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2 or 4
-# image rows, with and without emit_z), the row-Winograd forward (B7) and
-# weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 have no
-# mma.sync (HMMA) left.
+# The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
+# and the flash variant B5 in bf16, B1 and B5 in fp32 at C <= 256 on split
+# precision, B2), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1,
+# 2 or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
+# and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 and the
+# split-precision kernel have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
+SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
-WGMMA_KERNELS = ("attn_fwd_wgmma_kernelILi64", "attn_fwd_wgmma_kernelILi128",
-                 "attn_fwd_wgmma_kernelILi256", "attn_fwd_wgmma_kernelILi512",
-                 "attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel") + _B6 + _WINO
-NO_HMMA = ("fused_conv", "wino", "wgrad")  # wgmma kernels with no mma.sync left
+_ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
+                  for flash in (0, 1))
+_SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in attention.SPLIT_CHANNELS for lse in (0, 1))
+WGMMA_KERNELS = (_ATTN_FWD + _SPLIT + ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+                 + _B6 + _WINO)
+NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
 # The device kernel behind each conv entry of the kernels line
 CONV_KERNELS = {"fused_conv": "fused_conv_wgmma_kernel", "wino_rows": "wino_rows_wgmma_kernel",
                 "wino_rows_dgrad": "wino_rows_wgmma_kernel", "wino_wgrad": "wgrad_wgmma_kernel"}
@@ -173,6 +185,7 @@ COUNTED = {
     "group_norm_affine": norm.group_norm_affine,
     "attention": attention.single_head_attention, "attention_bwd": attention.attention_backward,
     "flash_attention": attention.flash_attention_forward, "fused_conv": fused_conv.gn_silu_conv,
+    "attention_split": attention.split_precision,
     "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
     "wino_wgrad": wr.wino_wgrad,
 }
@@ -297,6 +310,8 @@ def phase_build() -> None:
             f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
+    require(not [w for w in warnings if "C7520" in w and SPLIT_KERNEL in w],
+            f"ptxas serializes the split-precision wgmma: {warnings}")
 
 
 def gn_case(g, hw, c, act, dtype):
@@ -331,27 +346,55 @@ def _achieved(flops: float, kernel_ms: float, bound_ms: float) -> dict:
             "bound_share": bound_ms / kernel_ms}
 
 
+def attn_fwd_bound(b, l, c, dtype, nbytes, flash=False) -> dict:
+    """The attention forward's bound from the products its route runs, each
+    over the peak of its unit (an L x L x C product is 2 b l^2 c flops): bf16
+    runs two bf16 products (the flash variant three: P in two pieces); fp32
+    at the split-precision widths six bf16 piece products for each of S and
+    P V; fp32 at C = 512 two fp32 products on the CUDA cores."""
+    one = 2 * b * l * l * c
+    if dtype == torch.bfloat16:
+        t_ops = (3 if flash else 2) * one / PEAK_FLOPS[torch.bfloat16]
+    elif c in attention.SPLIT_CHANNELS:
+        t_ops = 12 * one / PEAK_FLOPS[torch.bfloat16]
+    else:
+        t_ops = 2 * one / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def _attn_kernel(dtype, c, flash=False) -> str:
+    """The device kernel behind an attention forward call."""
+    if dtype == torch.float32:
+        return SPLIT_KERNEL if c in attention.SPLIT_CHANNELS else "attn_fwd_f32_kernel"
+    return f"attn_fwd_wgmma_kernel<{c}, {str(flash).lower()}>"
+
+
 def attn_case(g, l, c, dtype, batch=BATCH):
     q, k, v = (torch.randn(batch, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    again = attention.single_head_attention(q, k, v, return_lse=True)
     want_o, want_lse = attention._attention_reference(q, k, v)
     torch.cuda.synchronize()
     limit = ATTN_REL_TOL[dtype] * want_o.float().pow(2).mean().sqrt().item()
     err = check_close(f"attention {q.shape} {dtype}", o, want_o, limit, 0.0)
     check_close(f"attention lse {q.shape} {dtype}", lse, want_lse, LSE_TOL, 0.0)
+    require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+            f"attention {q.shape} {dtype}: a repeat differs")
     flops = 4 * batch * l * l * c
     nbytes = 4 * q.numel() * q.element_size() + batch * l * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    bound = attn_fwd_bound(batch, l, c, dtype, nbytes)
     q4, k4, v4 = q[:, None], k[:, None], v[:, None]
     kernel_ms = time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True))
     return {
         "name": "attention", "shape": [batch, l, c], "dtype": str(dtype).split(".")[1],
-        "max_err": err, "tol": limit, "lse_err": (lse - want_lse).abs().max().item(),
+        "kernel": _attn_kernel(dtype, c), "max_err": err, "tol": limit,
+        "lse_err": (lse - want_lse).abs().max().item(), "repeat_equal": True,
         "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: attention._attention_reference(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        **_achieved(flops, kernel_ms, max(t_ops, t_bytes) * 1e3),
-        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        **_achieved(flops, kernel_ms, bound["bound_ms"]), "bound_by": bound["bound_by"],
     }
 
 
@@ -663,26 +706,30 @@ def wino_cases(g, hw, c, co, dtype) -> list:
 
 
 def flash_case(g, l, c, dtype):
-    """B5, the forward-only flash variant (fp32 products whatever the input
-    dtype, no lse), at the detector's attention shapes. Its yardstick is SDPA
-    on fp32 copies of q, k, v (TF32 off, as the kernel phase sets it): the
-    like-for-like library call for fp32 products."""
+    """B5, the forward-only flash variant (products and P to fp32 accuracy
+    whatever the input dtype, no lse), at the detector's attention shapes,
+    with a bit-equal repeat. Its yardstick is SDPA on fp32 copies of q, k, v
+    (TF32 off, as the kernel phase sets it): the like-for-like library call
+    for fp32 products."""
     q, k, v = (torch.randn(BATCH, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o = attention.flash_attention_forward(q, k, v)
+    again = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     err = rms_close(f"flash attention {tuple(q.shape)} {dtype}", o, want, ATTN_REL_TOL[dtype])
+    require(torch.equal(o, again), f"flash attention {tuple(q.shape)} {dtype}: a repeat differs")
     q4, k4, v4 = (t.float()[:, None] for t in (q, k, v))
     nbytes = 4 * q.numel() * q.element_size()
-    # the products run in fp32 whatever the input dtype: fp32's peak
-    return {
+    r = {
         "name": "flash_attention", "shape": [BATCH, l, c], "dtype": _dname(dtype),
-        "max_err": err,
+        "kernel": _attn_kernel(dtype, c, flash=True), "max_err": err, "repeat_equal": True,
         "kernel_ms": time_ms(lambda: attention.flash_attention_forward(q, k, v)),
         "plain_ms": time_ms(lambda: attention._flash_reference(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        **_bound(4 * BATCH * l * l * c, nbytes, torch.float32),
+        **attn_fwd_bound(BATCH, l, c, dtype, nbytes, flash=True),
     }
+    r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+    return r
 
 
 def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
@@ -846,6 +893,45 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
     return {"launches": launches, "results": results}
 
 
+def phase_detector_fp32(expect: dict) -> None:
+    """The flagship detector in fp32, as its config ships it (TF32 off, as
+    the kernel phase left it): p50 and peak memory at batch 8 and 32, and
+    the launches per request against ``expect`` (two of its three attention
+    sites run the split-precision kernel)."""
+    model, net, hmin, hmax = flagship_detector()
+    detect = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32")
+    for b, n in ((8, 20), (32, 10)):
+        inputs = [torch.as_tensor(a, device="cuda") for a in detector_inputs(b, b)]
+        detect(*inputs)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        lat = []
+        for i in range(n + 3):  # the first 3 requests warm up
+            t0 = time.perf_counter()
+            boxes, cls, score = detect(*inputs)
+            torch.cuda.synchronize()
+            if i >= 3:
+                lat.append(time.perf_counter() - t0)
+        launches = read_counts()
+        require(boxes.shape == (b, 7) and bool(torch.isfinite(boxes).all()
+                                                and torch.isfinite(score).all()),
+                f"fp32 detector output {boxes.shape} not finite or misshapen")
+        for name in COUNTED:
+            want = expect.get(name, 0) * (n + 3)
+            require(launches[name] == want,
+                    f"detector_fp32 {name} launches {launches[name]} != {want}")
+        p50 = statistics.median(lat)
+        emit({"phase": "detector_fp32", "batch": b, "dtype": "float32", "requests": n,
+              "p50_ms": p50 * 1e3, "patches_per_s": b / p50, "min_ms": min(lat) * 1e3,
+              "max_ms": max(lat) * 1e3,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "launches_per_request": {k: v / (n + 3) for k, v in launches.items()}})
+    del net, detect
+    torch.cuda.empty_cache()
+
+
 def train_batch(b: int, size: int, device, seed: int) -> dict:
     """A synthetic prepared batch (the contract of ``prepare_batch``), made on
     ``device`` from ``seed``."""
@@ -864,25 +950,29 @@ def train_batch(b: int, size: int, device, seed: int) -> dict:
     }
 
 
-def flagship_train():
+def flagship_train(compute_dtype=torch.bfloat16):
     """The flagship model, a seeded fp32 train state on the card past the
-    curriculum, and its bf16 train step (shared discriminator forward,
-    optimizer step counting)."""
+    curriculum, and its train step (shared discriminator forward, optimizer
+    step counting) in ``compute_dtype``; None: the config's own dtype
+    (float32)."""
     model = instantiate_from_config(merge_configs([str(FLAGSHIP)])["model"])
     lr = TRAIN_BATCH * 4.5e-6  # base_learning_rate scaled by batch, as ldm does
     state = create_train_state(model, lr, grad_clip=1.0, seed=0, device="cuda")
     state.step = CURRICULUM_END // 2 + 1
     step = make_train_step(model, phase="full", disc_forward="shared",
-                           step_counting="optimizer", compute_dtype=torch.bfloat16)
+                           step_counting="optimizer", compute_dtype=compute_dtype)
     return model, state, step
 
 
-def phase_train(expect: dict, winograd: str) -> dict:
+def phase_train(expect: dict, winograd: str, fp32: bool = False) -> dict:
     """The flagship bf16 step at batch 16 with GDT_WINOGRAD=``winograd``:
-    3 warm-up and 10 timed steps, the launches per step against ``expect``."""
+    3 warm-up and 10 timed steps, the launches per step against ``expect``.
+    ``fp32``: the config's own fp32 step instead, 5 timed steps."""
     label = "train" if winograd == "0" else f"train_winograd_{winograd}"
+    label += "_fp32" if fp32 else ""
+    n_steps = TRAIN_STEPS_FP32 if fp32 else TRAIN_STEPS
     with switches(GDT_WINOGRAD=winograd):
-        model, state, step = flagship_train()
+        model, state, step = flagship_train(None if fp32 else torch.bfloat16)
         batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
         lpips0 = [p.detach().clone() for p in state.loss.perceptual_loss.parameters()]
         disc0 = [p.detach().clone() for p in state.loss.discriminator.parameters()]
@@ -894,7 +984,7 @@ def phase_train(expect: dict, winograd: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         lat = []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n_steps):
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
@@ -904,8 +994,8 @@ def phase_train(expect: dict, winograd: str) -> dict:
 
     for name in COUNTED:
         n = expect.get(name, 0)
-        require(counts[name] == n * TRAIN_STEPS,
-                f"{label} {name} launches {counts[name]} != {n} x {TRAIN_STEPS}")
+        require(counts[name] == n * n_steps,
+                f"{label} {name} launches {counts[name]} != {n} x {n_steps}")
     values = {k: float(metrics[k]) for k in ("aeloss", "discloss", "train/d_weight",
                                              "train/disc_factor", "train/rec_loss",
                                              "train/g_loss", "train/kl_loss_obj")}
@@ -924,11 +1014,12 @@ def phase_train(expect: dict, winograd: str) -> dict:
             "discriminator weights did not change")
     p50 = statistics.median(lat)
     result = {
-        "phase": label, "config": FLAGSHIP.name, "batch": TRAIN_BATCH, "dtype": "bfloat16",
-        "master_weights": "float32", "global_step_g": 2 * (state.step - 1), "steps": TRAIN_STEPS,
+        "phase": label, "config": FLAGSHIP.name, "batch": TRAIN_BATCH,
+        "dtype": "float32" if fp32 else "bfloat16", "master_weights": "float32",
+        "global_step_g": 2 * (state.step - 1), "steps": n_steps,
         "p50_ms": p50 * 1e3, "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3,
         "train_patches_per_s": TRAIN_BATCH / p50, "max_memory_allocated_bytes": peak,
-        "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+        "launches_per_step": {k: v / n_steps for k, v in counts.items()},
         "sites_per_step": expect, "params_with_grad": len(params), "losses": values,
     }
     emit(result)
@@ -1033,18 +1124,20 @@ def wino_step_sums(cases: dict, wino: Counter) -> dict:
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
-                 step_sums: dict):
+                 train_fp32: dict, step_sums: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
     the fused detector (B6 and its affine), the train step (B2, B4c/d), the
-    train step with GDT_WINOGRAD=fused (B7, B8). B5 is on no path of the
-    port (the JAX package reaches it only from its availability probe, whose
-    role the kernel check here plays). ``kernels_per_call`` device kernels
+    train step with GDT_WINOGRAD=fused (B7, B8); the fp32 split-precision
+    forward (B1 in fp32 at (8, 4096, 256)) with its launches in the config's
+    own fp32 step. B5 is on no path of the port (the JAX package reaches it
+    only from its availability probe, whose role the kernel check here
+    plays): its bf16 and fp32 entries. ``kernels_per_call`` device kernels
     run per counted call. B7 and B8 also give their share of the bound and
     their times summed over a fused step's sites, B6 over a fused detector
     request's (``step_sums``)."""
-    bf16 = torch.bfloat16
+    bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
     det_n, fdet_n = det["launches"], det_fused["launches"]
@@ -1059,6 +1152,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
                     and k[1] != LONG_L), key=lambda k: k[1] * k[1] * k[2])],
          "attention_bwd.cu", "attention.py:251", 2, train["attention_bwd"]),
         (cases[("flash_attention", 4096, 256, bf16)], "attention.cu", "attention.py:92", 1, 0),
+        (cases[("attention", 4096, 256, fp32)], "attention.cu", "attention.py:226", 2,
+         train_fp32["attention_split"]),
+        (cases[("flash_attention", 4096, 256, fp32)], "attention.cu", "attention.py:92", 2, 0),
         (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
          fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
@@ -1079,8 +1175,10 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": r["dtype"], "kernels_per_call": per_call,
         })
-    entries[4]["on_main_path"] = False
+    entries[4]["on_main_path"] = entries[6]["on_main_path"] = False
     for e, r in zip(entries, (row[0] for row in rows)):
+        if "kernel" in r:  # the attention forwards
+            e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
         if e["name"] in CONV_KERNELS:
             e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]
         if e["name"] in step_sums:
@@ -1128,10 +1226,18 @@ def main() -> int:
     train_fused = phase_train(
         {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
+    # the config's own fp32 path: the detector, then the step; the attention
+    # sites at C <= 256 run the split-precision forward
+    n_split_det = sum(n for (_, c), n in ATTN_SITES.items() if c in attention.SPLIT_CHANNELS)
+    n_split = sum(n for (_, c), n in attn_train.items() if c in attention.SPLIT_CHANNELS)
+    require(n_split_det > 0 and n_split > 0, "no attention site takes the split-precision kernel")
+    phase_detector_fp32({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
+                         "attention_split": n_split_det})
+    train_fp32 = phase_train({**per_step, "attention_split": n_split}, "0", fp32=True)
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
-    emit(kernels_line(cases, det, det_fused, train, train_fused, step_sums))
+    emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32, step_sums))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,17 +1,19 @@
 // Single-head attention forward, O = softmax(q k^T * C^-0.5) v, plus the row
-// logsumexp, over (B, L, C) tensors, for Hopper (sm_90a).
+// logsumexp, over (B, L, C) tensors, for Hopper (sm_90a); and the
+// forward-only flash variant, which computes in fp32 whatever the input type.
 //
 // Replaces generative_detection_tpu/ops/attention.py `_mha_fwd_call` (kernel
-// `_mha_fwd_kernel`). The TPU kernel keeps the whole (L, C) K and V of one
-// image in VMEM and takes the softmax of a full (bq, L) logit block. On the
+// `_mha_fwd_kernel`) and `_attention_pallas` (kernel `_flash_kernel`). The
+// TPU kernels keep the whole (L, C) K and V of one image in VMEM. On the
 // H100 a block has at most 227 KB of shared memory: at C = 512 one bf16 K
 // tile of 256 rows alone is 256 KB. So these kernels stream K/V tiles
 // through shared memory with an online softmax (running max, running sum,
-// fp32 accumulator), one block per (q tile, b).
+// fp32 accumulator).
 //
-// Bound on the H100 at the flagship sites: (B, 4096, 256) is compute-bound
-// (4 B L^2 C flops, about 137 GFLOP at B = 8); (B, 256, 512) is memory-bound
-// (q, k, v read once, o written once).
+// Bound on the H100 at the flagship sites: (B, 4096, 256) is compute-bound,
+// (B, 256, 512) memory-bound (q, k, v read once, o written once). At
+// (8, 4096, 256) the two products are 137.4 GFLOP: 0.139 ms in bf16 on the
+// tensor cores, 2.05 ms in fp32 on the CUDA cores.
 //
 // bf16 runs attn_fwd_wgmma_kernel, a warp-specialized kernel
 // (FlashAttention-3's layout). A producer warpgroup (one thread, 40
@@ -28,20 +30,47 @@
 //                   operand; V, MN-major, through the descriptor's
 //                   transpose bit.
 // Per channel count (Cfg below): at C = 64 (the tiny configs' (B, 256, 64)
-// sites), 128 and 256 (the flagship's L = 4096 sites) a block owns 128 query rows and each warpgroup the whole O; at
-// C = 512 (the (B, 256, 512) mid-block site, memory-bound and small) O does
-// not fit one warpgroup's registers, so both warpgroups take the same 64
-// rows, each 256 of O's channels, and each computes S itself.
-// At the end O /= l and lse = m + log(l).
+// sites), 128 and 256 (the flagship's L = 4096 sites) a block owns 128 query
+// rows and each warpgroup the whole O; at C = 512 (the (B, 256, 512)
+// mid-block site, memory-bound and small) O does not fit one warpgroup's
+// registers, so both warpgroups take the same 64 rows, each 256 of O's
+// channels, and each computes S itself. At the end O /= l and lse = m +
+// log(l). The flash variant on bf16 inputs (FLASH) is the same kernel with
+// P kept to fp32 accuracy: its two bf16 pieces (hi, lo) feed two products
+// with V (S needs one: a product of bf16 values is exact in fp32). Bound at
+// (8, 4096, 256): 3 x 68.7 GFLOP / 989 TFLOP/s = 0.208 ms.
 //
-// fp32 runs attn_fwd_f32_kernel (FMA), per K/V tile: K and V into shared
-// memory, S = Q K^T * scale into shared memory, the online softmax with 8
-// threads a row, O = O * exp(m - m_new) + P V in registers.
+// fp32 at C = 64, 128, 256 runs attn_fwd_split_wgmma_kernel: both products
+// on the tensor cores at fp32 accuracy. The CUDA cores' 67 TFLOP/s bound
+// fp32 SDPA and any FMA kernel from below by 2.05 ms at (8, 4096, 256); the
+// tensor cores take bf16 only, so every fp32 operand x becomes three bf16
+// pieces x0 + x1 + x2 (split_bf16x2, to about 2^-25 of x) and each product
+// the six piece products with i + j <= 2, accumulated in fp32 (the three
+// left out are below 2^-24 relative). Bound: 6 x 137.4 GFLOP / 989 TFLOP/s
+// = 0.833 ms. The pieces triple the bytes of every operand, so:
+//   - a pre-pass (attn_fwd_split_operands_kernel) writes the pieces of q, k
+//     and v to device memory once (18 bytes an element; ~0.08 ms at
+//     (8, 4096, 256)) instead of every block splitting every K/V tile;
+//   - a block owns 64 query rows and one consumer warpgroup: the three Q
+//     pieces take 96 KB of shared memory at C = 256, O 128 registers a
+//     thread, P's three pieces 48 more (formed in registers, fed as RS
+//     A operands); a warp issues the TMA copies;
+//   - K and V pieces stream one 64-row piece tile at a time through a
+//     four-slot ring (K0 K1 K2 V0 V1 V2 per key tile), each slot released
+//     as soon as the products that read it retire; V keeps its transpose
+//     bit, which 16-bit pieces allow (a TF32 split would need V^T).
+// fp32 at C = 512 (the memory-bound (B, 256, 512) site; three Q pieces and
+// a 64 x 512 O do not fit one block) runs attn_fwd_f32_kernel on the CUDA
+// cores: per K/V tile, K and V into shared memory, S = Q K^T * scale into
+// shared memory, the online softmax with 8 threads a row, O = O * exp(m -
+// m_new) + P V in registers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 #include "vec.cuh"
@@ -51,7 +80,7 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps
 
 // ---------------------------------------------------------------------------
-// fp32: FMA on the CUDA cores
+// fp32 at C = 512: FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kF32BQ = 32;
@@ -76,29 +105,11 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
   }
 }
 
-// bf16 rows widened to fp32 in shared memory (the flash variant's upcast).
-template <int C>
-__device__ __forceinline__ void load_tile_f32(float* dst, const __nv_bfloat16* src, int rows) {
-  constexpr int V = C / 8;
-  constexpr int ST = F32Cfg<C>::ST;
-  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + (size_t)r * C + c);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    *reinterpret_cast<float4*>(dst + r * ST + c) = make_float4(f0.x, f0.y, f1.x, f1.y);
-    *reinterpret_cast<float4*>(dst + r * ST + c + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-  }
-}
-
-// T is the input and output type (fp32 for B1's fp32 path; fp32 or bf16 for
-// the forward-only flash variant, which computes in fp32 whatever T is).
 // LSE: write the row logsumexp (the flash variant writes none).
-template <typename T, int C, bool LSE>
+template <int C, bool LSE>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int L, float scale) {
   constexpr int BQ = kF32BQ, BK = kF32BK;
   constexpr int ST = F32Cfg<C>::ST, SST = F32Cfg<C>::SST;
@@ -232,6 +243,21 @@ attn_fwd_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int C, bool LSE>
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+               int L, float scale, cudaStream_t stream) {
+  auto kernel = attn_fwd_f32_kernel<C, LSE>;
+  const size_t smem = F32Cfg<C>::smem_bytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(L / kF32BQ, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), L, scale);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA, warp-specialized (see the top of the file)
 // ---------------------------------------------------------------------------
@@ -255,7 +281,8 @@ struct Cfg {
   static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
 };
 
-template <int C>
+// FLASH: the flash variant (P in two bf16 pieces, no lse).
+template <int C, bool FLASH>
 __global__ void __launch_bounds__(384, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -264,6 +291,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   using namespace hopper;
   using K = Cfg<C>;
   constexpr int BQ = K::BQ, BK = K::BK, STAGES = K::STAGES, CO = K::CO, CHUNKS = K::CHUNKS;
+  constexpr int NP = FLASH ? 2 : 1;  // bf16 pieces of P
   constexpr uint32_t Q_BYTES = K::Q_BYTES, KV_BYTES = K::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);   // [CHUNKS][BQ][64]
@@ -371,8 +399,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         l_row[e / 2] += p;  // the fp32 P
       }
     }
-    uint32_t pa[BK / 16][4];
-    acc_to_a<BK / 8>(sc, pa);  // P rounded to v's dtype
+    uint32_t pa[NP][BK / 16][4];
+    acc_to_a_pieces<BK / 8, NP>(sc, pa);  // P rounded to v's dtype (FLASH: to about 2^-17)
 #pragma unroll
     for (int j = 0; j < CO / 8; ++j) {
       acc[4 * j] *= alpha[0];
@@ -388,7 +416,9 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs_mn<CO>(acc, pa[kk], desc_mnmajor(v_addr + kk * 16 * 128, BK * 128));
+#pragma unroll
+      for (int i = NP - 1; i >= 0; --i)
+        wgmma_rs_mn<CO>(acc, pa[i][kk], desc_mnmajor(v_addr + kk * 16 * 128, BK * 128));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -405,7 +435,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[h] = 1.f / l;
-    if (tq == 0 && co0 == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
+    if (!FLASH && tq == 0 && co0 == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
   }
   __nv_bfloat16* orow = o + (size_t)row * C + co0 + 2 * tq;
 #pragma unroll
@@ -417,7 +447,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int C>
+template <int C, bool FLASH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
            float scale, cudaStream_t stream) {
   using K = Cfg<C>;
@@ -427,7 +457,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   if (!err) err = hopper::make_map_bf16(&tk, k, rows, C, K::BK);
   if (!err) err = hopper::make_map_bf16(&tv, v, rows, C, K::BK);
   if (err) return err;
-  auto kernel = attn_fwd_wgmma_kernel<C>;
+  auto kernel = attn_fwd_wgmma_kernel<C, FLASH>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -439,19 +469,284 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 }  // namespace wg
 
-template <typename T, int C, bool LSE>
-int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-               int L, float scale, cudaStream_t stream) {
-  auto kernel = attn_fwd_f32_kernel<T, C, LSE>;
-  const size_t smem = F32Cfg<C>::smem_bytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(L / kF32BQ, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), L, scale);
+// ---------------------------------------------------------------------------
+// fp32 at C = 64, 128, 256: split-precision wgmma (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace sp {
+
+constexpr int NP = 3;  // bf16 pieces of every fp32 operand
+
+// A block: 64 query rows, one consumer warpgroup (threads 0-127) and one
+// producer warp (128-159). Shared memory: the three Q pieces, then a ring
+// of STAGES piece tiles (64 key rows x C, bf16), each in the 128-byte
+// swizzle as C / 64 column chunks. At C = 256: 96 + 128 KB.
+template <int C>
+struct Cfg {
+  static constexpr int BQ = 64, BK = 64, STAGES = 4, THREADS = 160;
+  static constexpr int CHUNKS = C / 64;
+  static constexpr uint32_t QP_BYTES = BQ * C * 2, TILE_BYTES = BK * C * 2;
+  static constexpr size_t SMEM = 1024 + NP * QP_BYTES + STAGES * TILE_BYTES + 8 * (1 + 2 * STAGES);
+  static_assert(STAGES >= NP, "a product needs all pieces of its operand in the ring");
+};
+
+// The pre-pass: x (fp32, n elements, n % 8 == 0) of q, k, v (blockIdx.y)
+// into NP bf16 pieces, out[(t * NP + p) * n + i] = piece p of element i of
+// tensor t.
+__global__ void __launch_bounds__(256)
+attn_fwd_split_operands_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                               size_t n) {
+  const float* x = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
+  __nv_bfloat16* dst = out + (size_t)blockIdx.y * NP * n;
+  const size_t step = (size_t)gridDim.x * blockDim.x * 8;
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8; i < n; i += step) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    const float r[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t w[NP][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t t[NP];
+      hopper::split_bf16x2(r[2 * e], r[2 * e + 1], t);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) w[p][e] = t[p];
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<uint4*>(dst + p * n + i) = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+  }
+}
+
+// tm_q, tm_k, tm_v: (NP B L, C) bf16 maps over the pieces (piece p of row r
+// at row p B L + r), boxes of 64 columns x 64 rows. o: (B L, C) fp32.
+template <int C, bool LSE>
+__global__ void __launch_bounds__(Cfg<C>::THREADS, 1)
+attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                            float* __restrict__ lse, int L, int BL, float scale_log2) {
+  using namespace hopper;
+  using K = Cfg<C>;
+  constexpr int BQ = K::BQ, BK = K::BK, STAGES = K::STAGES, CHUNKS = K::CHUNKS;
+  constexpr uint32_t QP_BYTES = K::QP_BYTES, TILE_BYTES = K::TILE_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);    // [NP][CHUNKS][BQ][64]
+  unsigned char* ring = qs + NP * QP_BYTES;    // [STAGES][CHUNKS][BK][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int row0 = blockIdx.y * L;  // the image's first row in the (B L, C) view
+  const int q0 = blockIdx.x * BQ, n_tiles = L / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: one thread issues every copy, piece tiles in the
+    // order the consumer takes them: K0 K1 K2 V0 V1 V2 of each key tile
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(q_full, NP * QP_BYTES);
+      for (int p = 0; p < NP; ++p)
+        for (int ch = 0; ch < CHUNKS; ++ch)
+          tma_load_2d(qs + p * QP_BYTES + ch * BQ * 128, &tm_q, q_full, ch * 64,
+                      p * BL + row0 + q0);
+      int n = 0;
+      for (int it = 0; it < n_tiles; ++it)
+        for (int op = 0; op < 2; ++op)
+          for (int p = 0; p < NP; ++p, ++n) {
+            const int s = n % STAGES;
+            mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], TILE_BYTES);
+            for (int ch = 0; ch < CHUNKS; ++ch)
+              tma_load_2d(ring + s * TILE_BYTES + ch * BK * 128, op ? &tm_v : &tm_k, &full[s],
+                          ch * 64, p * BL + row0 + it * BK);
+          }
+    }
+    return;
+  }
+  // ---- the consumer warpgroup
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};  // rows g, g + 8
+
+  mbar_wait(q_full, 0);
+  int n = 0;  // piece tiles taken from the ring
+  for (int it = 0; it < n_tiles; ++it) {
+    // descriptors of this tile's operands: rebuilt each tile from an opaque
+    // base, so the compiler cannot keep the 48 of the Q pieces in registers
+    const uint64_t dq = desc_kmajor(opaque(smem_u32(qs)));
+    const uint64_t dring = desc_kmajor(opaque(smem_u32(ring)));
+    const uint64_t dring_mn = desc_mnmajor(opaque(smem_u32(ring)), BK * 128);
+
+    // S = sum over i + j <= 2 of Q_i K_j^T (raw logits; the scale is folded
+    // into the exponent): one chain of products per K piece, started when
+    // the piece lands and drained before its slot goes back to the producer
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NP; ++j, ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int i = NP - 1 - j; i >= 0; --i)
+#pragma unroll
+        for (int kk = 0; kk < C / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          wgmma_ss<BK>(sc, dq + ((i * QP_BYTES + (kk / 4) * BQ * 128 + col) >> 4),
+                       dring + ((s * TILE_BYTES + (kk / 4) * BK * 128 + col) >> 4), 1);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // online softmax in the log2 domain, rows g (h = 0) and g + 8 (h = 1)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[h], mx * scale_log2);
+      alpha[h] = exp2f(m_row[h] - m_new);
+      m_row[h] = m_new;
+      l_row[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -m_row[e / 2]));
+        sc[4 * j + e] = p;
+        l_row[e / 2] += p;
+      }
+    }
+    uint32_t pa[NP][BK / 16][4];
+    acc_to_a_pieces<BK / 8, NP>(sc, pa);
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // O += sum over i + j <= 2 of P_i V_j, one drained chain per V piece
+#pragma unroll
+    for (int j = 0; j < NP; ++j, ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int i = NP - 1 - j; i >= 0; --i)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs_mn<C>(acc, pa[i][kk], dring_mn + ((s * TILE_BYTES + kk * 16 * 128) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+
+  // O / l, lse = m + log(l) (natural log)
+  float inv[2];
+  const int row = row0 + q0 + warp * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_row[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[h] = 1.f / l;
+    if (LSE && tq == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
+  }
+  float* orow = o + (size_t)row * C + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    *reinterpret_cast<float2*>(orow + 8 * j) =
+        make_float2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+    *reinterpret_cast<float2*>(orow + 8 * C + 8 * j) =
+        make_float2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+  }
+}
+
+// scratch: NP * 3 * B * L * C bf16 (the pieces of q, k, v).
+template <int C, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
+           int B, int L, float scale, cudaStream_t stream) {
+  using K = Cfg<C>;
+  const size_t n = (size_t)B * L * C;
+  __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
+  const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 132 * 8);
+  attn_fwd_split_operands_kernel<<<dim3(blocks, 3), 256, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      pieces, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv;
+  const uint64_t rows = (uint64_t)NP * B * L;
+  int err = hopper::make_map_bf16(&tq, pieces, rows, C, K::BQ);
+  if (!err) err = hopper::make_map_bf16(&tk, pieces + NP * n, rows, C, K::BK);
+  if (!err) err = hopper::make_map_bf16(&tv, pieces + 2 * NP * n, rows, C, K::BK);
+  if (err) return err;
+  auto kernel = attn_fwd_split_wgmma_kernel<C, LSE>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(L / K::BQ, B), K::THREADS, K::SMEM, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), L, B * L,
+      scale * hopper::kLog2e);
   return (int)cudaGetLastError();
+}
+
+}  // namespace sp
+
+// fp32 forward, with or without the lse: the split-precision kernel at C <= 256,
+// the FMA kernel at C = 512.
+template <bool LSE>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
+                int B, int L, int C, float scale, cudaStream_t s) {
+  switch (C) {
+    case 64: return sp::launch<64, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
+    case 128: return sp::launch<128, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
+    case 256: return sp::launch<256, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
+    case 512: return launch_f32<512, LSE>(q, k, v, o, lse, B, L, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool FLASH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
+                int C, float scale, cudaStream_t s) {
+  switch (C) {
+    case 64: return wg::launch<64, FLASH>(q, k, v, o, lse, B, L, scale, s);
+    case 128: return wg::launch<128, FLASH>(q, k, v, o, lse, B, L, scale, s);
+    case 256: return wg::launch<256, FLASH>(q, k, v, o, lse, B, L, scale, s);
+    case 512: return wg::launch<512, FLASH>(q, k, v, o, lse, B, L, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -459,58 +754,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
 extern "C" {
 
 // q, k, v, o: (B, L, C) contiguous, 16-byte aligned, fp32 (dtype 0) or bf16
-// (dtype 1); lse: (B, L) fp32. Takes C in {64, 128, 256, 512} and L % 128 == 0
-// (the Python wrapper checks and raises outside them). Returns a CUDA error
-// code (cudaGetLastError() after the launch).
+// (dtype 1); lse: (B, L) fp32. scratch: for fp32 at C <= 256, 9 B L C bf16
+// (the operand pieces), else unused. Takes C in {64, 128, 256, 512} and L %
+// 128 == 0 (the Python wrapper checks and raises outside them). Returns a
+// CUDA error code (cudaGetLastError() after the launch).
 int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                      int B, int L, int C, float scale, int dtype, void* stream) {
+                      void* scratch, int B, int L, int C, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    switch (C) {
-      case 64: return wg::launch<64>(q, k, v, o, lse, B, L, scale, s);
-      case 128: return wg::launch<128>(q, k, v, o, lse, B, L, scale, s);
-      case 256: return wg::launch<256>(q, k, v, o, lse, B, L, scale, s);
-      case 512: return wg::launch<512>(q, k, v, o, lse, B, L, scale, s);
-    }
-  } else if (dtype == 0) {
-    switch (C) {
-      case 64: return launch_f32<float, 64, true>(q, k, v, o, lse, B, L, scale, s);
-      case 128: return launch_f32<float, 128, true>(q, k, v, o, lse, B, L, scale, s);
-      case 256: return launch_f32<float, 256, true>(q, k, v, o, lse, B, L, scale, s);
-      case 512: return launch_f32<float, 512, true>(q, k, v, o, lse, B, L, scale, s);
-    }
-  }
+  if (dtype == 1) return launch_bf16<false>(q, k, v, o, lse, B, L, C, scale, s);
+  if (dtype == 0) return launch_fp32<true>(q, k, v, o, lse, scratch, B, L, C, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The forward-only flash variant (B5): q, k, v, o as above in fp32 (dtype 0)
-// or bf16 (dtype 1), computed in fp32 throughout (products and P), no lse.
-// Replaces generative_detection_tpu/ops/attention.py `_attention_pallas`
-// (kernel `_flash_kernel`), which upcasts q, k, v to fp32 and runs both
-// products in fp32. It is the fp32 kernel above reading bf16 rows into fp32
-// shared memory. Same shape limits as gdt_attention_fwd.
-int gdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                            int L, int C, float scale, int dtype, void* stream) {
+// The forward-only flash variant (B5): q, k, v, o and scratch as above,
+// computed to fp32 accuracy throughout (products and P), no lse. Replaces
+// generative_detection_tpu/ops/attention.py `_attention_pallas` (kernel
+// `_flash_kernel`), which upcasts q, k, v to fp32 and runs both products in
+// fp32. Same shape limits as gdt_attention_fwd.
+int gdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                            void* scratch, int B, int L, int C, float scale, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (C) {
-      case 64: return launch_f32<float, 64, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 128: return launch_f32<float, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 256: return launch_f32<float, 256, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 512: return launch_f32<float, 512, false>(q, k, v, o, nullptr, B, L, scale, s);
-    }
-  } else if (dtype == 1) {
-    switch (C) {
-      case 64:
-        return launch_f32<__nv_bfloat16, 64, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 128:
-        return launch_f32<__nv_bfloat16, 128, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 256:
-        return launch_f32<__nv_bfloat16, 256, false>(q, k, v, o, nullptr, B, L, scale, s);
-      case 512:
-        return launch_f32<__nv_bfloat16, 512, false>(q, k, v, o, nullptr, B, L, scale, s);
-    }
-  }
+  if (dtype == 1) return launch_bf16<true>(q, k, v, o, nullptr, B, L, C, scale, s);
+  if (dtype == 0) return launch_fp32<false>(q, k, v, o, nullptr, scratch, B, L, C, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

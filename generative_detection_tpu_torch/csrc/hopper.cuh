@@ -23,6 +23,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// x, hidden from the compiler's analysis: a value it must recompute where it
+// is used instead of keeping it live in a register across a loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // The first 1024-byte aligned address at or after p (the swizzle atom's alignment).
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   const uint32_t a = smem_u32(p);
@@ -235,6 +242,45 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[4 * J], uint32_t (&a)[
     a[j / 2][(j % 2) * 2] = pack_bf16(d[4 * j], d[4 * j + 1]);
     a[j / 2][(j % 2) * 2 + 1] = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
   }
+}
+
+// The pair (x, y) as the sum of NP packed bf16 pairs, each the pair nearest
+// to what the earlier ones leave (that remainder is exact in fp32): one
+// piece is the rounding acc_to_a does, two carry a value to about 2^-17 of
+// its size, three to about 2^-25, below fp32's own rounding.
+template <int NP>
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t (&w)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+    w[i] = *reinterpret_cast<const uint32_t*>(&p);
+    const float2 f = __bfloat1622float2(p);
+    x -= f.x;
+    y -= f.y;
+  }
+}
+
+// acc_to_a for an accumulator split into NP bf16 pieces: a[i] holds piece i
+// as the A fragments of the next product's K steps.
+template <int J, int NP>
+__device__ __forceinline__ void acc_to_a_pieces(const float (&d)[4 * J],
+                                                uint32_t (&a)[NP][J / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[NP];
+      split_bf16x2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1], w);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) a[i][j / 2][(j % 2) * 2 + h] = w[i];
+    }
+  }
+}
+
+template <int N, int M, int P>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M][P]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), A and B bf16 in shared memory,

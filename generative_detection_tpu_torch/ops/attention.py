@@ -16,7 +16,11 @@ Kernel notes:
   in TPU VMEM. Hopper's 227 KB of shared memory cannot: the kernel streams
   K/V tiles with an online softmax. bf16 runs a warp-specialized kernel (a
   TMA producer, two ``wgmma`` consumer warpgroups, S and P in registers; at
-  C = 512 the warpgroups split O's channels); fp32 runs FMA. At
+  C = 512 the warpgroups split O's channels). fp32 at C <= 256 runs both
+  products on the tensor cores at fp32 accuracy: a pre-pass splits q, k and
+  v into three bf16 pieces each (into scratch this wrapper allocates, 18
+  bytes an element), and each product is the six piece products with
+  i + j <= 2 (split-precision ``wgmma``); fp32 at C = 512 runs FMA. At
   (B, 4096, 256) it is compute-bound; at (B, 256, 512) memory-bound.
 - backward: replaces ``_mha_bwd_call`` (kernel ``_mha_bwd_kernel``), one
   k-major pass with two (L, C) fp32 accumulators in VMEM. On the H100 it is
@@ -29,8 +33,10 @@ Kernel notes:
 - forward-only flash variant: ``flash_attention_forward`` replaces
   ``_attention_pallas`` (kernel ``_flash_kernel``), which upcasts q, k, v to
   fp32, keeps P in fp32 and writes no lse. In the JAX package only its
-  availability probe and interpret mode reach it. On the H100 it is the fp32
-  kernel of ``csrc/attention.cu`` reading bf16 rows into fp32 shared memory.
+  availability probe and interpret mode reach it. On the H100, fp32 inputs
+  take the forward's fp32 kernels without the lse; bf16 inputs take the
+  bf16 kernel with P in two bf16 pieces (hi, lo) instead of rounded to
+  bf16 (a product of two bf16 values is exact in fp32).
 """
 
 from __future__ import annotations
@@ -44,6 +50,10 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = (64, 128, 256, 512)
 KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
+# fp32 widths that take the split-precision forward, and the bf16 pieces of
+# q, k and v it keeps in scratch: three of each
+SPLIT_CHANNELS = (64, 128, 256)
+SPLIT_PIECES = 9
 
 
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -77,9 +87,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     if lib.gdt_attention_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gdt_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
         lib.gdt_attention_fwd.restype = i
-        lib.gdt_flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gdt_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
         lib.gdt_flash_attention_fwd.restype = i
     return lib
 
@@ -116,26 +126,54 @@ def _check_kernel_args(*tensors):
             raise ValueError("attention kernel takes contiguous, 16-byte aligned tensors")
 
 
+def split_precision(q) -> bool:
+    """Whether a forward of ``q`` on the card (either entry point) runs the
+    split-precision kernel: fp32 at C in ``SPLIT_CHANNELS``."""
+    return q.dtype == torch.float32 and q.shape[-1] in SPLIT_CHANNELS
+
+
+split_precision.launches = 0  # forward calls that launched the split-precision kernel
+
+
+def _split_scratch(q):
+    """The bf16 pieces of q, k and v that the split-precision forward writes
+    and reads, or None where the kernel needs none."""
+    if not split_precision(q):
+        return None
+    return torch.empty(SPLIT_PIECES * q.numel(), dtype=torch.bfloat16, device=q.device)
+
+
+def _count_split(scratch) -> None:
+    if scratch is not None:
+        split_precision.launches += 1
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _attention_cuda(q, k, v):
     _check_kernel_args(q, k, v)
     b, l, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, l), dtype=torch.float32, device=q.device)
+    scratch = _split_scratch(q)
     lib = _lib()
     rc = lib.gdt_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(scratch),
         b, l, c, float(c) ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "attention kernel launch")
     single_head_attention.launches += 1
+    _count_split(scratch)
     return o, lse
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Forward-only softmax(q k^T / sqrt(C)) v over (B, L, C) with every
-    product in fp32 whatever the input dtype (the counterpart of the JAX
-    package's ``_attention_pallas``). Not differentiable."""
+    product to fp32 accuracy whatever the input dtype (the counterpart of
+    the JAX package's ``_attention_pallas``). Not differentiable."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"flash attention takes equal (B, L, C) q, k, v, got {q.shape}")
     if q.device.type == "cpu":
@@ -143,13 +181,15 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     _check_kernel_args(q, k, v)
     b, l, c = q.shape
     o = torch.empty_like(q)
+    scratch = _split_scratch(q)
     lib = _lib()
     rc = lib.gdt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, c, float(c) ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(scratch), b, l, c,
+        float(c) ** -0.5, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "flash attention kernel launch")
     flash_attention_forward.launches += 1
+    _count_split(scratch)
     return o
 
 

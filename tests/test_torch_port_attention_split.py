@@ -1,0 +1,123 @@
+"""The split-precision design of the port's fp32 attention forward, on the CPU.
+
+On the card, fp32 attention at C in ``SPLIT_CHANNELS`` runs both products on
+the bf16 tensor cores: every fp32 operand x becomes three bf16 pieces, each
+the round-to-nearest-even bf16 of what the earlier pieces leave, and each
+product sums the six piece products with i + j <= 2 in fp32. The emulation
+below does the same arithmetic in plain PyTorch, the roundings with integer
+operations on the fp32 bits, so the design is held to the fp32 gate here
+(max |err| <= 1e-3 RMS of the plain output, as on the card) against the
+port's plain version and the JAX package's flash kernel. A single TF32 pass
+(the tensor core's other fp32 input type, 10 mantissa bits) misses that gate:
+the split is what makes the tensor cores usable for fp32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from generative_detection_tpu.ops.attention import _attention_pallas
+from generative_detection_tpu_torch.ops import attention
+
+FP32_REL_TOL = 1e-3  # ATTN_REL_TOL[float32] of the card tests and chip_smoke.py
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def _bf16_rn(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 (ties to even), as fp32: the top 16
+    bits after adding half an ulp of the kept part (finite inputs)."""
+    b = _bits(x).to(torch.int64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & ~0xFFFF
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor core reads a TF32 operand: the low 13 mantissa bits dropped."""
+    return (_bits(x) & ~0x1FFF).view(torch.float32)
+
+
+def _pieces(x: torch.Tensor, n: int):
+    out = []
+    for _ in range(n):
+        p = _bf16_rn(x)
+        out.append(p)
+        x = x - p  # exact in fp32
+    return out
+
+
+def _split_matmul(eq: str, a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """sum over i + j < n of a_i b_j, each piece product exact in fp32 and
+    accumulated in fp32."""
+    pa, pb = _pieces(a, n), _pieces(b, n)
+    return sum(torch.einsum(eq, pa[i], pb[j]) for i in range(n) for j in range(n - i))
+
+
+def _emulated(q, k, v, matmul):
+    """The kernel's forward with its products taken by ``matmul(eq, a, b)``:
+    raw logits, fp32 softmax weights P and their row sum l, O = (P V) / l."""
+    s = matmul("blc,bmc->blm", q, k) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return matmul("blm,bmc->blc", p, v) / p.sum(-1, keepdim=True)
+
+
+def _rel_max_err(got, want) -> float:
+    return ((got - want).abs().max() / want.pow(2).mean().sqrt()).item()
+
+
+@pytest.fixture(scope="module")
+def qkv():
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((2, 512, 256)).astype(np.float32) for _ in range(3)]
+
+
+def test_bf16_rounding_by_bits_matches_torch():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(4096).astype(np.float32))
+    x = torch.cat([x, x * 1e-30, x * 1e30, torch.tensor([0.0, -0.0, 1.0 + 2.0**-8])])
+    assert torch.equal(_bf16_rn(x), x.to(torch.bfloat16).float())
+
+
+def test_three_pieces_carry_fp32():
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(1 << 16).astype(np.float32))
+    p0, p1, p2 = _pieces(x, 3)
+    assert torch.equal(p0, x.to(torch.bfloat16).float())
+    residual = (x.double() - p0.double() - p1.double() - p2.double()).abs()
+    assert (residual <= 2.0**-24 * x.double().abs()).all()
+
+
+def test_split_forward_meets_the_fp32_gate_and_one_tf32_pass_does_not(qkv):
+    q, k, v = (torch.from_numpy(a) for a in qkv)
+    plain = attention._flash_reference(q, k, v)
+    pallas = torch.from_numpy(np.array(_attention_pallas(
+        *(jnp.asarray(a) for a in qkv), interpret=True)))
+    split = _emulated(q, k, v, lambda eq, a, b: _split_matmul(eq, a, b, 3))
+    tf32 = _emulated(q, k, v, lambda eq, a, b: torch.einsum(eq, _tf32_trunc(a), _tf32_trunc(b)))
+    for want in (plain, pallas):
+        assert _rel_max_err(split, want) <= FP32_REL_TOL
+        assert _rel_max_err(tf32, want) > FP32_REL_TOL
+    assert _rel_max_err(pallas, plain) <= FP32_REL_TOL
+
+
+@pytest.mark.parametrize("dtype, c, split", [
+    (torch.float32, 64, True), (torch.float32, 128, True), (torch.float32, 256, True),
+    (torch.float32, 512, False), (torch.bfloat16, 256, False),
+])
+def test_split_precision_widths(dtype, c, split):
+    q = torch.zeros(1, 128, c, dtype=dtype)
+    assert attention.split_precision(q) == split
+    scratch = attention._split_scratch(q)
+    assert (scratch is not None) == split
+    if split:
+        assert scratch.dtype == torch.bfloat16 and scratch.numel() == 9 * q.numel()
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    q = torch.randn(1, 128, 256)
+    before = (attention.split_precision.launches, attention.flash_attention_forward.launches)
+    assert torch.equal(attention.flash_attention_forward(q, q, q),
+                       attention._flash_reference(q, q, q))
+    assert (attention.split_precision.launches,
+            attention.flash_attention_forward.launches) == before

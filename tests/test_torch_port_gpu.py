@@ -84,10 +84,14 @@ def test_group_norm_kernel_is_deterministic(cuda):
 def test_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.single_head_attention.launches
+    split_before = attention.split_precision.launches
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     want_o, want_lse = attention._attention_reference(q, k, v)
     torch.cuda.synchronize()
     assert attention.single_head_attention.launches == before + 1
+    # fp32 at C <= 256 takes the split-precision kernel, everything else not
+    assert attention.split_precision.launches == split_before + (
+        dtype == torch.float32 and shape[-1] <= 256)
     assert o.dtype == dtype and lse.shape == shape[:2]
     want_o = want_o.float()
     limit = ATTN_REL_TOL[dtype] * want_o.pow(2).mean().sqrt()
@@ -486,11 +490,57 @@ def test_conv_autograd_runs_the_kernels(cuda):
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.flash_attention_forward.launches
+    split_before = attention.split_precision.launches
     o = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     assert attention.flash_attention_forward.launches == before + 1
+    assert attention.split_precision.launches == split_before + (
+        dtype == torch.float32 and shape[-1] <= 256)
     _rel_close(o, want, ATTN_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("l", [256, 1024, 4096])
+def test_split_precision_forward_matches_plain(cuda, l, c):
+    """fp32 at every width the split-precision kernel takes, through both
+    entry points: B1 with its lse, B5 without; each repeated bit for bit."""
+    shape = (2, l, c)
+    q, k, v = (torch.randn(shape, device="cuda", generator=cuda) for _ in range(3))
+    before = (attention.single_head_attention.launches,
+              attention.flash_attention_forward.launches, attention.split_precision.launches)
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    o2, lse2 = attention.single_head_attention(q, k, v, return_lse=True)
+    f = attention.flash_attention_forward(q, k, v)
+    f2 = attention.flash_attention_forward(q, k, v)
+    want_o, want_lse = attention._attention_reference(q, k, v)
+    want_f = attention._flash_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (attention.single_head_attention.launches, attention.flash_attention_forward.launches,
+            attention.split_precision.launches) == (before[0] + 2, before[1] + 2, before[2] + 4)
+    assert o.dtype == f.dtype == torch.float32 and lse.shape == shape[:2]
+    _rel_close(o, want_o, ATTN_REL_TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _rel_close(f, want_f, ATTN_REL_TOL[torch.float32])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(f, f2)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("l", [256, 1024, 4096])
+def test_flash_attention_bf16_kernel_matches_plain(cuda, l, c):
+    """B5 on bf16 inputs (P in two bf16 pieces) at every width, repeated bit
+    for bit; it runs no split-precision kernel."""
+    q, k, v = (torch.randn(2, l, c, device="cuda", generator=cuda).bfloat16() for _ in range(3))
+    before = attention.flash_attention_forward.launches, attention.split_precision.launches
+    o = attention.flash_attention_forward(q, k, v)
+    again = attention.flash_attention_forward(q, k, v)
+    want = attention._flash_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (attention.flash_attention_forward.launches,
+            attention.split_precision.launches) == (before[0] + 2, before[1])
+    assert o.dtype == torch.bfloat16
+    _rel_close(o, want, ATTN_REL_TOL[torch.bfloat16])
+    assert torch.equal(o, again)
 
 
 def _tiny_model():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare the bf16 attention kernels (B1 forward, B2 backward) of two
-checkouts of the PyTorch port on one card, each tree in its own process, in
-the order given.
+"""Compare the attention kernels (B1 forward, B2 backward, the flash variant
+B5) of two checkouts of the PyTorch port on one card, each tree in its own
+process, in the order given.
 
     python3 tools/ab_attention_kernels.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
 
@@ -15,8 +15,15 @@ events), checks both against the plain versions (max |err| / RMS(plain)),
 splits the device time by kernel (``torch.profiler``, 3 calls: at small
 sites the host's launch cost exceeds the kernels' and sets the event time),
 and prints one JSON line with the card's bound (bf16 peak 989 TFLOP/s,
-3.35 TB/s) and the achieved TFLOP/s. The card's name and power limit come
-last.
+3.35 TB/s) and the achieved TFLOP/s. Then the fp32 forward (B1 with its lse)
+at the flagship's fp32 sites at batch 8, 16 and 32 (a train step's and a
+detector request's), and B5 on fp32 and on bf16 inputs at batch 8, each
+beside SDPA on fp32 copies of q, k, v (TF32 off), with the bound of the
+split-precision route: six bf16 piece products for each of S and P V at
+C <= 256 (C = 512: fp32 on the CUDA cores, 67 TFLOP/s), three bf16
+products for B5 on bf16 inputs. B5 on bf16 inputs is also timed on fp32
+copies of its inputs (the fp32 route with the inputs widened). The card's
+name and power limit come last.
 """
 
 from __future__ import annotations
@@ -29,7 +36,10 @@ import sys
 
 FWD_SITES = ((8, 4096, 256), (8, 256, 512), (1, 16384, 256))
 BWD_SITES = ((16, 4096, 256), (16, 256, 512), (1, 16384, 256))
+FP32_SITES = tuple((b, l, c) for b in (8, 16, 32) for l, c in ((4096, 256), (256, 512)))
+FLASH_SITES = ((8, 4096, 256), (8, 256, 512))
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+FP32_FLOPS = 67e12  # CUDA cores
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -71,6 +81,66 @@ def _kernel_split(fn, calls: int = 3) -> dict:
 
 def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def _route_bound_ms(b, l, c, fp32: bool, nbytes: float) -> float:
+    """fp32 at C <= 256: 12 bf16 products of 2 b l^2 c flops; at C = 512 two
+    fp32 ones on the CUDA cores; bf16 inputs of B5: three bf16 products."""
+    one = 2 * b * l * l * c
+    if not fp32:
+        t_ops = 3 * one / PEAK_FLOPS
+    elif c <= 256:
+        t_ops = 12 * one / PEAK_FLOPS
+    else:
+        t_ops = 2 * one / FP32_FLOPS
+    return max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def _sdpa_fp32_ms(q, k, v) -> float:
+    import torch.nn.functional as F
+
+    q4, k4, v4 = (t.float()[:, None] for t in (q, k, v))
+    return _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+
+
+def _fp32_rows(attention, g) -> dict:
+    """The fp32 forward (B1 with its lse) and B5 on fp32 and bf16 inputs."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"forward_fp32": [], "flash": []}
+    for b, l, c in FP32_SITES:
+        q, k, v = (torch.randn(b, l, c, device="cuda", generator=g) for _ in range(3))
+        o, _ = attention.single_head_attention(q, k, v, return_lse=True)
+        fn = lambda: attention.single_head_attention(q, k, v, return_lse=True)  # noqa: E731
+        out["forward_fp32"].append({
+            "shape": [b, l, c], "ms": _time_ms(fn), "sdpa_fp32_ms": _sdpa_fp32_ms(q, k, v),
+            "bound_ms": _route_bound_ms(b, l, c, True, 4 * q.numel() * 4 + b * l * 4),
+            "max_err_rel_rms": _rel_err(o, attention._attention_reference(q, k, v)[0]),
+            "kernel_ms": _kernel_split(fn),
+        })
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    for b, l, c in FLASH_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(b, l, c, device="cuda", generator=g).to(dtype)
+                       for _ in range(3))
+            o = attention.flash_attention_forward(q, k, v)
+            fn = lambda: attention.flash_attention_forward(q, k, v)  # noqa: E731
+            row = {"shape": [b, l, c], "dtype": str(dtype).split(".")[1], "ms": _time_ms(fn),
+                   "sdpa_fp32_ms": _sdpa_fp32_ms(q, k, v),
+                   "bound_ms": _route_bound_ms(b, l, c, dtype == torch.float32,
+                                               4 * q.numel() * q.element_size()),
+                   "max_err_rel_rms": _rel_err(o, attention._flash_reference(q, k, v)),
+                   "kernel_ms": _kernel_split(fn)}
+            if dtype == torch.bfloat16:
+                qf, kf, vf = (t.float() for t in (q, k, v))
+                row["widened_to_fp32_ms"] = _time_ms(
+                    lambda: attention.flash_attention_forward(qf, kf, vf).bfloat16())
+            out["flash"].append(row)
+            del q, k, v, o
+            torch.cuda.empty_cache()
+    return out
 
 
 def run_one(tree: str) -> dict:
@@ -117,6 +187,7 @@ def run_one(tree: str) -> dict:
         })
         del q, k, v, do, o, got, want
         torch.cuda.empty_cache()
+    out.update(_fp32_rows(attention, g))
     return out
 
 

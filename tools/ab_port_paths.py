@@ -3,9 +3,11 @@
 (p50 and peak memory at batch 1, 8, 32), default and with
 GDT_FUSE_INFERENCE=1, and the flagship bf16 train step (p50 at batch 16),
 default and with GDT_WINOGRAD=fused, each tree in its own process, in the
-order given.
+order given. With ``--fp32`` also the flagship's fp32 path as its config
+ships it (TF32 off for products and convolutions): the detector at batch 8
+and 32 and the train step at batch 16 (5 timed steps after 3 warm-up).
 
-    python3 tools/ab_port_paths.py PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
+    python3 tools/ab_port_paths.py [--fp32] PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
 
 A tree is a directory holding a checkout (e.g. from ``git archive``); its
 ``generative_detection_tpu_torch`` is imported and builds its own kernels.
@@ -38,16 +40,18 @@ def _p50(fn, n: int, warmup: int = 3) -> float:
     return statistics.median(lat) * 1e3
 
 
-def _detector(make_detector_fn, model, net) -> dict:
-    """p50 and peak memory of the bf16 detector at batch 1, 8, 32."""
+def _detector(make_detector_fn, model, net, dtype="bfloat16",
+              batches=((1, 50), (8, 50), (32, 10))) -> dict:
+    """p50 and peak memory of the detector in ``dtype`` at each (batch,
+    requests) of ``batches``."""
     import numpy as np
     import torch
 
     hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
-    detect = make_detector_fn(model, net, hmin, hmax, 256)
+    detect = make_detector_fn(model, net, hmin, hmax, 256, dtype=dtype)
     out = {}
     rng = np.random.default_rng(0)
-    for b, n in ((1, 50), (8, 50), (32, 10)):
+    for b, n in batches:
         args = [torch.as_tensor(a, device="cuda") for a in (
             rng.uniform(-1, 1, size=(b, 256, 256, 3)).astype(np.float32),
             np.full((b,), 1266.0, np.float32), np.tile(np.float32([800.0, 450.0]), (b, 1)),
@@ -62,7 +66,7 @@ def _detector(make_detector_fn, model, net) -> dict:
     return out
 
 
-def run_one(tree: str) -> dict:
+def run_one(tree: str, fp32: bool) -> dict:
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -82,12 +86,32 @@ def run_one(tree: str) -> dict:
     del os.environ["GDT_FUSE_INFERENCE"]
     del net
     torch.cuda.empty_cache()
+    out.update(_train(model, create_train_state, make_train_step, torch.bfloat16, 10,
+                      {"train": None, "train_winograd_fused": "fused"}))
+    if fp32:  # the config's own dtype, after every bf16 path
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
+        out["detector_fp32"] = _detector(make_detector_fn, model, net, "float32",
+                                         ((8, 20), (32, 10)))
+        del net
+        torch.cuda.empty_cache()
+        out.update(_train(model, create_train_state, make_train_step, None, 5,
+                          {"train_fp32": None}))
+    return out
+
+
+def _train(model, create_train_state, make_train_step, dtype, n: int, runs: dict) -> dict:
+    """p50 and peak memory of the flagship train step at batch 16 in
+    ``dtype`` (None: the config's), one entry per ``runs`` label, each with
+    its GDT_WINOGRAD value (None: unset), one state carried through them."""
+    import torch
 
     b, size = 16, model.input_size
     state = create_train_state(model, b * 4.5e-6, grad_clip=1.0, seed=0, device="cuda")
     state.step = 60001  # past the flagship curriculum (optimizer step counting: 2 * step)
     step = make_train_step(model, phase="full", disc_forward="shared",
-                           step_counting="optimizer", compute_dtype=torch.bfloat16)
+                           step_counting="optimizer", compute_dtype=dtype)
     g = torch.Generator(device="cuda").manual_seed(1)
     mask = torch.zeros(b, size, size, 1, device="cuda")
     mask[:, size // 16: -size // 16, size // 8: -size // 8] = 1.0
@@ -102,27 +126,29 @@ def run_one(tree: str) -> dict:
     def one_step():
         holder[0], _ = step(holder[0], batch)
 
-    torch.cuda.reset_peak_memory_stats()
-    out["train"] = {"batch": b, "p50_ms": _p50(one_step, 10),
-                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    os.environ["GDT_WINOGRAD"] = "fused"  # read per call by the port's blocks
-    torch.cuda.reset_peak_memory_stats()
-    out["train_winograd_fused"] = {
-        "batch": b, "p50_ms": _p50(one_step, 10),
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-    del os.environ["GDT_WINOGRAD"]
+    out = {}
+    for label, winograd in runs.items():
+        if winograd is not None:
+            os.environ["GDT_WINOGRAD"] = winograd  # read per call by the port's blocks
+        torch.cuda.reset_peak_memory_stats()
+        out[label] = {"batch": b, "p50_ms": _p50(one_step, n),
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        os.environ.pop("GDT_WINOGRAD", None)
     return out
 
 
 def main(argv) -> int:
+    fp32 = "--fp32" in argv
+    argv = [a for a in argv if a != "--fp32"]
     if len(argv) == 3 and argv[1] == "--one":
-        print(json.dumps(run_one(argv[2])), flush=True)
+        print(json.dumps(run_one(argv[2], fp32)), flush=True)
         return 0
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]
+                       + (["--fp32"] if fp32 else []), check=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)

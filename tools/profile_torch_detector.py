@@ -2,14 +2,16 @@
 """Where the PyTorch port's detector and train step spend device time, on one
 CUDA card.
 
-    python3 tools/profile_torch_detector.py [--batch 1 8 32] [--requests 5]
-    python3 tools/profile_torch_detector.py --train [--steps 5]
+    python3 tools/profile_torch_detector.py [--batch 1 8 32] [--requests 5] [--fp32]
+    python3 tools/profile_torch_detector.py --train [--steps 5] [--fp32]
 
 Builds the flagship config (configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml)
 at full width with seeded random weights. By default it serves bf16 requests
 (the serving default) and prints one JSON line per batch size; with
 ``--train`` it runs the flagship train step as chip_smoke.py does (batch 16,
 bf16 compute, fp32 master weights, past the curriculum) and prints one line.
+With ``--fp32`` both run in fp32, as the config ships them (TF32 off for
+products and convolutions, as chip_smoke.py runs its fp32 phases).
 Each line gives the wall time per request or step inside the profiled
 window, the device time per request or step, the device's busy share of the
 window, and the device time split into classes of kernels (the port's
@@ -113,30 +115,35 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=5)
     ap.add_argument("--train", action="store_true", help="profile the flagship train step")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--fp32", action="store_true", help="the config's own fp32 path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    dtype = "float32" if args.fp32 else "bfloat16"
+    if args.fp32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
     if args.train:
-        model, state, step = flagship_train()
+        model, state, step = flagship_train(None if args.fp32 else torch.bfloat16)
         batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
         for _ in range(3):
             step(state, batch)
         torch.cuda.synchronize()
         out = profiled(lambda: step(state, batch), args.steps)
-        print(json.dumps({"mode": "train", "batch": TRAIN_BATCH, "dtype": "bfloat16",
+        print(json.dumps({"mode": "train", "batch": TRAIN_BATCH, "dtype": dtype,
                           "steps": args.steps, **out}), flush=True)
         return 0
 
     model, net, hmin, hmax = flagship_detector()
-    detect = make_detector_fn(model, net, hmin, hmax, 256)  # the bf16 default
+    detect = make_detector_fn(model, net, hmin, hmax, 256, dtype=dtype)
     for b in args.batch:
         inputs = [torch.as_tensor(a, device="cuda") for a in detector_inputs(b, b)]
         for _ in range(3):
             detect(*inputs)
         torch.cuda.synchronize()
         out = profiled(lambda: detect(*inputs), args.requests)
-        print(json.dumps({"mode": "detector", "batch": b, "dtype": "bfloat16",
+        print(json.dumps({"mode": "detector", "batch": b, "dtype": dtype,
                           "requests": args.requests, **out}), flush=True)
     return 0
 
