@@ -12,10 +12,11 @@ Phases (any failure raises and exits non-zero, before the result line):
    kernels (B1 and the flash variant B5), the fp32 split-precision attention
    forward (B1 and B5 in fp32 at C <= 256), the bf16 fused
    GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
-   (B8) must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their SASS
-   (cuobjdump), B6-B8, the split-precision kernel and the fp32 conv kernels
-   of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may spill,
-   and ptxas may not serialize the split-precision kernel's wgmma;
+   (B8) and the fp32 split-precision attention backward (B2 in fp32 at
+   C <= 256) must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their
+   SASS (cuobjdump), B6-B8, the split-precision kernels and the fp32 conv
+   kernels of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may
+   spill, and ptxas may not serialize the split-precision kernels' wgmma;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -31,8 +32,9 @@ Phases (any failure raises and exits non-zero, before the result line):
    bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
    the attention forward and backward at L = 16384 (B9's length), in bf16
-   and fp32; the attention forward's bound counts the products each route
-   runs (fp32 at C <= 256: six bf16 piece products for each of S and P V);
+   and fp32; the attention bounds count the products each route runs (fp32
+   at C <= 256: six bf16 piece products for each of S and P V, and for each
+   of the backward's five products);
 5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
    serves requests at batch 1, 8 and 32 in bf16, first as it is, then with
@@ -51,7 +53,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    Winograd forward, dgrad and weight gradient per in-band site), every
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
    and the discriminator moved; then the config's own fp32 step (3 warm-up
-   and 5 timed steps, TF32 off as the kernel phase left it);
+   and 5 timed steps, TF32 off as the kernel phase left it), whose attention
+   sites at C <= 256 run the split-precision forward and backward;
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
@@ -159,20 +162,23 @@ TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows 
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
 # and the flash variant B5 in bf16, B1 and B5 in fp32 at C <= 256 on split
-# precision, B2), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1,
-# 2 or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
+# precision, B2 in bf16 at C = 256 and in fp32 at C <= 256 on split
+# precision), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
+# or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
 # and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 and the
-# split-precision kernel have no mma.sync (HMMA).
+# split-precision kernels have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
+SPLIT_BWD_KERNEL = "attn_bwd_split_wgmma_kernel"
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
 _ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
                   for flash in (0, 1))
 _SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in attention.SPLIT_CHANNELS for lse in (0, 1))
+_SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in attention.SPLIT_CHANNELS)
 WGMMA_KERNELS = (_ATTN_FWD + _SPLIT + ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
-                 + _B6 + _WINO)
+                 + _SPLIT_BWD + _B6 + _WINO)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
 # The device kernel behind each conv entry of the kernels line
 CONV_KERNELS = {"fused_conv": "fused_conv_wgmma_kernel", "wino_rows": "wino_rows_wgmma_kernel",
@@ -185,7 +191,7 @@ COUNTED = {
     "group_norm_affine": norm.group_norm_affine,
     "attention": attention.single_head_attention, "attention_bwd": attention.attention_backward,
     "flash_attention": attention.flash_attention_forward, "fused_conv": fused_conv.gn_silu_conv,
-    "attention_split": attention.split_precision,
+    "attention_split": attention.split_precision, "attention_split_bwd": attention.split_backward,
     "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
     "wino_wgrad": wr.wino_wgrad,
 }
@@ -290,8 +296,9 @@ def phase_build() -> None:
             elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
-    # at C = 256), B6, B7 and B8 must run on wgmma and TMA, and must not spill;
-    # B6-B8 have no mma.sync left, nor has the fp32 conv3x3.cu
+    # at C = 256), the fp32 split-precision attention forward and backward
+    # (C = 64, 128, 256), B6, B7 and B8 must run on wgmma and TMA, and must not
+    # spill; B6-B8 have no mma.sync left, nor has the fp32 conv3x3.cu
     sass = {}
     for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
         sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
@@ -310,7 +317,8 @@ def phase_build() -> None:
             f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
-    require(not [w for w in warnings if "C7520" in w and SPLIT_KERNEL in w],
+    require(not [w for w in warnings if "C7520" in w
+                 and (SPLIT_KERNEL in w or SPLIT_BWD_KERNEL in w)],
             f"ptxas serializes the split-precision wgmma: {warnings}")
 
 
@@ -346,22 +354,29 @@ def _achieved(flops: float, kernel_ms: float, bound_ms: float) -> dict:
             "bound_share": bound_ms / kernel_ms}
 
 
-def attn_fwd_bound(b, l, c, dtype, nbytes, flash=False) -> dict:
-    """The attention forward's bound from the products its route runs, each
-    over the peak of its unit (an L x L x C product is 2 b l^2 c flops): bf16
-    runs two bf16 products (the flash variant three: P in two pieces); fp32
-    at the split-precision widths six bf16 piece products for each of S and
-    P V; fp32 at C = 512 two fp32 products on the CUDA cores."""
+def attn_bound(b, l, c, dtype, nbytes, products=2, flash=False) -> dict:
+    """The attention bound from the products its route runs, each over the
+    peak of its unit: ``products`` L x L x C products (2 b l^2 c flops each;
+    2 forward, 5 backward), bf16 on the tensor cores (the flash variant's
+    P V twice: P in two pieces); fp32 at the split-precision widths six bf16
+    piece products each; fp32 at C = 512 on the CUDA cores."""
     one = 2 * b * l * l * c
     if dtype == torch.bfloat16:
-        t_ops = (3 if flash else 2) * one / PEAK_FLOPS[torch.bfloat16]
+        t_ops = (products + flash) * one / PEAK_FLOPS[torch.bfloat16]
     elif c in attention.SPLIT_CHANNELS:
-        t_ops = 12 * one / PEAK_FLOPS[torch.bfloat16]
+        t_ops = 6 * products * one / PEAK_FLOPS[torch.bfloat16]
     else:
-        t_ops = 2 * one / PEAK_FLOPS[torch.float32]
+        t_ops = products * one / PEAK_FLOPS[torch.float32]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def _attn_bwd_kernel(dtype, c) -> str:
+    """The device kernels behind an attention backward call."""
+    if dtype == torch.float32:
+        return SPLIT_BWD_KERNEL if c in attention.SPLIT_CHANNELS else "attn_bwd_*_f32_kernel"
+    return "attn_bwd_*_wgmma_kernel" if c == 256 else "attn_bwd_*_bf16_kernel"
 
 
 def _attn_kernel(dtype, c, flash=False) -> str:
@@ -384,7 +399,7 @@ def attn_case(g, l, c, dtype, batch=BATCH):
             f"attention {q.shape} {dtype}: a repeat differs")
     flops = 4 * batch * l * l * c
     nbytes = 4 * q.numel() * q.element_size() + batch * l * 4
-    bound = attn_fwd_bound(batch, l, c, dtype, nbytes)
+    bound = attn_bound(batch, l, c, dtype, nbytes)
     q4, k4, v4 = q[:, None], k[:, None], v[:, None]
     kernel_ms = time_ms(lambda: attention.single_head_attention(q, k, v, return_lse=True))
     return {
@@ -493,16 +508,16 @@ def attn_bwd_case(g, l, c, dtype, b=TRAIN_BATCH):
 
     flops = 10 * b * l * l * c  # five L x L x C products
     nbytes = 7 * q.numel() * q.element_size() + 2 * b * l * 4  # q k v dO in, dq dk dv out
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    bound = attn_bound(b, l, c, dtype, nbytes, products=5)
     kernel_ms = time_ms(lambda: attention._attention_backward_cuda(q, k, v, do, lse, di))
     return {
         "name": "attention_bwd", "shape": [b, l, c], "dtype": str(dtype).split(".")[1],
+        "kernel": _attn_bwd_kernel(dtype, c),
         "max_err": err, "kernel_ms": kernel_ms,
         "plain_ms": time_ms(
             lambda: attention._attention_backward_reference(q, k, v, do, lse, di), 3),
         "library_ms": time_ms(lib_fwd_bwd) - time_ms(lib_fwd),
-        **_achieved(flops, kernel_ms, max(t_ops, t_bytes) * 1e3),
-        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        **_achieved(flops, kernel_ms, bound["bound_ms"]), "bound_by": bound["bound_by"],
     }
 
 
@@ -726,7 +741,7 @@ def flash_case(g, l, c, dtype):
         "kernel_ms": time_ms(lambda: attention.flash_attention_forward(q, k, v)),
         "plain_ms": time_ms(lambda: attention._flash_reference(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        **attn_fwd_bound(BATCH, l, c, dtype, nbytes, flash=True),
+        **attn_bound(BATCH, l, c, dtype, nbytes, flash=True),
     }
     r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
     return r
@@ -1130,10 +1145,11 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     and its launches on the main path that runs it: the detector (B1, B3),
     the fused detector (B6 and its affine), the train step (B2, B4c/d), the
     train step with GDT_WINOGRAD=fused (B7, B8); the fp32 split-precision
-    forward (B1 in fp32 at (8, 4096, 256)) with its launches in the config's
-    own fp32 step. B5 is on no path of the port (the JAX package reaches it
-    only from its availability probe, whose role the kernel check here
-    plays): its bf16 and fp32 entries. ``kernels_per_call`` device kernels
+    forward (B1 in fp32 at (8, 4096, 256)) and backward (B2 in fp32 at (16,
+    4096, 256)) with their launches in the config's own fp32 step. B5 is on
+    no path of the port (the JAX package reaches it only from its
+    availability probe, whose role the kernel check here plays): its bf16
+    and fp32 entries. ``kernels_per_call`` device kernels
     run per counted call. B7 and B8 also give their share of the bound and
     their times summed over a fused step's sites, B6 over a fused detector
     request's (``step_sums``)."""
@@ -1155,6 +1171,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         (cases[("attention", 4096, 256, fp32)], "attention.cu", "attention.py:226", 2,
          train_fp32["attention_split"]),
         (cases[("flash_attention", 4096, 256, fp32)], "attention.cu", "attention.py:92", 2, 0),
+        (cases[("attention_bwd", 4096, 256, fp32)], "attention_bwd.cu", "attention.py:251", 2,
+         train_fp32["attention_split_bwd"]),
         (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
          fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
@@ -1177,7 +1195,7 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         })
     entries[4]["on_main_path"] = entries[6]["on_main_path"] = False
     for e, r in zip(entries, (row[0] for row in rows)):
-        if "kernel" in r:  # the attention forwards
+        if "kernel" in r:  # the attention kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
         if e["name"] in CONV_KERNELS:
             e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]
@@ -1227,13 +1245,14 @@ def main() -> int:
         {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
     # the config's own fp32 path: the detector, then the step; the attention
-    # sites at C <= 256 run the split-precision forward
+    # sites at C <= 256 run the split-precision forward and backward
     n_split_det = sum(n for (_, c), n in ATTN_SITES.items() if c in attention.SPLIT_CHANNELS)
     n_split = sum(n for (_, c), n in attn_train.items() if c in attention.SPLIT_CHANNELS)
     require(n_split_det > 0 and n_split > 0, "no attention site takes the split-precision kernel")
     phase_detector_fp32({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
                          "attention_split": n_split_det})
-    train_fp32 = phase_train({**per_step, "attention_split": n_split}, "0", fp32=True)
+    train_fp32 = phase_train(
+        {**per_step, "attention_split": n_split, "attention_split_bwd": n_split}, "0", fp32=True)
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64

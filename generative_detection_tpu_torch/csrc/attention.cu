@@ -498,24 +498,7 @@ attn_fwd_split_operands_kernel(const float* __restrict__ q, const float* __restr
                                const float* __restrict__ v, __nv_bfloat16* __restrict__ out,
                                size_t n) {
   const float* x = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
-  __nv_bfloat16* dst = out + (size_t)blockIdx.y * NP * n;
-  const size_t step = (size_t)gridDim.x * blockDim.x * 8;
-  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8; i < n; i += step) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(x + i + 4));
-    const float r[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    uint32_t w[NP][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t t[NP];
-      hopper::split_bf16x2(r[2 * e], r[2 * e + 1], t);
-#pragma unroll
-      for (int p = 0; p < NP; ++p) w[p][e] = t[p];
-    }
-#pragma unroll
-    for (int p = 0; p < NP; ++p)
-      *reinterpret_cast<uint4*>(dst + p * n + i) = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
-  }
+  hopper::split_to_pieces<NP>(x, out + (size_t)blockIdx.y * NP * n, n);
 }
 
 // tm_q, tm_k, tm_v: (NP B L, C) bf16 maps over the pieces (piece p of row r

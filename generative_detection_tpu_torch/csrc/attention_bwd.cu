@@ -46,13 +46,43 @@
 // dP, dQ in the dQ pass: 14 B L^2 C flops against the bound's 10.
 // bf16 at C = 64, 128 and 512 keeps the mma.sync kernels below
 // (FlashAttention-2's split with min(C, 128)-channel slices that recompute
-// S^T and dP^T; one slice at C = 64, the tiny configs' (B, 256, 64) sites);
-// fp32 runs the FMA kernels.
+// S^T and dP^T; one slice at C = 64, the tiny configs' (B, 256, 64) sites).
+//
+// fp32 at C = 64, 128, 256 runs all five products on the tensor cores at
+// fp32 accuracy (split precision, as the fp32 forward in attention.cu): a
+// pre-pass writes three bf16 pieces of q, k, v and dO into scratch (each
+// piece the round-to-nearest-even of what the earlier leave), and each
+// product is the six piece products with i + j <= 2, accumulated in fp32; P
+// and dS are split in registers into register A operands. The CUDA cores
+// would bound it at 10 B L^2 C / 67 TFLOP/s; six bf16 piece products a
+// product at 60 B L^2 C / 989 TFLOP/s, 2.4x lower. Shared memory decides
+// the layout: one piece of a 64-row tile is 32 KB at C = 256, and 227 KB
+// hold seven. The bf16 design's two resident operands (six tiles) and its
+// P^T hand-over do not fit beside a ring, so each block holds one 64 x C
+// fp32 accumulator in one consumer warpgroup (128 registers a thread at
+// C = 256) and has one role (namespace sp):
+//   dK: K_0 resident; streams V (its own rows), dO, Q and K_1, K_2: dP^T =
+//     V dO^T, S^T = K Q^T, dS^T, dK += dS^T Q (Q kept in the ring from S^T);
+//   dQ: the same with Q_0 resident, dO (its own rows), V, K and Q_1, Q_2:
+//     dP, S, dS, dQ += dS K;
+//   dV: K's three pieces resident; streams Q, dO: S^T, P^T, dV += P^T dO.
+// dK and dQ multiply two streamed operands for dP: four tiles live at once,
+// and two slots more (a ring of six, so only K_0 or Q_0 stays resident) let
+// each tile load while the chain before it runs (three pieces resident and
+// a ring of four left the consumer waiting on tiles for 15% of the kernel,
+// tools/ablate_attention_split_bwd.py). The three roles share
+// one launch (blockIdx.z) after the pre-pass: 48 piece-product units of
+// 64 x 64 x C per pair of tiles against the 30 of one pass, the price of
+// the 227 KB (S^T in both the dK and dV roles, S and dP again for dQ).
+// Deterministic: no atomics, every sum in a fixed order.
+// fp32 at C = 512 runs the FMA kernels.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 #include "vec.cuh"
@@ -362,13 +392,13 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: FMA on the CUDA cores
+// fp32 at C = 512: FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
 // Output channels per block of the fp32 kernels, VW per lane: lane * VW ..
-// + VW - 1 (128 as 4 a lane; 64 at C = 64 as 2 a lane).
+// + VW - 1 (128 as 4 a lane).
 template <int C> struct F32Slice {
-  static constexpr int CS = C < 128 ? C : 128, VW = CS / 32;
+  static constexpr int CS = 128, VW = CS / 32;
 };
 
 // Phase A for fp32: X[r][n] = A1[r] . B1[n] * scale and Y[r][n] = A2[r] . B2[n]
@@ -443,7 +473,7 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
 
 // Tile rows: the (BM rows kept for the whole block, BN rows streamed) pair.
 template <int C> struct F32Tiles {
-  static constexpr int KEEP = C > 256 ? 16 : 32, STREAM = 32;
+  static constexpr int KEEP = 16, STREAM = 32;
   static constexpr int ST = C + 4, PST = STREAM + 1;
   static constexpr size_t smem_bytes =
       sizeof(float) * ((2 * KEEP + 2 * STREAM) * ST + 2 * KEEP * PST + 2 * STREAM);
@@ -893,6 +923,402 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// fp32 at C = 64, 128, 256: split-precision wgmma (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace sp {
+
+constexpr int NP = 3;          // bf16 pieces of every fp32 operand
+constexpr int BR = 64;         // rows of every tile
+constexpr int TILES = 7;       // piece tiles in shared memory: resident, then the ring
+constexpr int MAX_STAGES = 6;
+constexpr int THREADS = 160;   // one consumer warpgroup and one producer warp
+constexpr int STATS = 2 * BR;  // lse and di of one tile's rows, floats
+
+// The operands in scratch: piece p of row r of operand t at row (t NP + p) B L + r.
+enum Operand { OPQ, OPK, OPV, OPDO };
+// What a block accumulates over its 64 rows: dK, dQ or dV (blockIdx.z, the
+// heavier roles first so that the lighter one fills the last wave).
+enum Role { DK, DQ, DV };
+
+template <int C>
+struct Cfg {
+  static constexpr uint32_t TILE = BR * C * 2;  // one piece of a 64-row tile
+  // the tiles, two stats slots, 17 mbarriers
+  static constexpr size_t SMEM =
+      1024 + TILES * TILE + 2 * STATS * 4 + 8 * (1 + 2 * MAX_STAGES + 4);
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// The operands of a role. R: the block's own rows, S^T (dK, dV) or S (dQ)
+// = R T^T with T at the step's rows. X = XA XB^T (dP^T for dK, dP for dQ):
+// XA at the block's own rows, XB at the step's. dV keeps R's three pieces
+// resident (a ring of four), dK and dQ R_0 only (a ring of six).
+template <int ROLE>
+struct Ops {
+  static constexpr int R = ROLE == DQ ? OPQ : OPK;
+  static constexpr int T = ROLE == DQ ? OPK : OPQ;
+  static constexpr int XA = ROLE == DQ ? OPDO : OPV;
+  static constexpr int XB = ROLE == DQ ? OPV : OPDO;
+  static constexpr int NRES = ROLE == DV ? NP : 1;      // resident pieces of R
+  static constexpr int STAGES = TILES - NRES;           // ring slots
+  static constexpr int ITEMS = ROLE == DV ? 2 * NP : 11;  // piece tiles a step
+  static_assert(STAGES <= MAX_STAGES, "mbarriers");
+};
+
+// One (64, C) piece tile by TMA: C / 64 boxes of 64 x 64.
+template <int C>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row) {
+#pragma unroll
+  for (int ch = 0; ch < C / 64; ++ch)
+    hopper::tma_load_2d(dst + ch * BR * 128, map, bar, ch * 64, row);
+}
+
+// d (64 x 64) (+)= A B^T over C channels, A and B piece tiles in shared
+// memory (descriptors of their first byte), both K-major; issued, not
+// committed. `first`: the tile's first product (scale-d 0). The descriptors
+// pass through opaque() here, so the compiler derives each product's 2 C / 16
+// from them where they are issued instead of computing every product's
+// ahead of a chain (which spilled at C = 256).
+template <int C>
+__device__ __forceinline__ void mma_ss(float (&d)[BR / 2], uint64_t da, uint64_t db, bool first) {
+  da = hopper::opaque(da);
+  db = hopper::opaque(db);
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * BR * 128 + (kk % 4) * 32) >> 4;
+    hopper::wgmma_ss<BR>(d, da + off, db + off, !(first && kk == 0));
+  }
+}
+
+// The pre-pass: q, k, v, dout (blockIdx.y = the Operand) into NP bf16
+// pieces each, out[(t * NP + p) * n + i] = piece p of element i of operand t.
+__global__ void __launch_bounds__(256)
+attn_bwd_split_operands_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               __nv_bfloat16* __restrict__ out, size_t n) {
+  const int t = blockIdx.y;
+  const float* x = t == OPQ ? q : t == OPK ? k : t == OPV ? v : dout;
+  hopper::split_to_pieces<NP>(x, out + (size_t)t * NP * n, n);
+}
+
+// One block of a role: 64 rows, a consumer warpgroup (threads 0-127) and a
+// producer warp (128-159) whose thread 128 issues every copy.
+//
+// Each step of 64 rows of the other side (query rows for dK and dV, key rows
+// for dQ) the consumer runs wgmma chains, each drained before its slots go
+// back and before any control flow. Each product's six piece products run
+// smallest first: the tensor core's fp32 accumulation rounds each step to
+// the accumulator's size, so the pieces below 2^-8 are summed before the
+// leading product makes it large. Ring order and chains:
+//   dK, dQ: XA2 XB2 XA0 XB0, chain X = (2,0) (0,2), frees XA2 XB2; XA1 XB1,
+//     chain X += (1,1) (1,0) (0,1) (0,0), frees the four (a product of two
+//     streamed operands: never more than four tiles live); T2, chain S =
+//     (0,2); R1 T1, S += (1,1) (0,1); R2 T0, S += (2,0) (1,0) (0,0), frees
+//     R1 R2. Every tile is freed before the tile six later needs its slot,
+//     so the ring cannot deadlock, and each loads during an earlier chain;
+//   dV: T2 T1 T0, S = R_i T_j as each lands (freed after it), dO2 dO1 dO0;
+//   P = exp(S scale - lse); dK, dQ: dS = P (X - di) scale; split into three
+//     pieces as register A operands;
+//   dV: acc += sum of P_i dO_j; dK, dQ: acc += sum of dS_i T_j, T kept in
+//     the ring from S and read MN-major where S read it K-major.
+template <int C, int ROLE>
+__device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __restrict__ lse,
+                                          const float* __restrict__ di, float* __restrict__ out,
+                                          int L, int BL, float scale) {
+  using namespace hopper;
+  using O = Ops<ROLE>;
+  constexpr uint32_t TILE = Cfg<C>::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int STAGES = O::STAGES;
+  unsigned char* res = align_1024(smem_raw);  // [NRES][C / 64][BR][64]
+  unsigned char* ring = res + O::NRES * TILE;  // [STAGES][C / 64][BR][64]
+  float* stats = reinterpret_cast<float*>(res + TILES * TILE);  // [2][lse BR, di BR]
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(stats + 2 * STATS);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* st_full = empty + MAX_STAGES;
+  uint64_t* st_empty = st_full + 2;
+
+  const int row0 = blockIdx.y * L, rb = row0 + blockIdx.x * BR, n_tiles = L / BR;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&st_full[s], 1);
+      mbar_init(&st_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer: the resident pieces (with dQ's own lse and di), then
+    // each step's stats (dK, dV) and piece tiles in the order they are taken
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(res_full, O::NRES * TILE + (ROLE == DQ ? STATS * 4 : 0));
+      for (int p = 0; p < O::NRES; ++p)
+        load_tile<C>(res + p * TILE, tm, res_full, (O::R * NP + p) * BL + rb);
+      if (ROLE == DQ) {
+        bulk_load(stats, lse + rb, BR * 4, res_full);
+        bulk_load(stats + BR, di + rb, BR * 4, res_full);
+      }
+      int n = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ro = row0 + it * BR;
+        if (ROLE != DQ) {
+          const int st = it % 2;
+          mbar_wait(&st_empty[st], ((it / 2) & 1) ^ 1);
+          mbar_expect_tx(&st_full[st], STATS * 4);
+          bulk_load(stats + st * STATS, lse + ro, BR * 4, &st_full[st]);
+          bulk_load(stats + st * STATS + BR, di + ro, BR * 4, &st_full[st]);
+        }
+        for (int k = 0; k < O::ITEMS; ++k, ++n) {
+          // (operand, piece, row) of the step's k-th tile
+          int op = k < NP ? OPQ : OPDO, p = NP - 1 - k % NP, r = ro;  // dV
+          if (ROLE != DV && k < 2 * NP) {  // XA2 XB2 XA0 XB0 XA1 XB1
+            op = k % 2 ? O::XB : O::XA, p = k < 2 ? 2 : k < 4 ? 0 : 1, r = k % 2 ? ro : rb;
+          } else if (ROLE != DV) {  // T2 R1 T1 R2 T0
+            op = k % 2 ? O::R : O::T, p = k % 2 ? (k - 5) / 2 : (10 - k) / 2, r = k % 2 ? rb : ro;
+          }
+          const int s = n % STAGES;
+          mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], TILE);
+          load_tile<C>(ring + s * TILE, tm, &full[s], (op * NP + p) * BL + r);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  float acc[C / 2];
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  int n = 0;  // piece tiles taken from the ring
+  for (int it = 0; it < n_tiles; ++it) {
+    // descriptors rebuilt each step from an opaque base, so the compiler
+    // cannot keep every piece's descriptor live in registers
+    const uint64_t dres = desc_kmajor(opaque(smem_u32(res)));
+    const uint64_t dring = desc_kmajor(opaque(smem_u32(ring)));
+    const uint64_t dring_mn = desc_mnmajor(opaque(smem_u32(ring)), BR * 128);
+    auto slot = [&](int item) { return dring + ((item % STAGES) * TILE >> 4); };
+
+    float xp[BR / 2];  // dP^T (dK) or dP (dQ)
+    if constexpr (ROLE != DV) {
+      // items n .. n + 5: XA2 XB2 XA0 XB0 XA1 XB1
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mbar_wait(&full[(n + i) % STAGES], ((n + i) / STAGES) & 1);
+      wgmma_fence();
+      mma_ss<C>(xp, slot(n), slot(n + 3), true);       // (2, 0)
+      mma_ss<C>(xp, slot(n + 2), slot(n + 1), false);  // (0, 2)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(xp);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[n % STAGES]);
+        mbar_arrive(&empty[(n + 1) % STAGES]);
+      }
+#pragma unroll
+      for (int i = 4; i < 6; ++i) mbar_wait(&full[(n + i) % STAGES], ((n + i) / STAGES) & 1);
+      fence_regs(xp);
+      wgmma_fence();
+      mma_ss<C>(xp, slot(n + 4), slot(n + 5), false);  // (1, 1)
+      mma_ss<C>(xp, slot(n + 4), slot(n + 3), false);  // (1, 0)
+      mma_ss<C>(xp, slot(n + 2), slot(n + 5), false);  // (0, 1)
+      mma_ss<C>(xp, slot(n + 2), slot(n + 3), false);  // (0, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(xp);
+      __syncwarp();
+      if (lane == 0)
+        for (int i = 2; i < 6; ++i) mbar_arrive(&empty[(n + i) % STAGES]);
+      n += 2 * NP;
+    }
+
+    // S = sum of R_i T_j^T
+    float sc[BR / 2];
+    if constexpr (ROLE == DV) {
+      // item n + q holds T_{2-q}, paired with the resident R_i, i = q .. 0
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int s = (n + q) % STAGES;
+        mbar_wait(&full[s], ((n + q) / STAGES) & 1);
+        if (q) fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int i = q; i >= 0; --i) mma_ss<C>(sc, dres + (i * TILE >> 4), slot(n + q), q == 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    } else {
+      // items n .. n + 4: T2 R1 T1 R2 T0; R_0 is resident
+      mbar_wait(&full[n % STAGES], (n / STAGES) & 1);
+      wgmma_fence();
+      mma_ss<C>(sc, dres, slot(n), true);  // (0, 2)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+#pragma unroll
+      for (int i = 1; i < 3; ++i) mbar_wait(&full[(n + i) % STAGES], ((n + i) / STAGES) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_ss<C>(sc, slot(n + 1), slot(n + 2), false);  // (1, 1)
+      mma_ss<C>(sc, dres, slot(n + 2), false);         // (0, 1)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+#pragma unroll
+      for (int i = 3; i < 5; ++i) mbar_wait(&full[(n + i) % STAGES], ((n + i) / STAGES) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_ss<C>(sc, slot(n + 3), slot(n + 4), false);  // (2, 0)
+      mma_ss<C>(sc, slot(n + 1), slot(n + 4), false);  // (1, 0)
+      mma_ss<C>(sc, dres, slot(n + 4), false);         // (0, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[(n + 1) % STAGES]);
+        mbar_arrive(&empty[(n + 3) % STAGES]);
+      }
+    }
+    const int t0 = n;  // the item of T_2 (dK, dQ: T_1 and T_0 at t0 + 2, t0 + 4)
+    n += ROLE == DV ? NP : 5;
+
+    // P = exp(S scale - lse); dK and dQ: dS = P (X - di) scale
+    if constexpr (ROLE == DQ) {
+      // rows 16 warp + g and + 8 are queries: their lse and di, read from
+      // shared memory each step rather than held in registers
+      const float* ls = stats + warp * 16 + g;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float l = ls[8 * h] * kLog2e, d = ls[BR + 8 * h];
+#pragma unroll
+        for (int j = 0; j < BR / 8; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -l));
+            sc[4 * j + e] = p * (xp[4 * j + e] - d) * scale;
+          }
+      }
+    } else {
+      // columns 8 j + 2 tq and + 1 are queries: their lse and di
+      const int st = it % 2;
+      mbar_wait(&st_full[st], (it / 2) & 1);
+      const float* ls = stats + st * STATS + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j);
+        const float2 d2 = *reinterpret_cast<const float2*>(ls + BR + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x) * kLog2e));
+          if constexpr (ROLE == DV) {
+            sc[4 * j + e] = p;
+          } else {
+            sc[4 * j + e] = p * (xp[4 * j + e] - (e % 2 ? d2.y : d2.x)) * scale;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&st_empty[st]);
+    }
+    uint32_t pa[NP][BR / 16][4];
+    acc_to_a_pieces<BR / 8, NP>(sc, pa);
+
+    // acc += sum over i + j <= 2 of A_i U_j: A = P^T (dV) or dS (dK, dQ)
+    // from registers, U = dO (dV, streamed now, U_{2-q} at n + q) or T (dK,
+    // dQ, in the ring, T_{2-q} at t0 + 2 q)
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int item = ROLE == DV ? n + q : t0 + 2 * q, s = item % STAGES;
+      if (ROLE == DV) mbar_wait(&full[s], (item / STAGES) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+        for (int i = q; i >= 0; --i)
+          wgmma_rs_mn<C>(acc, pa[i][kk], dring_mn + ((s * TILE + kk * 16 * 128) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (ROLE == DV) n += NP;
+  }
+
+  float* orow = out + (size_t)(rb + warp * 16 + g) * C + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(orow + 8 * C + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// tm: the (4 NP B L, C) bf16 map over the pieces, boxes of 64 columns x 64
+// rows. dq, dk, dv: (B L, C) fp32. blockIdx.z: the Role.
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const float* __restrict__ lse,
+                            const float* __restrict__ di, float* __restrict__ dq,
+                            float* __restrict__ dk, float* __restrict__ dv, int L, int BL,
+                            float scale) {
+  if (blockIdx.z == DK) {
+    run_block<C, DK>(&tm, lse, di, dk, L, BL, scale);
+  } else if (blockIdx.z == DQ) {
+    run_block<C, DQ>(&tm, lse, di, dq, L, BL, scale);
+  } else {
+    run_block<C, DV>(&tm, lse, di, dv, L, BL, scale);
+  }
+}
+
+// scratch: 4 NP B L C bf16 (the pieces of q, k, v, dout).
+template <int C>
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* di, void* dq, void* dk, void* dv, void* scratch, int B, int L,
+           float scale, cudaStream_t stream) {
+  constexpr size_t SMEM = Cfg<C>::SMEM;
+  const size_t n = (size_t)B * L * C;
+  __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
+  const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 132 * 8);
+  attn_bwd_split_operands_kernel<<<dim3(blocks, 4), 256, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), pieces, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tm;
+  const int err = hopper::make_map_bf16(&tm, pieces, (uint64_t)4 * NP * B * L, C, BR);
+  if (err) return err;
+  auto kernel = attn_bwd_split_wgmma_kernel<C>;
+  e = allow_smem(kernel, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(L / BR, B, 3), THREADS, SMEM, stream>>>(
+      tm, static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), L, B * L, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sp
+
 template <int C>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int L,
@@ -952,13 +1378,15 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
 extern "C" {
 
 // q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, 16-byte aligned, fp32
-// (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned. Takes
-// C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper checks and
-// raises outside them). Returns a CUDA error code (cudaGetLastError() after
-// the launches).
+// (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned.
+// scratch: for fp32 at C <= 256, 12 B L C bf16 (the operand pieces), else
+// unused. Takes C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper
+// checks and raises outside them). Returns a CUDA error code
+// (cudaGetLastError() after the launches).
 int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* di, void* dq, void* dk, void* dv, int B,
-                      int L, int C, float scale, int dtype, void* stream) {
+                      const void* lse, const void* di, void* dq, void* dk, void* dv,
+                      void* scratch, int B, int L, int C, float scale, int dtype,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (C) {
@@ -969,9 +1397,11 @@ int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* d
     }
   } else if (dtype == 0) {
     switch (C) {
-      case 64: return launch_f32<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 128: return launch_f32<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 256: return launch_f32<256>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
+      case 64: return sp::launch<64>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
+      case 128:
+        return sp::launch<128>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
+      case 256:
+        return sp::launch<256>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
       case 512: return launch_f32<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
     }
   }

@@ -29,6 +29,10 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
   asm volatile("" : "+r"(x));
   return x;
 }
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
 
 // The first 1024-byte aligned address at or after p (the swizzle atom's alignment).
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -274,6 +278,31 @@ __device__ __forceinline__ void acc_to_a_pieces(const float (&d)[4 * J],
 #pragma unroll
       for (int i = 0; i < NP; ++i) a[i][j / 2][(j % 2) * 2 + h] = w[i];
     }
+  }
+}
+
+// The split-precision pre-pass: x (n fp32 values, n % 8 == 0, 16-byte
+// aligned) as NP bf16 pieces, piece p of element i at dst[p * n + i]; a
+// grid-stride loop over the blocks of gridDim.x, 8 elements a thread.
+template <int NP>
+__device__ __forceinline__ void split_to_pieces(const float* __restrict__ x,
+                                                __nv_bfloat16* __restrict__ dst, size_t n) {
+  const size_t step = (size_t)gridDim.x * blockDim.x * 8;
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8; i < n; i += step) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    const float r[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    uint32_t w[NP][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t t[NP];
+      split_bf16x2(r[2 * e], r[2 * e + 1], t);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) w[p][e] = t[p];
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<uint4*>(dst + p * n + i) = make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
   }
 }
 

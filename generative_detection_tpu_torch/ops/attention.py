@@ -27,9 +27,15 @@ Kernel notes:
   two deterministic launches: dK/dV per key tile, then dQ per query tile.
   bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
   one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
-  C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices. di =
-  rowsum(dO * O) is a torch reduction, as it is XLA outside the Pallas body
-  in the JAX package.
+  C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices.
+  fp32 at C in ``SPLIT_CHANNELS`` runs all five products split-precision,
+  as the forward: a pre-pass splits q, k, v and dO into three bf16 pieces
+  each (into scratch this wrapper allocates, 24 bytes an element of q),
+  then one launch whose blocks each accumulate dK, dQ or dV for 64 rows,
+  keep one operand's pieces resident and stream the rest. fp32 at C = 512
+  runs FMA.
+  di = rowsum(dO * O) is a torch reduction, as it is XLA outside the Pallas
+  body in the JAX package.
 - forward-only flash variant: ``flash_attention_forward`` replaces
   ``_attention_pallas`` (kernel ``_flash_kernel``), which upcasts q, k, v to
   fp32, keeps P in fp32 and writes no lse. In the JAX package only its
@@ -42,6 +48,7 @@ Kernel notes:
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -50,10 +57,11 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = (64, 128, 256, 512)
 KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
-# fp32 widths that take the split-precision forward, and the bf16 pieces of
-# q, k and v it keeps in scratch: three of each
+# fp32 widths that take the split-precision kernels, and the bf16 pieces they
+# keep in scratch, three of each operand: q, k, v (forward), and dO (backward)
 SPLIT_CHANNELS = (64, 128, 256)
 SPLIT_PIECES = 9
+SPLIT_BWD_PIECES = 12
 
 
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -107,7 +115,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("attention_bwd")
     if lib.gdt_attention_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_attention_bwd.argtypes = [p] * 9 + [i, i, i, ctypes.c_float, i, p]
+        lib.gdt_attention_bwd.argtypes = [p] * 10 + [i, i, i, ctypes.c_float, i, p]
         lib.gdt_attention_bwd.restype = i
     return lib
 
@@ -127,25 +135,32 @@ def _check_kernel_args(*tensors):
 
 
 def split_precision(q) -> bool:
-    """Whether a forward of ``q`` on the card (either entry point) runs the
-    split-precision kernel: fp32 at C in ``SPLIT_CHANNELS``."""
+    """Whether attention on ``q`` on the card (either forward entry point,
+    and the backward) runs the split-precision kernels: fp32 at C in
+    ``SPLIT_CHANNELS``."""
     return q.dtype == torch.float32 and q.shape[-1] in SPLIT_CHANNELS
 
 
 split_precision.launches = 0  # forward calls that launched the split-precision kernel
 
 
-def _split_scratch(q):
-    """The bf16 pieces of q, k and v that the split-precision forward writes
-    and reads, or None where the kernel needs none."""
+# backward calls that launched the split-precision kernels (the forward's
+# predicate routes them)
+split_backward = SimpleNamespace(launches=0)
+
+
+def _split_scratch(q, pieces=SPLIT_PIECES):
+    """The bf16 pieces (``pieces`` of q's size: q, k, v, and dO in the
+    backward) that the split-precision kernels write and read, or None where
+    the kernels need none."""
     if not split_precision(q):
         return None
-    return torch.empty(SPLIT_PIECES * q.numel(), dtype=torch.bfloat16, device=q.device)
+    return torch.empty(pieces * q.numel(), dtype=torch.bfloat16, device=q.device)
 
 
-def _count_split(scratch) -> None:
+def _count_split(scratch, counter=split_precision) -> None:
     if scratch is not None:
-        split_precision.launches += 1
+        counter.launches += 1
 
 
 def _ptr(t) -> int:
@@ -205,14 +220,16 @@ def _attention_backward_cuda(q, k, v, do, lse, di):
             raise ValueError(f"attention backward: {name} must be contiguous, 16-byte "
                              f"aligned float32 ({b}, {l})")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = _split_scratch(q, SPLIT_BWD_PIECES)
     lib = _bwd_lib()
     rc = lib.gdt_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, l, c,
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(scratch), b, l, c,
         float(c) ** -0.5, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, "attention backward kernel launch")
     attention_backward.launches += 1
+    _count_split(scratch, split_backward)
     return dq, dk, dv
 
 

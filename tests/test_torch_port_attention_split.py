@@ -1,23 +1,26 @@
-"""The split-precision design of the port's fp32 attention forward, on the CPU.
+"""The split-precision design of the port's fp32 attention, forward and
+backward, on the CPU.
 
-On the card, fp32 attention at C in ``SPLIT_CHANNELS`` runs both products on
+On the card, fp32 attention at C in ``SPLIT_CHANNELS`` runs every product on
 the bf16 tensor cores: every fp32 operand x becomes three bf16 pieces, each
 the round-to-nearest-even bf16 of what the earlier pieces leave, and each
-product sums the six piece products with i + j <= 2 in fp32. The emulation
-below does the same arithmetic in plain PyTorch, the roundings with integer
-operations on the fp32 bits, so the design is held to the fp32 gate here
-(max |err| <= 1e-3 RMS of the plain output, as on the card) against the
-port's plain version and the JAX package's flash kernel. A single TF32 pass
+product sums the six piece products with i + j <= 2 in fp32 (the backward
+splits P and dS too, in registers). The emulation below does the same
+arithmetic in plain PyTorch, the roundings with integer operations on the
+fp32 bits, so the design is held to the fp32 gate here (max |err| <= 1e-3
+RMS of the plain output, as on the card) against the port's plain versions
+and the JAX package's Pallas kernels in interpret mode. A single TF32 pass
 (the tensor core's other fp32 input type, 10 mantissa bits) misses that gate:
 the split is what makes the tensor cores usable for fp32.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from generative_detection_tpu.ops.attention import _attention_pallas
+from generative_detection_tpu.ops.attention import _attention_pallas, _make_attention_custom
 from generative_detection_tpu_torch.ops import attention
 
 FP32_REL_TOL = 1e-3  # ATTN_REL_TOL[float32] of the card tests and chip_smoke.py
@@ -64,6 +67,21 @@ def _emulated(q, k, v, matmul):
     return matmul("blm,bmc->blc", p, v) / p.sum(-1, keepdim=True)
 
 
+def _emulated_backward(q, k, v, do, lse, di, matmul):
+    """The split backward's arithmetic in its order, with its products taken
+    by ``matmul(eq, a, b)``: raw logits S, P = exp(S scale - lse), dP = dO
+    V^T, dS = P (dP - di) scale, then dV = P^T dO, dK = dS^T Q, dQ = dS K
+    (P and dS are operands of those products, so a split matmul splits them
+    into pieces as the kernel does in registers)."""
+    scale = q.shape[-1] ** -0.5
+    s = matmul("blc,bmc->blm", q, k)
+    p = torch.exp(s * scale - lse[..., None])
+    dp = matmul("blc,bmc->blm", do, v)
+    ds = p * (dp - di[..., None]) * scale
+    return (matmul("blm,bmc->blc", ds, k), matmul("blm,blc->bmc", ds, q),
+            matmul("blm,blc->bmc", p, do))
+
+
 def _rel_max_err(got, want) -> float:
     return ((got - want).abs().max() / want.pow(2).mean().sqrt()).item()
 
@@ -101,6 +119,28 @@ def test_split_forward_meets_the_fp32_gate_and_one_tf32_pass_does_not(qkv):
     assert _rel_max_err(pallas, plain) <= FP32_REL_TOL
 
 
+def test_split_backward_meets_the_fp32_gate_and_one_tf32_pass_does_not():
+    rng = np.random.default_rng(3)
+    q, k, v, do = (rng.standard_normal((1, 256, 128)).astype(np.float32) for _ in range(4))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = attention._attention_reference(qt, kt, vt)
+    di = (dot * o).sum(-1)
+    plain = attention._attention_backward_reference(qt, kt, vt, dot, lse, di)
+    _, vjp = jax.vjp(_make_attention_custom(128, True), *(jnp.asarray(a) for a in (q, k, v)))
+    pallas = [torch.from_numpy(np.array(g)) for g in vjp(jnp.asarray(do))]
+    split = _emulated_backward(qt, kt, vt, dot, lse, di,
+                               lambda eq, a, b: _split_matmul(eq, a, b, 3))
+    tf32 = _emulated_backward(
+        qt, kt, vt, dot, lse, di,
+        lambda eq, a, b: torch.einsum(eq, _tf32_trunc(a), _tf32_trunc(b)))
+    for want in (plain, pallas):
+        for got, w in zip(split, want):  # dq, dk, dv
+            assert _rel_max_err(got, w) <= FP32_REL_TOL
+        assert max(_rel_max_err(got, w) for got, w in zip(tf32, want)) > FP32_REL_TOL
+    for got, w in zip(pallas, plain):
+        assert _rel_max_err(got, w) <= FP32_REL_TOL
+
+
 @pytest.mark.parametrize("dtype, c, split", [
     (torch.float32, 64, True), (torch.float32, 128, True), (torch.float32, 256, True),
     (torch.float32, 512, False), (torch.bfloat16, 256, False),
@@ -110,14 +150,22 @@ def test_split_precision_widths(dtype, c, split):
     assert attention.split_precision(q) == split
     scratch = attention._split_scratch(q)
     assert (scratch is not None) == split
-    if split:
-        assert scratch.dtype == torch.bfloat16 and scratch.numel() == 9 * q.numel()
+    backward = attention._split_scratch(q, attention.SPLIT_BWD_PIECES)
+    assert (backward is not None) == split
+    if split:  # three pieces of q, k, v; and of dO in the backward
+        assert scratch.dtype == backward.dtype == torch.bfloat16
+        assert scratch.numel() == 9 * q.numel() and backward.numel() == 12 * q.numel()
 
 
 def test_cpu_tensors_take_the_plain_versions():
     q = torch.randn(1, 128, 256)
-    before = (attention.split_precision.launches, attention.flash_attention_forward.launches)
+    before = (attention.split_precision.launches, attention.flash_attention_forward.launches,
+              attention.split_backward.launches, attention.attention_backward.launches)
     assert torch.equal(attention.flash_attention_forward(q, q, q),
                        attention._flash_reference(q, q, q))
-    assert (attention.split_precision.launches,
-            attention.flash_attention_forward.launches) == before
+    o, lse = attention.single_head_attention(q, q, q, return_lse=True)
+    got = attention.attention_backward(q, q, q, o, lse, q)
+    want = attention._attention_backward_reference(q, q, q, q, lse, (q * o).sum(-1))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (attention.split_precision.launches, attention.flash_attention_forward.launches,
+            attention.split_backward.launches, attention.attention_backward.launches) == before

@@ -144,24 +144,49 @@ def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     di = (do.float() * o.float()).sum(-1)
-    before = attention.attention_backward.launches
+    before = attention.attention_backward.launches, attention.split_backward.launches
     got = attention.attention_backward(q, k, v, o, lse, do)
     want = attention._attention_backward_reference(q, k, v, do, lse, di)
     torch.cuda.synchronize()
-    assert attention.attention_backward.launches == before + 1
+    # fp32 at C <= 256 takes the split-precision kernels, everything else not
+    assert (attention.attention_backward.launches, attention.split_backward.launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32 and shape[-1] <= 256))
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
-def test_attention_backward_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_is_deterministic(cuda, dtype):
     shape = (2, 4096, 256)
-    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).bfloat16() for _ in range(4))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     first = attention.attention_backward(q, k, v, o, lse, do)
     second = attention.attention_backward(q, k, v, o, lse, do)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("l", [256, 1024, 4096])
+def test_split_precision_backward_matches_plain(cuda, l, c):
+    """fp32 at every width the split-precision backward takes: dq, dk, dv
+    against the plain version, the launch counters, a bit-equal repeat."""
+    shape = (2, l, c)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda) for _ in range(4))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    di = (do * o).sum(-1)
+    before = attention.attention_backward.launches, attention.split_backward.launches
+    got = attention.attention_backward(q, k, v, o, lse, do)
+    again = attention.attention_backward(q, k, v, o, lse, do)
+    want = attention._attention_backward_reference(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (attention.attention_backward.launches, attention.split_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32 and g.shape == shape
+        _rms_close(g, w, ATTN_REL_TOL[torch.float32])
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

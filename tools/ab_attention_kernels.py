@@ -22,8 +22,14 @@ beside SDPA on fp32 copies of q, k, v (TF32 off), with the bound of the
 split-precision route: six bf16 piece products for each of S and P V at
 C <= 256 (C = 512: fp32 on the CUDA cores, 67 TFLOP/s), three bf16
 products for B5 on bf16 inputs. B5 on bf16 inputs is also timed on fp32
-copies of its inputs (the fp32 route with the inputs widened). The card's
-name and power limit come last.
+copies of its inputs (the fp32 route with the inputs widened). Then the
+fp32 backward (``_attention_backward_cuda``) at (16, 4096, 256), (16, 256,
+512) and (2, 256, 64), beside fp32 SDPA's backward (its forward and
+backward less its forward, TF32 off), with the bound of the route: six bf16
+piece products for each of the five products at C <= 256, the CUDA cores at
+C = 512; the profiler splits it by kernel (the split route: the pre-pass and
+the one kernel of the dK, dQ and dV roles). The card's name and power limit
+come last.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ FWD_SITES = ((8, 4096, 256), (8, 256, 512), (1, 16384, 256))
 BWD_SITES = ((16, 4096, 256), (16, 256, 512), (1, 16384, 256))
 FP32_SITES = tuple((b, l, c) for b in (8, 16, 32) for l, c in ((4096, 256), (256, 512)))
 FLASH_SITES = ((8, 4096, 256), (8, 256, 512))
+FP32_BWD_SITES = ((16, 4096, 256), (16, 256, 512), (2, 256, 64))
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 FP32_FLOPS = 67e12  # CUDA cores
 
@@ -83,16 +90,17 @@ def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
-def _route_bound_ms(b, l, c, fp32: bool, nbytes: float) -> float:
-    """fp32 at C <= 256: 12 bf16 products of 2 b l^2 c flops; at C = 512 two
-    fp32 ones on the CUDA cores; bf16 inputs of B5: three bf16 products."""
+def _route_bound_ms(b, l, c, fp32: bool, nbytes: float, products: int = 2) -> float:
+    """``products`` L x L x C products of 2 b l^2 c flops (2 forward, 5
+    backward): fp32 at C <= 256 six bf16 piece products each; at C = 512 on
+    the CUDA cores; bf16 inputs of B5: three bf16 products."""
     one = 2 * b * l * l * c
     if not fp32:
         t_ops = 3 * one / PEAK_FLOPS
     elif c <= 256:
-        t_ops = 12 * one / PEAK_FLOPS
+        t_ops = 6 * products * one / PEAK_FLOPS
     else:
-        t_ops = 2 * one / FP32_FLOPS
+        t_ops = products * one / FP32_FLOPS
     return max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
@@ -143,6 +151,42 @@ def _fp32_rows(attention, g) -> dict:
     return out
 
 
+def _fp32_bwd_rows(attention, g) -> list:
+    """The fp32 backward at FP32_BWD_SITES beside fp32 SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for b, l, c in FP32_BWD_SITES:
+        q, k, v, do = (torch.randn(b, l, c, device="cuda", generator=g) for _ in range(4))
+        o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+        di = (do * o).sum(-1)
+        args = (q, k, v, do, lse, di)
+        got = attention._attention_backward_cuda(*args)
+        want = attention._attention_backward_reference(*args)
+        q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (q, k, v))
+        do4 = do[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+
+        fn = lambda: attention._attention_backward_cuda(*args)  # noqa: E731
+        rows.append({
+            "shape": [b, l, c], "ms": _time_ms(fn),
+            "sdpa_fp32_bwd_ms": _time_ms(sdpa_fwd_bwd) - _time_ms(sdpa),
+            "bound_ms": _route_bound_ms(b, l, c, True, 7 * q.numel() * 4 + 2 * b * l * 4, 5),
+            "max_err_rel_rms": max(_rel_err(x, y) for x, y in zip(got, want)),
+            "kernel_ms": _kernel_split(fn),
+        })
+        del q, k, v, do, o, got, want, q4, k4, v4, do4
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_one(tree: str) -> dict:
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -188,6 +232,7 @@ def run_one(tree: str) -> dict:
         del q, k, v, do, o, got, want
         torch.cuda.empty_cache()
     out.update(_fp32_rows(attention, g))
+    out["backward_fp32"] = _fp32_bwd_rows(attention, g)
     return out
 
 
