@@ -13,10 +13,11 @@ Phases (any failure raises and exits non-zero, before the result line):
    forward (B1 and B5 in fp32 at C <= 256), the bf16 fused
    GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
    (B8) and the fp32 split-precision attention backward (B2 in fp32 at
-   C <= 256) must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their
-   SASS (cuobjdump), B6-B8, the split-precision kernels and the fp32 conv
-   kernels of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may
-   spill, and ptxas may not serialize the split-precision kernels' wgmma;
+   C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA (UTMALDG)
+   instructions in their SASS (cuobjdump), B6-B8, the split-precision kernels
+   and the fp32 conv kernels of conv3x3.cu no mma.sync (HMMA), none of the
+   wgmma kernels may spill, and ptxas may not serialize the split-precision
+   kernels' wgmma;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -31,10 +32,13 @@ Phases (any failure raises and exits non-zero, before the result line):
    weight gradient (B7, B8) at every fused train site (batch 16, each with a
    bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
-   the attention forward and backward at L = 16384 (B9's length), in bf16
-   and fp32; the attention bounds count the products each route runs (fp32
-   at C <= 256: six bf16 piece products for each of S and P V, and for each
-   of the backward's five products);
+   the attention forward and backward at L = 16384 (B9's length), and the
+   forward, flash forward and backward at shapes off the kernels' grid
+   ((1, 576, 512), (2, 400, 512), (2, 256, 96): padded, masked, sliced), in
+   bf16 and fp32; the attention bounds count the products each route runs
+   (fp32 at C <= 256: six bf16 piece products for each of S and P V, and at
+   every C for each of the backward's five products). The kernel phase sets
+   TF32 off for its library calls and restores PyTorch's defaults after it;
 5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
    serves requests at batch 1, 8 and 32 in bf16, first as it is, then with
@@ -44,7 +48,10 @@ Phases (any failure raises and exits non-zero, before the result line):
    batch 2 in fp32 on the card and on the CPU (which runs the plain
    versions) must agree, in both settings. Then the flagship as its config
    ships it, in fp32: the detector at batch 8 and 32 (p50, peak memory, the
-   split-precision attention launches per request);
+   split-precision attention launches per request). Every fp32 phase runs
+   with PyTorch's default TF32 flags (cuDNN's on), so the port's own
+   ops.precision.ieee_fp32() is what keeps it fp32; no flagship phase may
+   pad an attention call (pad_copies 0);
 6. train: the flagship train step at full width and depth, batch 16, bf16
    compute with fp32 master weights, past the whole curriculum (pixel,
    LPIPS, KL, pose and GAN terms and d_weight live): 3 warm-up and 10 timed
@@ -53,8 +60,9 @@ Phases (any failure raises and exits non-zero, before the result line):
    Winograd forward, dgrad and weight gradient per in-band site), every
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
    and the discriminator moved; then the config's own fp32 step (3 warm-up
-   and 5 timed steps, TF32 off as the kernel phase left it), whose attention
-   sites at C <= 256 run the split-precision forward and backward;
+   and 5 timed steps), whose attention sites at C <= 256 run the
+   split-precision forward, and all seven the split-precision backward (two
+   at C = 512);
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
@@ -159,6 +167,9 @@ TRAIN_LOSS_RTOL, MOMENT_REL = 1e-3, 1e-3
 # round one bf16 ulp apart.
 CONV_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows (h=w, C)
+# Attention off the kernels' grid (padded, masked, sliced back): a 384^2
+# pose config's mid block, a 320^2 plain autoencoder's lowest level, C = 96
+OFF_GRID_ATTN = ((1, 576, 512), (2, 400, 512), (2, 256, 96))
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
 # and the flash variant B5 in bf16, B1 and B5 in fp32 at C <= 256 on split
@@ -170,13 +181,15 @@ LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
 SPLIT_BWD_KERNEL = "attn_bwd_split_wgmma_kernel"
+SPLIT_BWD_512_KERNEL = "attn_bwd_split512_wgmma_kernel"
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
 _ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
                   for flash in (0, 1))
 _SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in attention.SPLIT_CHANNELS for lse in (0, 1))
-_SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in attention.SPLIT_CHANNELS)
+_SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in attention.SPLIT_CHANNELS) + (
+    SPLIT_BWD_512_KERNEL,)
 WGMMA_KERNELS = (_ATTN_FWD + _SPLIT + ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
                  + _SPLIT_BWD + _B6 + _WINO)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
@@ -192,6 +205,7 @@ COUNTED = {
     "attention": attention.single_head_attention, "attention_bwd": attention.attention_backward,
     "flash_attention": attention.flash_attention_forward, "fused_conv": fused_conv.gn_silu_conv,
     "attention_split": attention.split_precision, "attention_split_bwd": attention.split_backward,
+    "attention_split_bwd_512": attention.split_backward_512,
     "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
     "wino_wgrad": wr.wino_wgrad,
 }
@@ -317,8 +331,8 @@ def phase_build() -> None:
             f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
-    require(not [w for w in warnings if "C7520" in w
-                 and (SPLIT_KERNEL in w or SPLIT_BWD_KERNEL in w)],
+    require(not [w for w in warnings if ("C7520" in w or "C7512" in w)
+                 and (SPLIT_KERNEL in w or SPLIT_BWD_KERNEL in w or SPLIT_BWD_512_KERNEL in w)],
             f"ptxas serializes the split-precision wgmma: {warnings}")
 
 
@@ -357,13 +371,16 @@ def _achieved(flops: float, kernel_ms: float, bound_ms: float) -> dict:
 def attn_bound(b, l, c, dtype, nbytes, products=2, flash=False) -> dict:
     """The attention bound from the products its route runs, each over the
     peak of its unit: ``products`` L x L x C products (2 b l^2 c flops each;
-    2 forward, 5 backward), bf16 on the tensor cores (the flash variant's
-    P V twice: P in two pieces); fp32 at the split-precision widths six bf16
-    piece products each; fp32 at C = 512 on the CUDA cores."""
+    2 forward, 5 backward; of the true shape, not the padded one), bf16 on
+    the tensor cores (the flash variant's P V twice: P in two pieces); fp32
+    where the route (by the kernels' width) is split precision (the
+    forward's C <= 256, the backward's every C) six bf16 piece products
+    each; else fp32 on the CUDA cores."""
     one = 2 * b * l * l * c
+    split = attention.SPLIT_BWD_CHANNELS if products == 5 else attention.SPLIT_CHANNELS
     if dtype == torch.bfloat16:
         t_ops = (products + flash) * one / PEAK_FLOPS[torch.bfloat16]
-    elif c in attention.SPLIT_CHANNELS:
+    elif attention.kernel_shape(l, c)[1] in split:
         t_ops = 6 * products * one / PEAK_FLOPS[torch.bfloat16]
     else:
         t_ops = products * one / PEAK_FLOPS[torch.float32]
@@ -374,13 +391,15 @@ def attn_bound(b, l, c, dtype, nbytes, products=2, flash=False) -> dict:
 
 def _attn_bwd_kernel(dtype, c) -> str:
     """The device kernels behind an attention backward call."""
+    c = attention.kernel_shape(1, c)[1]
     if dtype == torch.float32:
-        return SPLIT_BWD_KERNEL if c in attention.SPLIT_CHANNELS else "attn_bwd_*_f32_kernel"
+        return SPLIT_BWD_KERNEL if c in attention.SPLIT_CHANNELS else SPLIT_BWD_512_KERNEL
     return "attn_bwd_*_wgmma_kernel" if c == 256 else "attn_bwd_*_bf16_kernel"
 
 
 def _attn_kernel(dtype, c, flash=False) -> str:
     """The device kernel behind an attention forward call."""
+    c = attention.kernel_shape(1, c)[1]
     if dtype == torch.float32:
         return SPLIT_KERNEL if c in attention.SPLIT_CHANNELS else "attn_fwd_f32_kernel"
     return f"attn_fwd_wgmma_kernel<{c}, {str(flash).lower()}>"
@@ -720,13 +739,13 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     return cases
 
 
-def flash_case(g, l, c, dtype):
+def flash_case(g, l, c, dtype, batch=BATCH):
     """B5, the forward-only flash variant (products and P to fp32 accuracy
     whatever the input dtype, no lse), at the detector's attention shapes,
     with a bit-equal repeat. Its yardstick is SDPA on fp32 copies of q, k, v
     (TF32 off, as the kernel phase sets it): the like-for-like library call
     for fp32 products."""
-    q, k, v = (torch.randn(BATCH, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
+    q, k, v = (torch.randn(batch, l, c, device="cuda", generator=g).to(dtype) for _ in range(3))
     o = attention.flash_attention_forward(q, k, v)
     again = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
@@ -736,20 +755,44 @@ def flash_case(g, l, c, dtype):
     q4, k4, v4 = (t.float()[:, None] for t in (q, k, v))
     nbytes = 4 * q.numel() * q.element_size()
     r = {
-        "name": "flash_attention", "shape": [BATCH, l, c], "dtype": _dname(dtype),
+        "name": "flash_attention", "shape": [batch, l, c], "dtype": _dname(dtype),
         "kernel": _attn_kernel(dtype, c, flash=True), "max_err": err, "repeat_equal": True,
         "kernel_ms": time_ms(lambda: attention.flash_attention_forward(q, k, v)),
         "plain_ms": time_ms(lambda: attention._flash_reference(q, k, v), 5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)),
-        **attn_bound(BATCH, l, c, dtype, nbytes, flash=True),
+        **attn_bound(batch, l, c, dtype, nbytes, flash=True),
     }
     r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
     return r
 
 
+def off_grid_cases(g, b, l, c, dtype) -> list:
+    """The forward, the flash forward and the backward at a shape off the
+    kernels' grid: padded to it, the padded keys masked, sliced back; each
+    call one pad copy."""
+    copies = attention.single_head_attention.pad_copies
+    cases = [attn_case(g, l, c, dtype, b), flash_case(g, l, c, dtype, b),
+             attn_bwd_case(g, l, c, dtype, b)]
+    require(attention.single_head_attention.pad_copies > copies,
+            f"attention at {(b, l, c)} {dtype} padded nothing")
+    for r in cases:
+        r["grid"] = list(attention.kernel_shape(l, c))
+    return cases
+
+
 def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
+    """Every kernel against its plain version (TF32 off for the library
+    calls beside them, PyTorch's defaults restored after)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _kernel_cases(gn_train, attn_train, sites)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _kernel_cases(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -792,6 +835,10 @@ def phase_kernels(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
             for fn, key in ((gn_case, "group_norm"), (gn_bwd_case, "group_norm_bwd")):
                 r = fn(g, hw, c, "silu", dtype)
                 cases[(key, hw, c, "silu", dtype)] = r
+                emit(r)
+        for b, l, c in OFF_GRID_ATTN:
+            for r in off_grid_cases(g, b, l, c, dtype):
+                cases[(r["name"], l, c, dtype)] = r
                 emit(r)
         hw0, c0, _ = max(sites["detector"], key=lambda k: k[0] * k[0] * k[1])
         r = gn_affine_case(g, hw0, c0, dtype)
@@ -836,13 +883,29 @@ def reset_counts() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
     norm.group_norm_backward.grad_copies = attention.attention_backward.grad_copies = 0
+    attention.single_head_attention.pad_copies = 0
 
 
 def read_counts() -> dict:
+    """The launch counters, the gradients that arrived non-contiguous and
+    the attention calls padded to the kernels' grid (both 0 on the flagship
+    paths: ``require_no_copies``)."""
     counts = {name: fn.launches for name, fn in COUNTED.items()}
     counts["grad_copies"] = (norm.group_norm_backward.grad_copies
                              + attention.attention_backward.grad_copies)
+    counts["pad_copies"] = attention.single_head_attention.pad_copies
     return counts
+
+
+def require_no_copies(label: str, counts: dict) -> None:
+    require(counts["pad_copies"] == 0, f"{label}: {counts['pad_copies']} attention calls padded")
+
+
+def require_default_tf32(label: str) -> None:
+    """The fp32 phases run under PyTorch's default TF32 flags (cuDNN's on),
+    so that the port's own setting is what makes them fp32."""
+    require(torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+            f"{label}: the TF32 flags are not PyTorch's defaults")
 
 
 def phase_detector(expect: dict, fuse: bool) -> dict:
@@ -882,6 +945,7 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
                           "min_ms": min(lat) * 1e3, "max_ms": max(lat) * 1e3}
             emit(results[b])
         launches = read_counts()
+        require_no_copies(label, launches)
         emit({"phase": label, "calls": calls, "launches": launches,
               "launches_per_request": {k: v / calls for k, v in launches.items()},
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -892,6 +956,7 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
                     f"{label} {name} launches {launches[name]} != {n} x {calls}")
 
         # fp32 on the card (kernels) against fp32 on the CPU (plain versions)
+        require_default_tf32(f"{label}_fp32_card_vs_cpu")
         args = detector_inputs(2, 99)
         outs = {}
         for device in ("cuda", "cpu"):
@@ -909,10 +974,12 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
 
 
 def phase_detector_fp32(expect: dict) -> None:
-    """The flagship detector in fp32, as its config ships it (TF32 off, as
-    the kernel phase left it): p50 and peak memory at batch 8 and 32, and
-    the launches per request against ``expect`` (two of its three attention
-    sites run the split-precision kernel)."""
+    """The flagship detector in fp32, as its config ships it (under
+    PyTorch's default TF32 flags: the detector turns TF32 off itself): p50
+    and peak memory at batch 8 and 32, and the launches per request against
+    ``expect`` (two of its three attention sites run the split-precision
+    kernel)."""
+    require_default_tf32("detector_fp32")
     model, net, hmin, hmax = flagship_detector()
     detect = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32")
     for b, n in ((8, 20), (32, 10)):
@@ -930,6 +997,7 @@ def phase_detector_fp32(expect: dict) -> None:
             if i >= 3:
                 lat.append(time.perf_counter() - t0)
         launches = read_counts()
+        require_no_copies("detector_fp32", launches)
         require(boxes.shape == (b, 7) and bool(torch.isfinite(boxes).all()
                                                 and torch.isfinite(score).all()),
                 f"fp32 detector output {boxes.shape} not finite or misshapen")
@@ -986,6 +1054,8 @@ def phase_train(expect: dict, winograd: str, fp32: bool = False) -> dict:
     label = "train" if winograd == "0" else f"train_winograd_{winograd}"
     label += "_fp32" if fp32 else ""
     n_steps = TRAIN_STEPS_FP32 if fp32 else TRAIN_STEPS
+    if fp32:
+        require_default_tf32(label)
     with switches(GDT_WINOGRAD=winograd):
         model, state, step = flagship_train(None if fp32 else torch.bfloat16)
         batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
@@ -1006,6 +1076,7 @@ def phase_train(expect: dict, winograd: str, fp32: bool = False) -> dict:
             lat.append(time.perf_counter() - t0)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
+    require_no_copies(label, counts)
 
     for name in COUNTED:
         n = expect.get(name, 0)
@@ -1062,6 +1133,7 @@ def phase_train_card_vs_cpu(winograd, ch=128) -> None:
              (("posterior", (2, 16, 16, 16)), ("noise", (2, 16, 16, 16)), ("bbox", (2, 8)))}
     draws["dropout"] = rng.uniform(size=(2, 16, 16, 16)).astype(np.float32)
     step = make_train_step(model, phase="full", compute_dtype=torch.float32)
+    require_default_tf32("train_fp32_card_vs_cpu")
     out = {}
     with switches(GDT_WINOGRAD=winograd):
         for device in ("cuda", "cpu"):
@@ -1146,7 +1218,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     the fused detector (B6 and its affine), the train step (B2, B4c/d), the
     train step with GDT_WINOGRAD=fused (B7, B8); the fp32 split-precision
     forward (B1 in fp32 at (8, 4096, 256)) and backward (B2 in fp32 at (16,
-    4096, 256)) with their launches in the config's own fp32 step. B5 is on
+    4096, 256), and at (16, 256, 512) its C = 512 kernel) with their launches
+    in the config's own fp32 step. B5 is on
     no path of the port (the JAX package reaches it only from its
     availability probe, whose role the kernel check here plays): its bf16
     and fp32 entries. ``kernels_per_call`` device kernels
@@ -1173,6 +1246,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         (cases[("flash_attention", 4096, 256, fp32)], "attention.cu", "attention.py:92", 2, 0),
         (cases[("attention_bwd", 4096, 256, fp32)], "attention_bwd.cu", "attention.py:251", 2,
          train_fp32["attention_split_bwd"]),
+        (cases[("attention_bwd", 256, 512, fp32)], "attention_bwd.cu", "attention.py:251", 2,
+         train_fp32["attention_split_bwd_512"]),
         (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
          fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
@@ -1245,14 +1320,18 @@ def main() -> int:
         {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
     # the config's own fp32 path: the detector, then the step; the attention
-    # sites at C <= 256 run the split-precision forward and backward
+    # sites at C <= 256 run the split-precision forward and backward, those
+    # at C = 512 the split-precision backward's C = 512 kernel
     n_split_det = sum(n for (_, c), n in ATTN_SITES.items() if c in attention.SPLIT_CHANNELS)
     n_split = sum(n for (_, c), n in attn_train.items() if c in attention.SPLIT_CHANNELS)
-    require(n_split_det > 0 and n_split > 0, "no attention site takes the split-precision kernel")
+    n_split_512 = sum(n for (_, c), n in attn_train.items() if c == 512)
+    require(n_split_det > 0 and n_split > 0 and n_split_512 > 0,
+            "no attention site takes the split-precision kernels")
     phase_detector_fp32({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
                          "attention_split": n_split_det})
     train_fp32 = phase_train(
-        {**per_step, "attention_split": n_split, "attention_split_bwd": n_split}, "0", fp32=True)
+        {**per_step, "attention_split": n_split, "attention_split_bwd": n_split,
+         "attention_split_bwd_512": n_split_512}, "0", fp32=True)
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64

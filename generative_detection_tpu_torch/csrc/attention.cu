@@ -64,6 +64,13 @@
 // cores: per K/V tile, K and V into shared memory, S = Q K^T * scale into
 // shared memory, the online softmax with 8 threads a row, O = O * exp(m -
 // m_new) + P V in registers.
+//
+// Lengths off the grid: the wrapper pads L to a multiple of 128 with zero
+// rows and passes the true length l_valid. Every kernel walks only the key
+// tiles that hold a key below l_valid and sets the logits of the keys at or
+// past it to -inf in the last one. The first tile always holds key 0, so a
+// row's running max is finite from then on and no tile forms -inf - (-inf).
+// Padded query rows (zero q) get a finite lse, log(l_valid).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,7 +117,7 @@ template <int C, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int L, float scale) {
+                    float* __restrict__ lse, int L, int l_valid, float scale) {
   constexpr int BQ = kF32BQ, BK = kF32BK;
   constexpr int ST = F32Cfg<C>::ST, SST = F32Cfg<C>::SST;
   // phase 3: a lane holds VW consecutive channels of each 32 VW-wide chunk
@@ -140,7 +147,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < VW; ++e) acc[r][j][e] = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
+  for (int k0 = 0; k0 < l_valid; k0 += BK) {
     __syncthreads();
     load_tile_f32<C>(Ks, k + img + (size_t)k0 * C, BK);
     load_tile_f32<C>(Vs, v + img + (size_t)k0 * C, BK);
@@ -164,10 +171,11 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[1][0] += a1.x * b0.x + a1.y * b0.y + a1.z * b0.z + a1.w * b0.w;
         s[1][1] += a1.x * b1.x + a1.y * b1.y + a1.z * b1.z + a1.w * b1.w;
       }
-      Ss[ty * SST + tx] = s[0][0] * scale;
-      Ss[ty * SST + tx + 16] = s[0][1] * scale;
-      Ss[(ty + 16) * SST + tx] = s[1][0] * scale;
-      Ss[(ty + 16) * SST + tx + 16] = s[1][1] * scale;
+      const bool live0 = k0 + tx < l_valid, live1 = k0 + tx + 16 < l_valid;
+      Ss[ty * SST + tx] = live0 ? s[0][0] * scale : -INFINITY;
+      Ss[ty * SST + tx + 16] = live1 ? s[0][1] * scale : -INFINITY;
+      Ss[(ty + 16) * SST + tx] = live0 ? s[1][0] * scale : -INFINITY;
+      Ss[(ty + 16) * SST + tx + 16] = live1 ? s[1][1] * scale : -INFINITY;
     }
     __syncthreads();
 
@@ -245,7 +253,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int C, bool LSE>
 int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-               int L, float scale, cudaStream_t stream) {
+               int L, int l_valid, float scale, cudaStream_t stream) {
   auto kernel = attn_fwd_f32_kernel<C, LSE>;
   const size_t smem = F32Cfg<C>::smem_bytes;
   cudaError_t err =
@@ -254,7 +262,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   dim3 grid(L / kF32BQ, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), L, scale);
+      static_cast<float*>(o), static_cast<float*>(lse), L, l_valid, scale);
   return (int)cudaGetLastError();
 }
 
@@ -287,7 +295,7 @@ __global__ void __launch_bounds__(384, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int L, float scale_log2) {
+                      float* __restrict__ lse, int L, int l_valid, float scale_log2) {
   using namespace hopper;
   using K = Cfg<C>;
   constexpr int BQ = K::BQ, BK = K::BK, STAGES = K::STAGES, CO = K::CO, CHUNKS = K::CHUNKS;
@@ -303,7 +311,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* kv_empty = v_full + STAGES;
 
   const int row0 = blockIdx.y * L;  // the image's first row in the (B L, C) view
-  const int q0 = blockIdx.x * BQ, n_tiles = L / BK;
+  const int q0 = blockIdx.x * BQ, n_tiles = (l_valid + BK - 1) / BK;  // the live key tiles
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -374,6 +382,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
+    mask_keys<BK, true>(sc, it * BK, l_valid, warp, g, tq);
 
     // online softmax in the log2 domain, rows g (h = 0) and g + 8 (h = 1)
     float alpha[2];
@@ -449,7 +458,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int C, bool FLASH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
-           float scale, cudaStream_t stream) {
+           int l_valid, float scale, cudaStream_t stream) {
   using K = Cfg<C>;
   CUtensorMap tq, tk, tv;
   const uint64_t rows = (uint64_t)B * L;
@@ -462,7 +471,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(L / K::BQ, B), 384, K::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), L,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), L, l_valid,
       scale * hopper::kLog2e);
   return (int)cudaGetLastError();
 }
@@ -508,7 +517,8 @@ __global__ void __launch_bounds__(Cfg<C>::THREADS, 1)
 attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
-                            float* __restrict__ lse, int L, int BL, float scale_log2) {
+                            float* __restrict__ lse, int L, int BL, int l_valid,
+                            float scale_log2) {
   using namespace hopper;
   using K = Cfg<C>;
   constexpr int BQ = K::BQ, BK = K::BK, STAGES = K::STAGES, CHUNKS = K::CHUNKS;
@@ -521,7 +531,7 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + STAGES;
 
   const int row0 = blockIdx.y * L;  // the image's first row in the (B L, C) view
-  const int q0 = blockIdx.x * BQ, n_tiles = L / BK;
+  const int q0 = blockIdx.x * BQ, n_tiles = (l_valid + BK - 1) / BK;  // the live key tiles
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -599,6 +609,7 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
+    mask_keys<BK, true>(sc, it * BK, l_valid, warp, g, tq);
 
     // online softmax in the log2 domain, rows g (h = 0) and g + 8 (h = 1)
     float alpha[2];
@@ -679,7 +690,7 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // scratch: NP * 3 * B * L * C bf16 (the pieces of q, k, v).
 template <int C, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
-           int B, int L, float scale, cudaStream_t stream) {
+           int B, int L, int l_valid, float scale, cudaStream_t stream) {
   using K = Cfg<C>;
   const size_t n = (size_t)B * L * C;
   __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
@@ -699,7 +710,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, void
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(L / K::BQ, B), K::THREADS, K::SMEM, stream>>>(
-      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), L, B * L,
+      tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), L, B * L, l_valid,
       scale * hopper::kLog2e);
   return (int)cudaGetLastError();
 }
@@ -710,24 +721,24 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, void
 // the FMA kernel at C = 512.
 template <bool LSE>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
-                int B, int L, int C, float scale, cudaStream_t s) {
+                int B, int L, int C, int lv, float scale, cudaStream_t s) {
   switch (C) {
-    case 64: return sp::launch<64, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
-    case 128: return sp::launch<128, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
-    case 256: return sp::launch<256, LSE>(q, k, v, o, lse, scratch, B, L, scale, s);
-    case 512: return launch_f32<512, LSE>(q, k, v, o, lse, B, L, scale, s);
+    case 64: return sp::launch<64, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
+    case 128: return sp::launch<128, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
+    case 256: return sp::launch<256, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
+    case 512: return launch_f32<512, LSE>(q, k, v, o, lse, B, L, lv, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool FLASH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L,
-                int C, float scale, cudaStream_t s) {
+                int C, int lv, float scale, cudaStream_t s) {
   switch (C) {
-    case 64: return wg::launch<64, FLASH>(q, k, v, o, lse, B, L, scale, s);
-    case 128: return wg::launch<128, FLASH>(q, k, v, o, lse, B, L, scale, s);
-    case 256: return wg::launch<256, FLASH>(q, k, v, o, lse, B, L, scale, s);
-    case 512: return wg::launch<512, FLASH>(q, k, v, o, lse, B, L, scale, s);
+    case 64: return wg::launch<64, FLASH>(q, k, v, o, lse, B, L, lv, scale, s);
+    case 128: return wg::launch<128, FLASH>(q, k, v, o, lse, B, L, lv, scale, s);
+    case 256: return wg::launch<256, FLASH>(q, k, v, o, lse, B, L, lv, scale, s);
+    case 512: return wg::launch<512, FLASH>(q, k, v, o, lse, B, L, lv, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -739,13 +750,15 @@ extern "C" {
 // q, k, v, o: (B, L, C) contiguous, 16-byte aligned, fp32 (dtype 0) or bf16
 // (dtype 1); lse: (B, L) fp32. scratch: for fp32 at C <= 256, 9 B L C bf16
 // (the operand pieces), else unused. Takes C in {64, 128, 256, 512} and L %
-// 128 == 0 (the Python wrapper checks and raises outside them). Returns a
-// CUDA error code (cudaGetLastError() after the launch).
+// 128 == 0 (the Python wrapper pads other shapes to these and raises
+// outside them); keys at or past l_valid (1 <= l_valid <= L) are masked.
+// Returns a CUDA error code (cudaGetLastError() after the launch).
 int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                      void* scratch, int B, int L, int C, float scale, int dtype, void* stream) {
+                      void* scratch, int B, int L, int C, int l_valid, float scale, int dtype,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_bf16<false>(q, k, v, o, lse, B, L, C, scale, s);
-  if (dtype == 0) return launch_fp32<true>(q, k, v, o, lse, scratch, B, L, C, scale, s);
+  if (dtype == 1) return launch_bf16<false>(q, k, v, o, lse, B, L, C, l_valid, scale, s);
+  if (dtype == 0) return launch_fp32<true>(q, k, v, o, lse, scratch, B, L, C, l_valid, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -755,11 +768,12 @@ int gdt_attention_fwd(const void* q, const void* k, const void* v, void* o, void
 // `_flash_kernel`), which upcasts q, k, v to fp32 and runs both products in
 // fp32. Same shape limits as gdt_attention_fwd.
 int gdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                            void* scratch, int B, int L, int C, float scale, int dtype,
-                            void* stream) {
+                            void* scratch, int B, int L, int C, int l_valid, float scale,
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_bf16<true>(q, k, v, o, nullptr, B, L, C, scale, s);
-  if (dtype == 0) return launch_fp32<false>(q, k, v, o, nullptr, scratch, B, L, C, scale, s);
+  if (dtype == 1) return launch_bf16<true>(q, k, v, o, nullptr, B, L, C, l_valid, scale, s);
+  if (dtype == 0)
+    return launch_fp32<false>(q, k, v, o, nullptr, scratch, B, L, C, l_valid, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

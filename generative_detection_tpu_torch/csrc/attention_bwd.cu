@@ -48,7 +48,7 @@
 // (FlashAttention-2's split with min(C, 128)-channel slices that recompute
 // S^T and dP^T; one slice at C = 64, the tiny configs' (B, 256, 64) sites).
 //
-// fp32 at C = 64, 128, 256 runs all five products on the tensor cores at
+// fp32 at every C runs all five products on the tensor cores at
 // fp32 accuracy (split precision, as the fp32 forward in attention.cu): a
 // pre-pass writes three bf16 pieces of q, k, v and dO into scratch (each
 // piece the round-to-nearest-even of what the earlier leave), and each
@@ -74,8 +74,16 @@
 // one launch (blockIdx.z) after the pre-pass: 48 piece-product units of
 // 64 x 64 x C per pair of tiles against the 30 of one pass, the price of
 // the 227 KB (S^T in both the dK and dV roles, S and dP again for dQ).
-// Deterministic: no atomics, every sum in a fixed order.
-// fp32 at C = 512 runs the FMA kernels.
+// At C = 512 (the (B, 256, 512) mid-block sites) a 64-row piece tile is 64
+// KB and a 64 x 512 accumulator 256 registers, so a block owns half its
+// role's output channels and streams 256-column piece tiles (see
+// run_block_wide). Deterministic: no atomics, every sum in a fixed order.
+//
+// Lengths off the grid: the wrapper pads L to a multiple of 128 with zero
+// rows (dO and di of a padded query row are 0, so it adds nothing to dK or
+// dV) and passes the true length l_valid. Every kernel sets P = 0 for the
+// keys at or past it (their logits are -inf), and the kernels that walk key
+// tiles (dQ) walk only those that hold a key below l_valid.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,7 +93,6 @@
 #include <algorithm>
 
 #include "hopper.cuh"
-#include "vec.cuh"
 
 namespace {
 
@@ -240,7 +247,7 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                          int L, float scale) {
+                          int L, int l_valid, float scale) {
   using Cfg = DkdvCfg<C, BQ>;
   constexpr int BK = Cfg::BK, CS = Cfg::CS, ST = Cfg::ST, PST = Cfg::PST;
   constexpr int NT = BQ / 16, ONT = CS / 16;
@@ -259,6 +266,7 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
   const int strip = warp / 2, n0 = (warp % 2) * (BQ / 2);
+  const bool tail = k0 + BK > l_valid;  // the block holds keys at or past l_valid
 
   load_tile_bf16<C, ST>(Ks, k + img + (size_t)k0 * C, BK);
   load_tile_bf16<C, ST>(Vs, v + img + (size_t)k0 * C, BK);
@@ -289,6 +297,8 @@ attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           float p[2], ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
+            // a key row at or past l_valid: logit -inf (only in a block past it)
+            if (tail && k0 + row >= l_valid) s[j][2 * h + e] = -INFINITY;
             p[e] = expf(s[j][2 * h + e] * scale - s_lse[col + e]);
             ds[e] = p[e] * (dp[j][2 * h + e] - s_di[col + e]) * scale;
           }
@@ -325,7 +335,7 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v,
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ di,
-                        __nv_bfloat16* __restrict__ dq, int L, float scale) {
+                        __nv_bfloat16* __restrict__ dq, int L, int l_valid, float scale) {
   using Cfg = DqCfg<C, BK>;
   constexpr int BQ = Cfg::BQ, CS = Cfg::CS, ST = Cfg::ST, PST = Cfg::PST;
   constexpr int NT = BK / 16, ONT = CS / 16;
@@ -355,7 +365,7 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
+  for (int k0 = 0; k0 < l_valid; k0 += BK) {  // the live key tiles
     __syncthreads();  // the previous tile's K, V, dS are no longer read
     load_tile_bf16<C, ST>(Ks, k + img + (size_t)k0 * C, BK);
     load_tile_bf16<C, ST>(Vs, v + img + (size_t)k0 * C, BK);
@@ -375,6 +385,8 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           float ds[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
+            // a key column at or past l_valid: logit -inf (only in the last tile)
+            if (k0 + BK > l_valid && k0 + col + e >= l_valid) s[j][2 * h + e] = -INFINITY;
             const float p = expf(s[j][2 * h + e] * scale - l_row);
             ds[e] = p * (dp[j][2 * h + e] - d_row) * scale;
           }
@@ -389,205 +401,6 @@ attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     phase_b<BK, PST, ST, CS>(dSs, Ks + cs0, acc);
   }
   store_acc_bf16<C, CS>(dq + img + (size_t)q0 * C, cs0, acc);
-}
-
-// ---------------------------------------------------------------------------
-// fp32 at C = 512: FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-
-// Output channels per block of the fp32 kernels, VW per lane: lane * VW ..
-// + VW - 1 (128 as 4 a lane).
-template <int C> struct F32Slice {
-  static constexpr int CS = 128, VW = CS / 32;
-};
-
-// Phase A for fp32: X[r][n] = A1[r] . B1[n] * scale and Y[r][n] = A2[r] . B2[n]
-// for an (RM x BN) tile; thread t owns column t % BN and rows t / BN + i *
-// (256 / BN). A row-major (RM x C), B row-major (BN x C), stride ST.
-template <int C, int ST, int RM, int BN>
-__device__ __forceinline__ void phase_a_f32(const float* A1, const float* B1, const float* A2,
-                                            const float* B2, float scale, float* x,
-                                            float* y) {
-  constexpr int NE = RM * BN / kThreads, RSTEP = kThreads / BN;
-  const int col = threadIdx.x % BN, r0 = threadIdx.x / BN;
-#pragma unroll
-  for (int i = 0; i < NE; ++i) { x[i] = 0.f; y[i] = 0.f; }
-  const float* b1 = B1 + col * ST;
-  const float* b2 = B2 + col * ST;
-#pragma unroll 2
-  for (int d = 0; d < C; d += 4) {
-    const float4 u1 = *reinterpret_cast<const float4*>(b1 + d);
-    const float4 u2 = *reinterpret_cast<const float4*>(b2 + d);
-#pragma unroll
-    for (int i = 0; i < NE; ++i) {
-      const int r = r0 + i * RSTEP;
-      const float4 a1 = *reinterpret_cast<const float4*>(A1 + r * ST + d);
-      const float4 a2 = *reinterpret_cast<const float4*>(A2 + r * ST + d);
-      x[i] += a1.x * u1.x + a1.y * u1.y + a1.z * u1.z + a1.w * u1.w;
-      y[i] += a2.x * u2.x + a2.y * u2.y + a2.z * u2.z + a2.w * u2.w;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NE; ++i) x[i] *= scale;
-}
-
-// Phase B for fp32: acc[r][e] += sum_k Pm[row_r][k] Vm[k][c0 + lane * VW + e]
-// over RM rows, warp w owning rows w * RM / 8 .. (RM / 8 rows each).
-template <int K, int PST, int ST, int RM, int VW>
-__device__ __forceinline__ void phase_b_f32(const float* Pm, const float* Vm,
-                                            float (*acc)[VW]) {
-  constexpr int RW = RM / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float vv[VW];
-    load_vw<VW>(Vm + kk * ST + lane * VW, vv);
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const float p = Pm[(warp * RW + r) * PST + kk];
-#pragma unroll
-      for (int e = 0; e < VW; ++e) acc[r][e] += p * vv[e];
-    }
-  }
-}
-
-template <int C, int RM, int VW>
-__device__ __forceinline__ void store_acc_f32(float* out, int cs0, const float (*acc)[VW]) {
-  constexpr int RW = RM / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    store_vw<VW>(out + (size_t)(warp * RW + r) * C + cs0 + lane * VW, acc[r]);
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int rows) {
-  constexpr int V = C / 4, ST = C + 4;
-  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 4;
-    *reinterpret_cast<float4*>(dst + r * ST + c) =
-        *reinterpret_cast<const float4*>(src + (size_t)r * C + c);
-  }
-}
-
-// Tile rows: the (BM rows kept for the whole block, BN rows streamed) pair.
-template <int C> struct F32Tiles {
-  static constexpr int KEEP = 16, STREAM = 32;
-  static constexpr int ST = C + 4, PST = STREAM + 1;
-  static constexpr size_t smem_bytes =
-      sizeof(float) * ((2 * KEEP + 2 * STREAM) * ST + 2 * KEEP * PST + 2 * STREAM);
-};
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ dk, float* __restrict__ dv, int L,
-                         float scale) {
-  using T = F32Tiles<C>;
-  constexpr int BK = T::KEEP, BQ = T::STREAM, ST = T::ST, PST = T::PST;
-  constexpr int NE = BK * BQ / kThreads, RSTEP = kThreads / BQ, RW = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + BK * ST;
-  float* Qs = Vs + BK * ST;
-  float* dOs = Qs + BQ * ST;
-  float* Ps = dOs + BQ * ST;   // P^T  (BK x BQ)
-  float* dSs = Ps + BK * PST;  // dS^T (BK x BQ)
-  float* s_lse = dSs + BK * PST;
-  float* s_di = s_lse + BQ;
-
-  constexpr int VW = F32Slice<C>::VW;
-  const int b = blockIdx.y, k0 = blockIdx.x * BK, cs0 = blockIdx.z * F32Slice<C>::CS;
-  const size_t img = (size_t)b * L * C;
-  load_tile_f32<C>(Ks, k + img + (size_t)k0 * C, BK);
-  load_tile_f32<C>(Vs, v + img + (size_t)k0 * C, BK);
-  float acc_dv[RW][VW], acc_dk[RW][VW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int e = 0; e < VW; ++e) { acc_dv[r][e] = 0.f; acc_dk[r][e] = 0.f; }
-
-  const int col = threadIdx.x % BQ, r0 = threadIdx.x / BQ;
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    __syncthreads();
-    load_tile_f32<C>(Qs, q + img + (size_t)q0 * C, BQ);
-    load_tile_f32<C>(dOs, dout + img + (size_t)q0 * C, BQ);
-    load_rows_f32(s_lse, lse + (size_t)b * L + q0, BQ);
-    load_rows_f32(s_di, di + (size_t)b * L + q0, BQ);
-    __syncthreads();
-    {
-      float s[NE], dp[NE];
-      phase_a_f32<C, ST, BK, BQ>(Ks, Qs, Vs, dOs, scale, s, dp);
-#pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        const int row = r0 + i * RSTEP;
-        const float p = expf(s[i] - s_lse[col]);
-        Ps[row * PST + col] = p;
-        dSs[row * PST + col] = p * (dp[i] - s_di[col]) * scale;
-      }
-    }
-    __syncthreads();
-    phase_b_f32<BQ, PST, ST, BK, VW>(Ps, dOs + cs0, acc_dv);
-    phase_b_f32<BQ, PST, ST, BK, VW>(dSs, Qs + cs0, acc_dk);
-  }
-  store_acc_f32<C, BK, VW>(dk + img + (size_t)k0 * C, cs0, acc_dk);
-  store_acc_f32<C, BK, VW>(dv + img + (size_t)k0 * C, cs0, acc_dv);
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ di,
-                       float* __restrict__ dq, int L, float scale) {
-  using T = F32Tiles<C>;
-  constexpr int BQ = T::KEEP, BK = T::STREAM, ST = T::ST, PST = T::PST;
-  constexpr int NE = BQ * BK / kThreads, RSTEP = kThreads / BK, RW = BQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + BQ * ST;
-  float* Ks = dOs + BQ * ST;
-  float* Vs = Ks + BK * ST;
-  float* dSs = Vs + BK * ST;  // dS (BQ x BK)
-  float* s_lse = dSs + 2 * BQ * PST;
-  float* s_di = s_lse + BK;
-
-  constexpr int VW = F32Slice<C>::VW;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ, cs0 = blockIdx.z * F32Slice<C>::CS;
-  const size_t img = (size_t)b * L * C;
-  load_tile_f32<C>(Qs, q + img + (size_t)q0 * C, BQ);
-  load_tile_f32<C>(dOs, dout + img + (size_t)q0 * C, BQ);
-  load_rows_f32(s_lse, lse + (size_t)b * L + q0, BQ);
-  load_rows_f32(s_di, di + (size_t)b * L + q0, BQ);
-  float acc[RW][VW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int e = 0; e < VW; ++e) acc[r][e] = 0.f;
-
-  const int col = threadIdx.x % BK, r0 = threadIdx.x / BK;
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();
-    load_tile_f32<C>(Ks, k + img + (size_t)k0 * C, BK);
-    load_tile_f32<C>(Vs, v + img + (size_t)k0 * C, BK);
-    __syncthreads();
-    {
-      float s[NE], dp[NE];
-      phase_a_f32<C, ST, BQ, BK>(Qs, Ks, dOs, Vs, scale, s, dp);
-#pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        const int row = r0 + i * RSTEP;
-        const float p = expf(s[i] - s_lse[row]);
-        dSs[row * PST + col] = p * (dp[i] - s_di[row]) * scale;
-      }
-    }
-    __syncthreads();
-    phase_b_f32<BK, PST, ST, BQ, VW>(dSs, Ks + cs0, acc);
-  }
-  store_acc_f32<C, BQ, VW>(dq + img + (size_t)q0 * C, cs0, acc);
 }
 
 template <typename K>
@@ -667,7 +480,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_do,
                            const float* __restrict__ lse, const float* __restrict__ di,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int L, float scale) {
+                           int L, int l_valid, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = align_1024(smem_raw);
@@ -745,6 +558,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     uint32_t a[BR / 16][4];
     if (role_a) {
+      mask_keys<BR, false>(sc, k0, l_valid, warp, g, tq);  // rows: the block's keys
       const float* ls = lse_s + s * BR + 2 * tq;
 #pragma unroll
       for (int j = 0; j < BR / 8; ++j) {
@@ -794,7 +608,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         __nv_bfloat16* __restrict__ dq, int L, float scale) {
+                         __nv_bfloat16* __restrict__ dq, int L, int l_valid, float scale) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
@@ -808,7 +622,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* v_full = k_full + STAGES;
   uint64_t* kv_empty = v_full + STAGES;
 
-  const int row0 = blockIdx.y * L, q0 = blockIdx.x * BR, n_tiles = L / BR;
+  // the live key tiles
+  const int row0 = blockIdx.y * L, q0 = blockIdx.x * BR, n_tiles = (l_valid + BR - 1) / BR;
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -876,6 +691,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
+    mask_keys<BR, true>(sc, it * BR, l_valid, warp, g, tq);  // columns: the tile's keys
 #pragma unroll
     for (int j = 0; j < BR / 8; ++j)
 #pragma unroll
@@ -893,7 +709,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* di, void* dq, void* dk, void* dv, int B, int L, float scale,
+           const void* di, void* dq, void* dk, void* dv, int B, int L, int l_valid, float scale,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   const uint64_t rows = (uint64_t)B * L;
@@ -913,11 +729,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const float* f_lse = static_cast<const float*>(lse);
   const float* f_di = static_cast<const float*>(di);
   attn_bwd_dkdv_wgmma_kernel<<<dim3(L / BR, B), 384, DKDV_SMEM, stream>>>(
-      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dk), static_cast<Q*>(dv), L, scale);
+      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dk), static_cast<Q*>(dv), L, l_valid,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   attn_bwd_dq_wgmma_kernel<<<dim3(L / BR, B), 256, DQ_SMEM, stream>>>(
-      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dq), L, scale);
+      tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dq), L, l_valid, scale);
   return (int)cudaGetLastError();
 }
 
@@ -935,6 +752,7 @@ constexpr int TILES = 7;       // piece tiles in shared memory: resident, then t
 constexpr int MAX_STAGES = 6;
 constexpr int THREADS = 160;   // one consumer warpgroup and one producer warp
 constexpr int STATS = 2 * BR;  // lse and di of one tile's rows, floats
+constexpr int WIDE_C = 512, W = 256, CB = WIDE_C / W;  // C = 512: two 256-column blocks
 
 // The operands in scratch: piece p of row r of operand t at row (t NP + p) B L + r.
 enum Operand { OPQ, OPK, OPV, OPDO };
@@ -953,8 +771,8 @@ struct Cfg {
 
 // The operands of a role. R: the block's own rows, S^T (dK, dV) or S (dQ)
 // = R T^T with T at the step's rows. X = XA XB^T (dP^T for dK, dP for dQ):
-// XA at the block's own rows, XB at the step's. dV keeps R's three pieces
-// resident (a ring of four), dK and dQ R_0 only (a ring of six).
+// XA at the block's own rows, XB at the step's. At C <= 256 dV keeps R's
+// three pieces resident (a ring of four), dK and dQ R_0 only (a ring of six).
 template <int ROLE>
 struct Ops {
   static constexpr int R = ROLE == DQ ? OPQ : OPK;
@@ -967,13 +785,13 @@ struct Ops {
   static_assert(STAGES <= MAX_STAGES, "mbarriers");
 };
 
-// One (64, C) piece tile by TMA: C / 64 boxes of 64 x 64.
+// One (64, C) piece tile by TMA: C / 64 boxes of 64 x 64 from column col0.
 template <int C>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int row) {
+                                          uint64_t* bar, int row, int col0 = 0) {
 #pragma unroll
   for (int ch = 0; ch < C / 64; ++ch)
-    hopper::tma_load_2d(dst + ch * BR * 128, map, bar, ch * 64, row);
+    hopper::tma_load_2d(dst + ch * BR * 128, map, bar, col0 + ch * 64, row);
 }
 
 // d (64 x 64) (+)= A B^T over C channels, A and B piece tiles in shared
@@ -1004,6 +822,71 @@ attn_bwd_split_operands_kernel(const float* __restrict__ q, const float* __restr
   hopper::split_to_pieces<NP>(x, out + (size_t)t * NP * n, n);
 }
 
+// Step it's sc (S, rows 16 warp + g and + 8, columns 8 j + 2 tq and + 1 of
+// the 64 x 64 tile) into P = exp(S scale - lse), and for dK and dQ on into
+// dS = P (X - di) scale. stats: the lse of the tile's queries, their di BR
+// floats on (dQ: its own rows, resident; dK and dV: the step's, in the slot
+// st_full / st_empty of step it). The keys (dQ: the step's columns, dK and
+// dV: the block's rows) at or past l_valid get P = 0 (their logit is -inf).
+template <int ROLE>
+__device__ __forceinline__ void softmax_grad(float (&sc)[BR / 2], const float (&xp)[BR / 2],
+                                             const float* stats, uint64_t* st_full,
+                                             uint64_t* st_empty, int it, int l_valid,
+                                             float scale, int warp, int lane) {
+  using namespace hopper;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  mask_keys<BR, ROLE == DQ>(sc, ROLE == DQ ? it * BR : blockIdx.x * BR, l_valid, warp, g, tq);
+  if constexpr (ROLE == DQ) {
+    // rows 16 warp + g and + 8 are queries: their lse and di, read from
+    // shared memory each step rather than held in registers
+    const float* ls = stats + warp * 16 + g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float l = ls[8 * h] * kLog2e, d = ls[BR + 8 * h];
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -l));
+          sc[4 * j + e] = p * (xp[4 * j + e] - d) * scale;
+        }
+    }
+  } else {
+    // columns 8 j + 2 tq and + 1 are queries: their lse and di
+    const int st = it % 2;
+    mbar_wait(&st_full[st], (it / 2) & 1);
+    const float* ls = stats + st * STATS + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j);
+      const float2 d2 = *reinterpret_cast<const float2*>(ls + BR + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x) * kLog2e));
+        if constexpr (ROLE == DV) {
+          sc[4 * j + e] = p;
+        } else {
+          sc[4 * j + e] = p * (xp[4 * j + e] - (e % 2 ? d2.y : d2.x)) * scale;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&st_empty[st]);
+  }
+}
+
+// A (64, C) fp32 accumulator (rows 16 warp + g and + 8, as wgmma leaves
+// it) into the rows of `orow`'s tensor (row stride ld floats).
+template <int C>
+__device__ __forceinline__ void store_acc(float* orow, const float (&acc)[C / 2], int ld) {
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(orow + 8 * ld + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 // One block of a role: 64 rows, a consumer warpgroup (threads 0-127) and a
 // producer warp (128-159) whose thread 128 issues every copy.
 //
@@ -1024,10 +907,12 @@ attn_bwd_split_operands_kernel(const float* __restrict__ q, const float* __restr
 //     pieces as register A operands;
 //   dV: acc += sum of P_i dO_j; dK, dQ: acc += sum of dS_i T_j, T kept in
 //     the ring from S and read MN-major where S read it K-major.
+// dQ walks only the key tiles below l_valid; dK and dV every query tile (a
+// padded query row has dO = 0 and di = 0, so it adds nothing).
 template <int C, int ROLE>
 __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __restrict__ lse,
                                           const float* __restrict__ di, float* __restrict__ out,
-                                          int L, int BL, float scale) {
+                                          int L, int BL, int l_valid, float scale) {
   using namespace hopper;
   using O = Ops<ROLE>;
   constexpr uint32_t TILE = Cfg<C>::TILE;
@@ -1042,7 +927,8 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
   uint64_t* st_full = empty + MAX_STAGES;
   uint64_t* st_empty = st_full + 2;
 
-  const int row0 = blockIdx.y * L, rb = row0 + blockIdx.x * BR, n_tiles = L / BR;
+  const int row0 = blockIdx.y * L, rb = row0 + blockIdx.x * BR;
+  const int n_tiles = ROLE == DQ ? (l_valid + BR - 1) / BR : L / BR;
   if (threadIdx.x == 0) {
     mbar_init(res_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -1099,7 +985,6 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
   // ---- the consumer warpgroup
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const float scale_log2 = scale * kLog2e;
   float acc[C / 2];
 #pragma unroll
   for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
@@ -1202,43 +1087,8 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
     n += ROLE == DV ? NP : 5;
 
     // P = exp(S scale - lse); dK and dQ: dS = P (X - di) scale
-    if constexpr (ROLE == DQ) {
-      // rows 16 warp + g and + 8 are queries: their lse and di, read from
-      // shared memory each step rather than held in registers
-      const float* ls = stats + warp * 16 + g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float l = ls[8 * h] * kLog2e, d = ls[BR + 8 * h];
-#pragma unroll
-        for (int j = 0; j < BR / 8; ++j)
-#pragma unroll
-          for (int e = 2 * h; e < 2 * h + 2; ++e) {
-            const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -l));
-            sc[4 * j + e] = p * (xp[4 * j + e] - d) * scale;
-          }
-      }
-    } else {
-      // columns 8 j + 2 tq and + 1 are queries: their lse and di
-      const int st = it % 2;
-      mbar_wait(&st_full[st], (it / 2) & 1);
-      const float* ls = stats + st * STATS + 2 * tq;
-#pragma unroll
-      for (int j = 0; j < BR / 8; ++j) {
-        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j);
-        const float2 d2 = *reinterpret_cast<const float2*>(ls + BR + 8 * j);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -(e % 2 ? l2.y : l2.x) * kLog2e));
-          if constexpr (ROLE == DV) {
-            sc[4 * j + e] = p;
-          } else {
-            sc[4 * j + e] = p * (xp[4 * j + e] - (e % 2 ? d2.y : d2.x)) * scale;
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&st_empty[st]);
-    }
+    softmax_grad<ROLE>(sc, ROLE == DV ? sc : xp, stats, st_full, st_empty, it, l_valid, scale,
+                       warp, lane);
     uint32_t pa[NP][BR / 16][4];
     acc_to_a_pieces<BR / 8, NP>(sc, pa);
 
@@ -1265,13 +1115,7 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
     }
     if (ROLE == DV) n += NP;
   }
-
-  float* orow = out + (size_t)(rb + warp * 16 + g) * C + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
-    *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(orow + 8 * C + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  store_acc<C>(out + (size_t)(rb + warp * 16 + g) * C + 2 * tq, acc, C);
 }
 
 // tm: the (4 NP B L, C) bf16 map over the pieces, boxes of 64 columns x 64
@@ -1281,13 +1125,315 @@ __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const float* __restrict__ lse,
                             const float* __restrict__ di, float* __restrict__ dq,
                             float* __restrict__ dk, float* __restrict__ dv, int L, int BL,
-                            float scale) {
+                            int l_valid, float scale) {
   if (blockIdx.z == DK) {
-    run_block<C, DK>(&tm, lse, di, dk, L, BL, scale);
+    run_block<C, DK>(&tm, lse, di, dk, L, BL, l_valid, scale);
   } else if (blockIdx.z == DQ) {
-    run_block<C, DQ>(&tm, lse, di, dq, L, BL, scale);
+    run_block<C, DQ>(&tm, lse, di, dq, L, BL, l_valid, scale);
   } else {
-    run_block<C, DV>(&tm, lse, di, dv, L, BL, scale);
+    run_block<C, DV>(&tm, lse, di, dv, L, BL, l_valid, scale);
+  }
+}
+
+// ---- C = 512 ---------------------------------------------------------------
+//
+// A 64-row piece tile is 64 KB at C = 512 and a 64 x 512 fp32 accumulator
+// 256 registers a thread: no role can keep a full-width operand resident or
+// own every output channel. So a block owns 64 rows and one half of its
+// role's output channels (W = 256: 128 registers, as at C = 256; blockIdx.z
+// = 2 role + half), and every piece tile is 64 rows x 256 columns (32 KB,
+// one column block; the two blocks of a 512-wide row are two tiles). S and
+// X are contractions over all 512 channels, each into one accumulator (a
+// second one beside the output's spilled). The small piece products of both
+// column blocks go in before either leading (0, 0) product, as the C = 256
+// order needs: the first block's (0, 0) comes last, from its 0-pieces
+// streamed a second time (a ring slot cannot hold them across the second
+// block). R_0's two column blocks stay resident (64 KB); the other tiles
+// stream through a ring of five, per step (c: the other half first, the
+// block's own last; ' its 0-pieces again):
+//   dK, dQ: X: XA2 XB2 XA0 XB0 XA1 XB1 of each c, chains as at C <= 256
+//     (the first c without (0, 0)), then XA0' XB0', X += (0, 0);
+//   S: R1 T2 T1 T0 R2 of each c: S += (0,2) | (1,1) (0,1) | (1,0), frees R1
+//     | (2,0) and the last c's (0,0), frees R2 and the first c's T; then
+//     T0', S += the first c's (0, 0). The last c's T pieces (the block's
+//     half of T) stay: dK, dQ: acc += sum of dS_i T_j reads them MN-major;
+//   dV: S as above, freeing every tile; then dO2 dO1 dO0 of the block's
+//     half: acc += sum of P_i dO_j.
+// No more than four streamed tiles are live at once, and every tile is freed
+// before the tile five later needs its slot, so the ring cannot deadlock.
+// The price of the halves: S and X are formed twice, 78 piece-product units
+// of 64 x 64 x 512 per pair of tiles against the 30 of one pass. Streaming
+// the 0-pieces twice costs 3 of a step's 25 tiles and 4% of the kernel's
+// time; without it for X the peaked-softmax error reaches 1.01e-3 of the
+// RMS against the plain version (tools/ablate_attention_split512_bwd.py).
+template <int ROLE>
+__device__ __forceinline__ void run_block_wide(const CUtensorMap* tm,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ di,
+                                               float* __restrict__ out, int L, int BL,
+                                               int l_valid, float scale) {
+  using namespace hopper;
+  using O = Ops<ROLE>;
+  constexpr uint32_t TILE = Cfg<W>::TILE;
+  constexpr int STAGES = TILES - CB;
+  // piece tiles a step: X's 6 a column block and the first one's 0-pieces
+  // again (dK, dQ), S's 5 a column block and T0 again, dO's 3 (dV)
+  constexpr int X_ITEMS = ROLE == DV ? 0 : 6 * CB + 2;
+  constexpr int S_ITEMS = 5 * CB + 1, ITEMS = X_ITEMS + S_ITEMS + (ROLE == DV ? NP : 0);
+  static_assert(STAGES <= MAX_STAGES, "mbarriers");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = align_1024(smem_raw);  // R_0: [CB][W / 64][BR][64]
+  unsigned char* ring = res + CB * TILE;      // [STAGES][W / 64][BR][64]
+  float* stats = reinterpret_cast<float*>(res + TILES * TILE);  // [2][lse BR, di BR]
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(stats + 2 * STATS);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* st_full = empty + MAX_STAGES;
+  uint64_t* st_empty = st_full + 2;
+
+  const int half = blockIdx.z % CB;  // the output channels half W .. + W - 1
+  const int row0 = blockIdx.y * L, rb = row0 + blockIdx.x * BR;
+  const int n_tiles = ROLE == DQ ? (l_valid + BR - 1) / BR : L / BR;
+  // the column block of the ci-th pass: the block's own half last
+  auto cblock = [half](int ci) { return (half + 1 + ci) % CB; };
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&st_full[s], 1);
+      mbar_init(&st_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(res_full, CB * TILE + (ROLE == DQ ? STATS * 4 : 0));
+      for (int c = 0; c < CB; ++c)
+        load_tile<W>(res + c * TILE, tm, res_full, O::R * NP * BL + rb, c * W);
+      if (ROLE == DQ) {
+        bulk_load(stats, lse + rb, BR * 4, res_full);
+        bulk_load(stats + BR, di + rb, BR * 4, res_full);
+      }
+      int n = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ro = row0 + it * BR;
+        if (ROLE != DQ) {
+          const int st = it % 2;
+          mbar_wait(&st_empty[st], ((it / 2) & 1) ^ 1);
+          mbar_expect_tx(&st_full[st], STATS * 4);
+          bulk_load(stats + st * STATS, lse + ro, BR * 4, &st_full[st]);
+          bulk_load(stats + st * STATS + BR, di + ro, BR * 4, &st_full[st]);
+        }
+        for (int k = 0; k < ITEMS; ++k, ++n) {
+          // (operand, piece, row, column block) of the step's k-th tile
+          int op, p, r, c = cblock(0);
+          if (k < 6 * CB && ROLE != DV) {  // XA2 XB2 XA0 XB0 XA1 XB1 of each column block
+            const int j = k % 6;
+            op = j % 2 ? O::XB : O::XA, p = j < 2 ? 2 : j < 4 ? 0 : 1, r = j % 2 ? ro : rb;
+            c = cblock(k / 6);
+          } else if (k < X_ITEMS) {  // XA0' XB0'
+            op = k % 2 ? O::XB : O::XA, p = 0, r = k % 2 ? ro : rb;
+          } else if (k < X_ITEMS + 5 * CB) {  // R1 T2 T1 T0 R2 of each column block
+            const int j = (k - X_ITEMS) % 5;
+            const bool is_r = j == 0 || j == 4;
+            op = is_r ? O::R : O::T, p = j == 0 ? 1 : j == 4 ? 2 : 3 - j, r = is_r ? rb : ro;
+            c = cblock((k - X_ITEMS) / 5);
+          } else if (k < X_ITEMS + S_ITEMS) {  // T0'
+            op = O::T, p = 0, r = ro;
+          } else {  // dV: dO2 dO1 dO0 of the block's half
+            op = OPDO, p = NP - 1 - (k - X_ITEMS - S_ITEMS), r = ro, c = half;
+          }
+          const int s = n % STAGES;
+          mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], TILE);
+          load_tile<W>(ring + s * TILE, tm, &full[s], (op * NP + p) * BL + r, c * W);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  mbar_wait(res_full, 0);
+
+  int n = 0;  // piece tiles taken from the ring
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint64_t dres = desc_kmajor(opaque(smem_u32(res)));
+    const uint64_t dring = desc_kmajor(opaque(smem_u32(ring)));
+    const uint64_t dring_mn = desc_mnmajor(opaque(smem_u32(ring)), BR * 128);
+    auto slot = [&](int item) { return dring + ((item % STAGES) * TILE >> 4); };
+    auto wait = [&](int item) { mbar_wait(&full[item % STAGES], (item / STAGES) & 1); };
+    auto free_slot = [&](int item) { mbar_arrive(&empty[item % STAGES]); };
+
+    float xp[BR / 2];  // dP^T (dK) or dP (dQ)
+    if constexpr (ROLE != DV) {
+#pragma unroll
+      for (int ci = 0; ci < CB; ++ci) {
+        // items n .. n + 5: XA2 XB2 XA0 XB0 XA1 XB1
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wait(n + i);
+        if (ci) fence_regs(xp);
+        wgmma_fence();
+        mma_ss<W>(xp, slot(n), slot(n + 3), ci == 0);   // (2, 0)
+        mma_ss<W>(xp, slot(n + 2), slot(n + 1), false);  // (0, 2)
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(xp);
+        __syncwarp();
+        if (lane == 0) {
+          free_slot(n);
+          free_slot(n + 1);
+        }
+        wait(n + 4);
+        wait(n + 5);
+        fence_regs(xp);
+        wgmma_fence();
+        mma_ss<W>(xp, slot(n + 4), slot(n + 5), false);  // (1, 1)
+        mma_ss<W>(xp, slot(n + 4), slot(n + 3), false);  // (1, 0)
+        mma_ss<W>(xp, slot(n + 2), slot(n + 5), false);  // (0, 1)
+        if (ci == CB - 1) mma_ss<W>(xp, slot(n + 2), slot(n + 3), false);  // (0, 0)
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(xp);
+        __syncwarp();
+        if (lane == 0)
+          for (int i = 2; i < 6; ++i) free_slot(n + i);
+        n += 6;
+      }
+      // items n, n + 1: XA0' XB0', the first column block's (0, 0)
+      wait(n);
+      wait(n + 1);
+      fence_regs(xp);
+      wgmma_fence();
+      mma_ss<W>(xp, slot(n), slot(n + 1), false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(xp);
+      __syncwarp();
+      if (lane == 0) {
+        free_slot(n);
+        free_slot(n + 1);
+      }
+      n += 2;
+    }
+
+    // S = sum of R_i T_j^T, each column block's items R1 T2 T1 T0 R2
+    float sc[BR / 2];
+    int t0 = 0;  // the item of the last block's T_2 (T_1, T_0 at t0 + 1, t0 + 2)
+#pragma unroll
+    for (int ci = 0; ci < CB; ++ci) {
+      const uint64_t r0 = dres + ((cblock(ci) * TILE) >> 4);
+      const bool last = ci == CB - 1;
+      wait(n + 1);
+      if (ci) fence_regs(sc);
+      wgmma_fence();
+      mma_ss<W>(sc, r0, slot(n + 1), ci == 0);  // (0, 2)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      wait(n);
+      wait(n + 2);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_ss<W>(sc, slot(n), slot(n + 2), false);  // (1, 1)
+      mma_ss<W>(sc, r0, slot(n + 2), false);       // (0, 1)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      wait(n + 3);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_ss<W>(sc, slot(n), slot(n + 3), false);  // (1, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) free_slot(n);  // R1
+      wait(n + 4);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_ss<W>(sc, slot(n + 4), slot(n + 3), false);      // (2, 0)
+      if (last) mma_ss<W>(sc, r0, slot(n + 3), false);    // (0, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) {
+        free_slot(n + 4);  // R2
+        if (ROLE == DV || !last)  // T stays only for dK's and dQ's own half
+          for (int i = 1; i < 4; ++i) free_slot(n + i);
+      }
+      if (last) t0 = n + 1;
+      n += 5;
+    }
+    // item n: T0', the first column block's (0, 0)
+    wait(n);
+    fence_regs(sc);
+    wgmma_fence();
+    mma_ss<W>(sc, dres + ((cblock(0) * TILE) >> 4), slot(n), false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) free_slot(n);
+    n += 1;
+
+    // P = exp(S scale - lse); dK and dQ: dS = P (X - di) scale
+    softmax_grad<ROLE>(sc, ROLE == DV ? sc : xp, stats, st_full, st_empty, it, l_valid, scale,
+                       warp, lane);
+    uint32_t pa[NP][BR / 16][4];
+    acc_to_a_pieces<BR / 8, NP>(sc, pa);
+
+    // acc += sum over i + j <= 2 of A_i U_j over the block's half: U = dO
+    // (dV, streamed now, U_{2-q} at n + q) or T (dK, dQ, in the ring, T_{2-q}
+    // at t0 + q)
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int item = ROLE == DV ? n + q : t0 + q, s = item % STAGES;
+      if (ROLE == DV) wait(item);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+        for (int i = q; i >= 0; --i)
+          wgmma_rs_mn<W>(acc, pa[i][kk], dring_mn + ((s * TILE + kk * 16 * 128) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    if (ROLE == DV) n += NP;
+  }
+  store_acc<W>(out + (size_t)(rb + warp * 16 + g) * WIDE_C + half * W + 2 * tq, acc, WIDE_C);
+}
+
+// As attn_bwd_split_wgmma_kernel at C = 512: blockIdx.z = 2 Role + half.
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_split512_wgmma_kernel(const __grid_constant__ CUtensorMap tm,
+                               const float* __restrict__ lse, const float* __restrict__ di,
+                               float* __restrict__ dq, float* __restrict__ dk,
+                               float* __restrict__ dv, int L, int BL, int l_valid, float scale) {
+  const int role = blockIdx.z / CB;
+  if (role == DK) {
+    run_block_wide<DK>(&tm, lse, di, dk, L, BL, l_valid, scale);
+  } else if (role == DQ) {
+    run_block_wide<DQ>(&tm, lse, di, dq, L, BL, l_valid, scale);
+  } else {
+    run_block_wide<DV>(&tm, lse, di, dv, L, BL, l_valid, scale);
   }
 }
 
@@ -1295,8 +1441,9 @@ attn_bwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const float*
 template <int C>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* di, void* dq, void* dk, void* dv, void* scratch, int B, int L,
-           float scale, cudaStream_t stream) {
-  constexpr size_t SMEM = Cfg<C>::SMEM;
+           int l_valid, float scale, cudaStream_t stream) {
+  constexpr bool WIDE = C == WIDE_C;
+  constexpr size_t SMEM = Cfg<WIDE ? W : C>::SMEM;
   const size_t n = (size_t)B * L * C;
   __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
   const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 132 * 8);
@@ -1308,13 +1455,20 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   CUtensorMap tm;
   const int err = hopper::make_map_bf16(&tm, pieces, (uint64_t)4 * NP * B * L, C, BR);
   if (err) return err;
-  auto kernel = attn_bwd_split_wgmma_kernel<C>;
-  e = allow_smem(kernel, SMEM);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(L / BR, B, 3), THREADS, SMEM, stream>>>(
-      tm, static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), L, B * L, scale);
-  return (int)cudaGetLastError();
+  auto go = [&](auto kernel, int grid_z) {
+    cudaError_t e = allow_smem(kernel, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(L / BR, B, grid_z), THREADS, SMEM, stream>>>(
+        tm, static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), L, B * L,
+        l_valid, scale);
+    return (int)cudaGetLastError();
+  };
+  if constexpr (WIDE) {
+    return go(attn_bwd_split512_wgmma_kernel, 3 * CB);
+  } else {
+    return go(attn_bwd_split_wgmma_kernel<C>, 3);
+  }
 }
 
 }  // namespace sp
@@ -1322,7 +1476,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 template <int C>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int L,
-                float scale, cudaStream_t stream) {
+                int l_valid, float scale, cudaStream_t stream) {
   using Q = __nv_bfloat16;
   constexpr int BQ = C > 256 ? 32 : 64;  // dK/dV launch: q rows per step
   constexpr int BK = C > 256 ? 32 : 64;  // dQ launch: key rows per step
@@ -1338,38 +1492,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
   kv_kernel<<<dim3(L / KV::BK, B, C / KV::CS), kThreads, KV::smem_bytes, stream>>>(
       static_cast<const Q*>(q), static_cast<const Q*>(k), static_cast<const Q*>(v),
       static_cast<const Q*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<Q*>(dk), static_cast<Q*>(dv), L, scale);
+      static_cast<const float*>(di), static_cast<Q*>(dk), static_cast<Q*>(dv), L, l_valid,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dq_kernel<<<dim3(L / DQ::BQ, B, C / DQ::CS), kThreads, DQ::smem_bytes, stream>>>(
       static_cast<const Q*>(q), static_cast<const Q*>(k), static_cast<const Q*>(v),
       static_cast<const Q*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<Q*>(dq), L, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int C>
-int launch_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* di, void* dq, void* dk, void* dv, int B, int L, float scale,
-               cudaStream_t stream) {
-  using T = F32Tiles<C>;
-  static_assert(T::smem_bytes <= 232448, "shared memory");
-  auto kv_kernel = attn_bwd_dkdv_f32_kernel<C>;
-  auto dq_kernel = attn_bwd_dq_f32_kernel<C>;
-  cudaError_t err = allow_smem(kv_kernel, T::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(dq_kernel, T::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const float* f[6] = {static_cast<const float*>(q), static_cast<const float*>(k),
-                       static_cast<const float*>(v), static_cast<const float*>(dout),
-                       static_cast<const float*>(lse), static_cast<const float*>(di)};
-  kv_kernel<<<dim3(L / T::KEEP, B, C / F32Slice<C>::CS), kThreads, T::smem_bytes, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<float*>(dk), static_cast<float*>(dv),
-      L, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<<<dim3(L / T::KEEP, B, C / F32Slice<C>::CS), kThreads, T::smem_bytes, stream>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], static_cast<float*>(dq), L, scale);
+      static_cast<const float*>(di), static_cast<Q*>(dq), L, l_valid, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1379,30 +1509,31 @@ extern "C" {
 
 // q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, 16-byte aligned, fp32
 // (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned.
-// scratch: for fp32 at C <= 256, 12 B L C bf16 (the operand pieces), else
-// unused. Takes C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper
-// checks and raises outside them). Returns a CUDA error code
-// (cudaGetLastError() after the launches).
+// scratch: for fp32, 12 B L C bf16 (the operand pieces), else unused. Takes
+// C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper pads other
+// shapes to these and raises outside them); keys at or past l_valid (1 <=
+// l_valid <= L) are masked. Returns a CUDA error code (cudaGetLastError()
+// after the launches).
 int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* di, void* dq, void* dk, void* dv,
-                      void* scratch, int B, int L, int C, float scale, int dtype,
+                      void* scratch, int B, int L, int C, int l_valid, float scale, int dtype,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lv = l_valid;
   if (dtype == 1) {
     switch (C) {
-      case 64: return launch_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 128: return launch_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 256: return wg::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
-      case 512: return launch_bf16<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
+      case 64: return launch_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 128: return launch_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 256: return wg::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 512: return launch_bf16<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
     }
   } else if (dtype == 0) {
+    void* w = scratch;
     switch (C) {
-      case 64: return sp::launch<64>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
-      case 128:
-        return sp::launch<128>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
-      case 256:
-        return sp::launch<256>(q, k, v, dout, lse, di, dq, dk, dv, scratch, B, L, scale, s);
-      case 512: return launch_f32<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, scale, s);
+      case 64: return sp::launch<64>(q, k, v, dout, lse, di, dq, dk, dv, w, B, L, lv, scale, s);
+      case 128: return sp::launch<128>(q, k, v, dout, lse, di, dq, dk, dv, w, B, L, lv, scale, s);
+      case 256: return sp::launch<256>(q, k, v, dout, lse, di, dq, dk, dv, w, B, L, lv, scale, s);
+      case 512: return sp::launch<512>(q, k, v, dout, lse, di, dq, dk, dv, w, B, L, lv, scale, s);
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -12,6 +12,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -262,6 +263,24 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t (&w)[NP]
     x -= f.x;
     y -= f.y;
   }
+}
+
+// The logits of keys at or past l_valid as -inf in an m64nBK accumulator sc
+// (rows 16 warp + g and + 8, columns 8 j + 2 tq and + 1 of this thread),
+// whose keys are its BK columns from k0 (KEY_COLS) or its 64 rows from k0.
+// Only the tile that reaches past l_valid has any: elsewhere this is one
+// uniform compare.
+template <int BK, bool KEY_COLS>
+__device__ __forceinline__ void mask_keys(float (&sc)[BK / 2], int k0, int l_valid, int warp,
+                                          int g, int tq) {
+  if (k0 + (KEY_COLS ? BK : 64) <= l_valid) return;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = KEY_COLS ? k0 + 8 * j + 2 * tq + (e & 1) : k0 + warp * 16 + g + 8 * (e / 2);
+      if (key >= l_valid) sc[4 * j + e] = -INFINITY;
+    }
 }
 
 // acc_to_a for an accumulator split into NP bf16 pieces: a[i] holds piece i

@@ -28,12 +28,13 @@ Kernel notes:
   bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
   one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
   C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices.
-  fp32 at C in ``SPLIT_CHANNELS`` runs all five products split-precision,
-  as the forward: a pre-pass splits q, k, v and dO into three bf16 pieces
-  each (into scratch this wrapper allocates, 24 bytes an element of q),
-  then one launch whose blocks each accumulate dK, dQ or dV for 64 rows,
-  keep one operand's pieces resident and stream the rest. fp32 at C = 512
-  runs FMA.
+  fp32 at every width (``SPLIT_BWD_CHANNELS``) runs all five products
+  split-precision, as the forward: a pre-pass splits q, k, v and dO into
+  three bf16 pieces each (into scratch this wrapper allocates, 24 bytes an
+  element of q), then one launch whose blocks each accumulate dK, dQ or dV
+  for 64 rows, keep one operand's pieces resident and stream the rest; at
+  C = 512 a block owns half the output channels and forms S and dP over
+  all 512 from 256-column piece tiles.
   di = rowsum(dO * O) is a torch reduction, as it is XLA outside the Pallas
   body in the JAX package.
 - forward-only flash variant: ``flash_attention_forward`` replaces
@@ -43,6 +44,17 @@ Kernel notes:
   take the forward's fp32 kernels without the lse; bf16 inputs take the
   bf16 kernel with P in two bf16 pieces (hi, lo) instead of rounded to
   bf16 (a product of two bf16 values is exact in fp32).
+
+Shapes off the kernels' grid: the kernels run L % 128 == 0 and C in
+``KERNEL_CHANNELS``. Any other L, and any C <= 512, is zero-padded up to
+that grid (``kernel_shape``), the kernels mask the logits of the padded keys
+to -inf (``l_valid``, the true L) and take the true scale C^-0.5, and the
+padded rows and channels are sliced off the outputs. Zero channels add
+nothing to q . k and give zero columns; a padded query row has a finite lse,
+and in the backward dO = 0 and di = 0, so it adds nothing to dK or dV. The
+JAX package sends such shapes to its XLA attention. Each padded call counts
+one ``single_head_attention.pad_copies``; the flagship's shapes take none.
+C > 512 has no kernel and raises.
 """
 
 from __future__ import annotations
@@ -51,38 +63,64 @@ import ctypes
 from types import SimpleNamespace
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = (64, 128, 256, 512)
 KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
-# fp32 widths that take the split-precision kernels, and the bf16 pieces they
-# keep in scratch, three of each operand: q, k, v (forward), and dO (backward)
+# fp32 widths that take the split-precision kernels, forward and backward,
+# and the bf16 pieces they keep in scratch, three of each operand: q, k, v
+# (forward), and dO (backward)
 SPLIT_CHANNELS = (64, 128, 256)
+SPLIT_BWD_CHANNELS = (64, 128, 256, 512)
 SPLIT_PIECES = 9
 SPLIT_BWD_PIECES = 12
 
 
-def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def kernel_shape(l: int, c: int) -> tuple:
+    """The (L, C) the kernels run an (l, c) attention at: l up to a multiple
+    of ``KERNEL_L_MULTIPLE``, c up to the next of ``KERNEL_CHANNELS``."""
+    if l < 1 or not 1 <= c <= KERNEL_CHANNELS[-1]:
+        raise ValueError(f"attention kernel takes C <= {KERNEL_CHANNELS[-1]} and L >= 1, "
+                         f"got L={l}, C={c}")
+    lp = -(-l // KERNEL_L_MULTIPLE) * KERNEL_L_MULTIPLE
+    return lp, next(w for w in KERNEL_CHANNELS if w >= c)
+
+
+def _scaled_logits(q, k, l_valid, scale):
+    """fp32 q k^T * scale, the logits of keys at or past ``l_valid`` -inf."""
+    s = torch.einsum("blc,bmc->blm", q.float(), k.float()) * scale
+    if l_valid is not None and l_valid < k.shape[1]:
+        s[..., l_valid:] = float("-inf")
+    return s
+
+
+def _scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else scale
+
+
+def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         l_valid=None, scale=None):
     """Plain version (``attention.py:49-54`` of the JAX package): fp32 logits,
-    softmax weights cast to v's dtype before the product. Returns (o, lse)."""
-    c = q.shape[-1]
-    logits = torch.einsum("blc,bmc->blm", q.float(), k.float()) * c**-0.5
+    softmax weights cast to v's dtype before the product. Returns (o, lse).
+    ``l_valid``: keys at or past it are masked (the kernels' padded rows);
+    ``scale``: the logits' scale, C^-0.5 of q's width by default."""
+    logits = _scaled_logits(q, k, l_valid, _scale(q, scale))
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("blm,bmc->blc", w.to(v.dtype).float(), v.float()).to(q.dtype)
     return o, torch.logsumexp(logits, dim=-1)
 
 
-def _attention_backward_reference(q, k, v, do, lse, di):
+def _attention_backward_reference(q, k, v, do, lse, di, l_valid=None, scale=None):
     """Plain backward with materialized logits, rounding where
     ``_mha_bwd_kernel`` (``attention.py:180-223`` of the JAX package) does:
     P is cast to dO's dtype before dV = P^T dO, and dS = P (dP - di) * scale
     to q's dtype before dK = dS^T q and dQ = dS k. Returns (dq, dk, dv) in
-    q's dtype."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("blc,bmc->blm", q.float(), k.float()) * scale
-    p = torch.exp(s - lse[..., None])
+    q's dtype. ``l_valid`` and ``scale`` as in ``_attention_reference``."""
+    scale = _scale(q, scale)
+    p = torch.exp(_scaled_logits(q, k, l_valid, scale) - lse[..., None])
     dv = torch.einsum("blm,blc->bmc", p.to(do.dtype).float(), do.float())
     dp = torch.einsum("blc,bmc->blm", do.float(), v.float())
     ds = (p * (dp - di[..., None]) * scale).to(q.dtype).float()
@@ -91,23 +129,42 @@ def _attention_backward_reference(q, k, v, do, lse, di):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _on_grid(run, tensors, rows=()):
+    """``run(*tensors, *rows, l_valid, scale)`` on the (B, L, C) ``tensors``
+    and (B, L) ``rows`` zero-padded to the kernels' grid (``kernel_shape``),
+    its outputs ((B, L', C') or (B, L')) sliced back to (B, L, C) or (B, L).
+    On the grid nothing is copied; each padded call counts one
+    ``single_head_attention.pad_copies``."""
+    _, l, c = tensors[0].shape
+    lp, cp = kernel_shape(l, c)
+    scale = c ** -0.5
+    if (lp, cp) == (l, c):
+        return run(*tensors, *rows, l, scale)
+    single_head_attention.pad_copies += 1
+    out = run(*(F.pad(t, (0, cp - c, 0, lp - l)) for t in tensors),
+              *(F.pad(r, (0, lp - l)) for r in rows), l, scale)
+    single = isinstance(out, torch.Tensor)
+    out = [t[:, :l, :c] if t.dim() == 3 else t[:, :l] for t in ([out] if single else out)]
+    out = [t.contiguous() for t in out]
+    return out[0] if single else tuple(out)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     if lib.gdt_attention_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gdt_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.gdt_attention_fwd.restype = i
-        lib.gdt_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.gdt_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.gdt_flash_attention_fwd.restype = i
     return lib
 
 
-def _flash_reference(q, k, v):
+def _flash_reference(q, k, v, l_valid=None, scale=None):
     """Plain forward-only flash numerics (``_flash_kernel``): q, k, v upcast
-    to fp32, softmax and P . V in fp32, output in q's dtype."""
-    c = q.shape[-1]
-    logits = torch.einsum("blc,bmc->blm", q.float(), k.float()) * c**-0.5
-    w = torch.softmax(logits, dim=-1)
+    to fp32, softmax and P . V in fp32, output in q's dtype. ``l_valid`` and
+    ``scale`` as in ``_attention_reference``."""
+    w = torch.softmax(_scaled_logits(q, k, l_valid, _scale(q, scale)), dim=-1)
     return torch.einsum("blm,bmc->blc", w, v.float()).to(q.dtype)
 
 
@@ -115,46 +172,51 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("attention_bwd")
     if lib.gdt_attention_bwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_attention_bwd.argtypes = [p] * 10 + [i, i, i, ctypes.c_float, i, p]
+        lib.gdt_attention_bwd.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, i, p]
         lib.gdt_attention_bwd.restype = i
     return lib
 
 
 def _check_kernel_args(*tensors):
-    b, l, c = tensors[0].shape
+    """Raise unless the kernels take (B, L, C) ``tensors``: float32 or
+    bfloat16, C <= 512 (other L and C go through ``kernel_shape``'s
+    padding), contiguous and 16-byte aligned."""
+    _, l, c = tensors[0].shape
     if tensors[0].dtype not in _DTYPES:
         raise TypeError(f"attention kernel takes float32 or bfloat16, got {tensors[0].dtype}")
-    if c not in KERNEL_CHANNELS or l % KERNEL_L_MULTIPLE:
-        raise ValueError(
-            f"attention kernel takes C in {KERNEL_CHANNELS} and L % "
-            f"{KERNEL_L_MULTIPLE} == 0, got L={l}, C={c}"
-        )
+    kernel_shape(l, c)
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel takes contiguous, 16-byte aligned tensors")
 
 
 def split_precision(q) -> bool:
-    """Whether attention on ``q`` on the card (either forward entry point,
-    and the backward) runs the split-precision kernels: fp32 at C in
-    ``SPLIT_CHANNELS``."""
+    """Whether an attention forward on ``q`` on the card (either entry
+    point) runs the split-precision kernel: fp32 at C in ``SPLIT_CHANNELS``
+    (``q`` on the kernels' grid)."""
     return q.dtype == torch.float32 and q.shape[-1] in SPLIT_CHANNELS
 
 
+def split_precision_backward(q) -> bool:
+    """Whether an attention backward on ``q`` on the card runs the
+    split-precision kernels: fp32 at C in ``SPLIT_BWD_CHANNELS``."""
+    return q.dtype == torch.float32 and q.shape[-1] in SPLIT_BWD_CHANNELS
+
+
 split_precision.launches = 0  # forward calls that launched the split-precision kernel
-
-
-# backward calls that launched the split-precision kernels (the forward's
-# predicate routes them)
+# backward calls that launched the split-precision kernels: at C <= 256
+# (attn_bwd_split_wgmma_kernel), and at C = 512 (attn_bwd_split512_wgmma_kernel)
 split_backward = SimpleNamespace(launches=0)
+split_backward_512 = SimpleNamespace(launches=0)
 
 
-def _split_scratch(q, pieces=SPLIT_PIECES):
-    """The bf16 pieces (``pieces`` of q's size: q, k, v, and dO in the
-    backward) that the split-precision kernels write and read, or None where
-    the kernels need none."""
-    if not split_precision(q):
+def _split_scratch(q, backward=False):
+    """The bf16 pieces (of q, k, v, and dO in the backward) that the
+    split-precision kernels write and read, or None where the kernels need
+    none."""
+    if not (split_precision_backward(q) if backward else split_precision(q)):
         return None
+    pieces = SPLIT_BWD_PIECES if backward else SPLIT_PIECES
     return torch.empty(pieces * q.numel(), dtype=torch.bfloat16, device=q.device)
 
 
@@ -167,8 +229,11 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _attention_cuda(q, k, v):
-    _check_kernel_args(q, k, v)
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, l_valid, scale):
     b, l, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, l), dtype=torch.float32, device=q.device)
@@ -176,13 +241,32 @@ def _attention_cuda(q, k, v):
     lib = _lib()
     rc = lib.gdt_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(scratch),
-        b, l, c, float(c) ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, l, c, l_valid, scale, _DTYPES[q.dtype], _stream(q),
     )
     _build.check(lib, rc, "attention kernel launch")
     single_head_attention.launches += 1
     _count_split(scratch)
     return o, lse
+
+
+def _attention_cuda(q, k, v):
+    _check_kernel_args(q, k, v)
+    return _on_grid(_launch_fwd, (q, k, v))
+
+
+def _launch_flash(q, k, v, l_valid, scale):
+    b, l, c = q.shape
+    o = torch.empty_like(q)
+    scratch = _split_scratch(q)
+    lib = _lib()
+    rc = lib.gdt_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(scratch), b, l, c,
+        l_valid, scale, _DTYPES[q.dtype], _stream(q),
+    )
+    _build.check(lib, rc, "flash attention kernel launch")
+    flash_attention_forward.launches += 1
+    _count_split(scratch)
+    return o
 
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -194,43 +278,37 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     if q.device.type == "cpu":
         return _flash_reference(q, k, v)
     _check_kernel_args(q, k, v)
-    b, l, c = q.shape
-    o = torch.empty_like(q)
-    scratch = _split_scratch(q)
-    lib = _lib()
-    rc = lib.gdt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(scratch), b, l, c,
-        float(c) ** -0.5, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, rc, "flash attention kernel launch")
-    flash_attention_forward.launches += 1
-    _count_split(scratch)
-    return o
+    return _on_grid(_launch_flash, (q, k, v))
 
 
 flash_attention_forward.launches = 0
 
 
+def _launch_bwd(q, k, v, do, lse, di, l_valid, scale):
+    b, l, c = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = _split_scratch(q, backward=True)
+    lib = _bwd_lib()
+    rc = lib.gdt_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(scratch), b, l, c,
+        l_valid, scale, _DTYPES[q.dtype], _stream(q),
+    )
+    _build.check(lib, rc, "attention backward kernel launch")
+    attention_backward.launches += 1
+    _count_split(scratch, split_backward_512 if c == 512 else split_backward)
+    return dq, dk, dv
+
+
 def _attention_backward_cuda(q, k, v, do, lse, di):
     _check_kernel_args(q, k, v, do)
-    b, l, c = q.shape
+    b, l, _ = q.shape
     for name, t in (("lse", lse), ("di", di)):
         if (t.shape != (b, l) or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"attention backward: {name} must be contiguous, 16-byte "
                              f"aligned float32 ({b}, {l})")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    scratch = _split_scratch(q, SPLIT_BWD_PIECES)
-    lib = _bwd_lib()
-    rc = lib.gdt_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(scratch), b, l, c,
-        float(c) ** -0.5, _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, rc, "attention backward kernel launch")
-    attention_backward.launches += 1
-    _count_split(scratch, split_backward)
-    return dq, dk, dv
+    return _on_grid(_launch_bwd, (q, k, v, do), (lse, di))
 
 
 def _attention_forward(q, k, v):
@@ -291,3 +369,4 @@ def single_head_attention(
 
 
 single_head_attention.launches = 0
+single_head_attention.pad_copies = 0  # kernel calls whose inputs were padded to the grid

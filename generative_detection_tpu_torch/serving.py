@@ -18,6 +18,7 @@ from torch import nn
 
 from .eval.inference import pose_inference, recover_boxes
 from .models.autoencoder import cast_compute_dtype
+from .ops.precision import compute_precision
 
 
 def _resolve_serve_dtype(dtype):
@@ -53,7 +54,8 @@ def make_detector_fn(
     ``model.inference_net()`` (fused GroupNorm+SiLU+conv kernels when
     ``GDT_FUSE_INFERENCE=1``, as the JAX package's ``pose_inference``
     builds it). In a reduced dtype,
-    conv and dense weights are cast and GroupNorm affine stays float32.
+    conv and dense weights are cast and GroupNorm affine stays float32; in
+    float32 each call runs under ``ops.precision.ieee_fp32()`` (no TF32).
     Inputs may be numpy arrays or tensors; patches are (B, H, W, 3)."""
     sd = (
         state_dict_or_net.state_dict()
@@ -66,6 +68,7 @@ def make_detector_fn(
     dtype = _resolve_serve_dtype(dtype)
     if dtype is not None:
         cast_compute_dtype(net, dtype)
+    precision = dtype or model.compute_dtype
     net = net.to(device=device, memory_format=torch.channels_last).eval()
     hmin = torch.as_tensor(hmin_table, dtype=torch.float32, device=device)
     hmax = torch.as_tensor(hmax_table, dtype=torch.float32, device=device)
@@ -75,7 +78,7 @@ def make_detector_fn(
             torch.as_tensor(a, dtype=torch.float32, device=device)
             for a in (rgb, focal, principal_point, patch_size, patch_center, resampling)
         ]
-        with torch.inference_mode():
+        with torch.inference_mode(), compute_precision(precision):
             dec_pose, _, _ = pose_inference(net, args[0])
             rec = recover_boxes(
                 dec_pose, *args[1:], hmin_table=hmin, hmax_table=hmax, patch_out=patch_out

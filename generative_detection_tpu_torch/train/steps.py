@@ -27,7 +27,9 @@ discriminator under ``torch.autocast``, which casts each convolution's and
 dense layer's input and weight to bf16 at use and returns bf16: flax's
 ``dtype`` semantics (params fp32, compute in ``dtype``). GroupNorm takes the
 bf16 activations with its fp32 affine, as flax's does. The d_weight
-gradients run with autocast off, in fp32.
+gradients run with autocast off, in fp32. With ``compute_dtype`` float32 the
+whole step (forward and backward) runs under ``ops.precision.ieee_fp32()``:
+IEEE fp32 convolutions and matmuls, no TF32.
 
 Step counting: ``step_counting='optimizer'`` (PyTorch Lightning 1.9's, which
 the reference pins) lets the curriculum see 2 * batch (generator) and
@@ -41,6 +43,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..ops.precision import compute_precision
 from .state import TrainState
 
 
@@ -105,6 +108,10 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    draws: Optional[Mapping] = None):
+        with compute_precision(dtype):
+            return _train_step(state, batch, draws)
+
+    def _train_step(state, batch, draws):
         net, loss = state.net, state.loss
         lean = lean_pretrain and phase == "pretrain" and loss.disc_start >= pretrain
         step_g, step_d = _global_steps(state.step, step_counting)
@@ -207,7 +214,7 @@ def make_eval_step(
         net, loss = state.net, state.loss
         step_g, step_d = _global_steps(state.step, step_counting)
         rgb = batch["rgb_gt"]
-        with _autocast(rgb.device, dtype):
+        with compute_precision(dtype), _autocast(rgb.device, dtype):
             outs = net(rgb, step_g, phase=phase, generator=generator, draws=draws)
             _, log_ae = loss.generator_loss(
                 rgb, None, batch["pose_gt"], outs["dec_obj"], outs["dec_pose"],

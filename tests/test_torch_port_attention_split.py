@@ -146,15 +146,19 @@ def test_split_backward_meets_the_fp32_gate_and_one_tf32_pass_does_not():
     (torch.float32, 512, False), (torch.bfloat16, 256, False),
 ])
 def test_split_precision_widths(dtype, c, split):
+    # ``split``: the forward's route (fp32 at C <= 256; C = 512 keeps FMA);
+    # the backward takes the split-precision kernels at every fp32 width
     q = torch.zeros(1, 128, c, dtype=dtype)
     assert attention.split_precision(q) == split
+    assert attention.split_precision_backward(q) == (dtype == torch.float32)
     scratch = attention._split_scratch(q)
     assert (scratch is not None) == split
-    backward = attention._split_scratch(q, attention.SPLIT_BWD_PIECES)
-    assert (backward is not None) == split
-    if split:  # three pieces of q, k, v; and of dO in the backward
-        assert scratch.dtype == backward.dtype == torch.bfloat16
-        assert scratch.numel() == 9 * q.numel() and backward.numel() == 12 * q.numel()
+    backward = attention._split_scratch(q, backward=True)
+    assert (backward is not None) == (dtype == torch.float32)
+    if split:  # three pieces of q, k, v
+        assert scratch.dtype == torch.bfloat16 and scratch.numel() == 9 * q.numel()
+    if backward is not None:  # and of dO in the backward
+        assert backward.dtype == torch.bfloat16 and backward.numel() == 12 * q.numel()
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -5,6 +5,9 @@ Needs a CUDA card, ``nvcc`` and no JAX: run with
 ``python -m pytest -m gpu --noconftest tests/test_torch_port_gpu.py``.
 Without a card every test skips (decided in the fixture, not at import)."""
 
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -99,6 +102,11 @@ def test_attention_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
 
 
+def _split_backward_launches():
+    """Backward calls that ran either split-precision kernel (C <= 256, C = 512)."""
+    return attention.split_backward.launches + attention.split_backward_512.launches
+
+
 def _rms_close(got, want, tol, rtol=0.0):
     """|got - want| <= tol * RMS(want) + rtol * |want| elementwise."""
     want = want.float()
@@ -144,21 +152,21 @@ def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     di = (do.float() * o.float()).sum(-1)
-    before = attention.attention_backward.launches, attention.split_backward.launches
+    before = attention.attention_backward.launches, _split_backward_launches()
     got = attention.attention_backward(q, k, v, o, lse, do)
     want = attention._attention_backward_reference(q, k, v, do, lse, di)
     torch.cuda.synchronize()
-    # fp32 at C <= 256 takes the split-precision kernels, everything else not
-    assert (attention.attention_backward.launches, attention.split_backward.launches) == (
-        before[0] + 1, before[1] + (dtype == torch.float32 and shape[-1] <= 256))
+    # fp32 takes the split-precision backward at every width, bf16 not
+    assert (attention.attention_backward.launches, _split_backward_launches()) == (
+        before[0] + 1, before[1] + attention.split_precision_backward(q))
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_backward_kernel_is_deterministic(cuda, dtype):
-    shape = (2, 4096, 256)
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (16, 256, 512)])
+def test_attention_backward_kernel_is_deterministic(cuda, dtype, shape):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     first = attention.attention_backward(q, k, v, o, lse, do)
@@ -167,7 +175,7 @@ def test_attention_backward_kernel_is_deterministic(cuda, dtype):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
 @pytest.mark.parametrize("l", [256, 1024, 4096])
 def test_split_precision_backward_matches_plain(cuda, l, c):
     """fp32 at every width the split-precision backward takes: dq, dk, dv
@@ -176,12 +184,12 @@ def test_split_precision_backward_matches_plain(cuda, l, c):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     di = (do * o).sum(-1)
-    before = attention.attention_backward.launches, attention.split_backward.launches
+    before = attention.attention_backward.launches, _split_backward_launches()
     got = attention.attention_backward(q, k, v, o, lse, do)
     again = attention.attention_backward(q, k, v, o, lse, do)
     want = attention._attention_backward_reference(q, k, v, do, lse, di)
     torch.cuda.synchronize()
-    assert (attention.attention_backward.launches, attention.split_backward.launches) == (
+    assert (attention.attention_backward.launches, _split_backward_launches()) == (
         before[0] + 2, before[1] + 2)
     for g, a, w in zip(got, again, want):
         assert g.dtype == torch.float32 and g.shape == shape
@@ -190,7 +198,7 @@ def test_split_precision_backward_matches_plain(cuda, l, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (16, 256, 512)])
 def test_attention_peaked_softmax_matches_plain(cuda, shape, dtype):
     """q and k scaled by 4: each row's softmax sits on a handful of keys, so
     the output's RMS is that of v and a dropped, mis-indexed or permuted key
@@ -229,13 +237,89 @@ def test_attention_kernels_match_plain_at_16384(cuda, dtype):
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
+# Shapes off the kernels' grid: a 384^2 pose config's mid block, a 320^2 plain
+# autoencoder's lowest level, attention at C = 96, L < 128, and a tail at
+# the bf16 wgmma backward's C = 256
+TAIL_SHAPES = [(1, 576, 512), (2, 400, 512), (2, 256, 96), (2, 100, 64), (1, 200, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+def test_attention_off_the_grid_matches_plain(cuda, shape, dtype):
+    """Padded to the grid, the padded keys masked, sliced back: the forward,
+    the flash forward and the backward against the plain versions on the
+    unpadded inputs, one pad copy each, a bit-equal repeat."""
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
+    copies = attention.single_head_attention.pad_copies
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    flash = attention.flash_attention_forward(q, k, v)
+    di = (do.float() * o.float()).sum(-1)
+    got = attention.attention_backward(q, k, v, o, lse, do)
+    again = attention.attention_backward(q, k, v, o, lse, do)
+    want_o, want_lse = attention._attention_reference(q, k, v)
+    want_flash = attention._flash_reference(q, k, v)
+    want = attention._attention_backward_reference(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert attention.single_head_attention.pad_copies == copies + 4
+    assert o.shape == flash.shape == shape and lse.shape == shape[:2]
+    _rms_close(o, want_o, ATTN_REL_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    _rms_close(flash, want_flash, ATTN_REL_TOL[dtype])
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == shape
+        _rms_close(g, w, ATTN_REL_TOL[dtype])
+        assert torch.equal(g, a)
+
+
+def test_flagship_attention_shapes_take_no_pad_copy(cuda):
+    copies = attention.single_head_attention.pad_copies
+    for shape in [(2, 4096, 256), (2, 256, 512), (2, 256, 64)]:
+        q = torch.randn(shape, device="cuda", generator=cuda, requires_grad=True)
+        attention.single_head_attention(q, q, q).sum().backward()
+    torch.cuda.synchronize()
+    assert attention.single_head_attention.pad_copies == copies
+
+
+def test_fp32_detector_is_ieee_under_default_flags(cuda):
+    """C4: in a fresh process with PyTorch's default TF32 flags (cuDNN's on),
+    the fp32 detector on the card matches the CPU at chip_smoke.py's limits
+    (boxes 1e-3, equal classes, scores 1e-5) and leaves the flags as found."""
+    code = """
+import numpy as np, torch
+from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
+from generative_detection_tpu_torch.serving import make_detector_fn
+flags = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+assert flags[0], flags
+cfg = merge_configs(["configs/autoencoder/pose/tiny_cpu.yaml"], ["model.params.ddconfig.ch=128"])
+model = instantiate_from_config(cfg["model"])
+net = model.init_net(torch.Generator().manual_seed(0), device="cpu")
+rng = np.random.default_rng(4)
+b = 2
+args = (rng.normal(size=(b, 32, 32, 3)).astype(np.float32), np.full((b,), 1266.0, np.float32),
+        np.tile(np.float32([800.0, 450.0]), (b, 1)), np.full((b,), 100.0, np.float32),
+        np.tile(np.float32([820.0, 460.0]), (b, 1)), np.full((b,), 2.56, np.float32))
+hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
+outs = [[t.cpu().numpy() for t in make_detector_fn(
+    model, net, hmin, hmax, 32, dtype="float32", device=d)(*args)] for d in ("cuda", "cpu")]
+(boxes, cls, score), (wboxes, wcls, wscore) = outs
+np.testing.assert_allclose(boxes, wboxes, rtol=1e-3, atol=1e-3)
+np.testing.assert_array_equal(cls, wcls)
+np.testing.assert_allclose(score, wscore, rtol=0, atol=1e-5)
+assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == flags
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+
+
 def test_kernels_raise_outside_their_shapes(cuda):
-    q = torch.randn(1, 256, 96, device="cuda")
-    with pytest.raises(ValueError, match="attention kernel takes"):
+    # any L and any C <= 512 are padded to the kernels' grid; C > 512 has no kernel
+    q = torch.randn(1, 256, 640, device="cuda")
+    with pytest.raises(ValueError, match="attention kernel takes C <= 512"):
         attention.single_head_attention(q, q, q)
-    q = torch.randn(1, 100, 128, device="cuda")
-    with pytest.raises(ValueError, match="attention kernel takes"):
-        attention.single_head_attention(q, q, q)
+    with pytest.raises(ValueError, match="attention kernel takes C <= 512"):
+        attention.flash_attention_forward(q, q, q)
     q = torch.randn(1, 256, 128, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         attention.single_head_attention(q, q, q)

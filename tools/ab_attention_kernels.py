@@ -25,11 +25,12 @@ products for B5 on bf16 inputs. B5 on bf16 inputs is also timed on fp32
 copies of its inputs (the fp32 route with the inputs widened). Then the
 fp32 backward (``_attention_backward_cuda``) at (16, 4096, 256), (16, 256,
 512) and (2, 256, 64), beside fp32 SDPA's backward (its forward and
-backward less its forward, TF32 off), with the bound of the route: six bf16
-piece products for each of the five products at C <= 256, the CUDA cores at
-C = 512; the profiler splits it by kernel (the split route: the pre-pass and
-the one kernel of the dK, dQ and dV roles). The card's name and power limit
-come last.
+backward less its forward, TF32 off), with the bound of the tree's route:
+six bf16 piece products for each of the five products where it runs split
+precision (every C since the C = 512 kernel, C <= 256 before), else the
+CUDA cores; the profiler splits it by kernel (the split route: the pre-pass
+and the one kernel of the dK, dQ and dV roles). The card's name and power
+limit come last.
 """
 
 from __future__ import annotations
@@ -90,14 +91,16 @@ def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
-def _route_bound_ms(b, l, c, fp32: bool, nbytes: float, products: int = 2) -> float:
+def _route_bound_ms(b, l, c, fp32: bool, nbytes: float, products: int = 2,
+                    split: bool | None = None) -> float:
     """``products`` L x L x C products of 2 b l^2 c flops (2 forward, 5
-    backward): fp32 at C <= 256 six bf16 piece products each; at C = 512 on
-    the CUDA cores; bf16 inputs of B5: three bf16 products."""
+    backward): fp32 on the split-precision route (``split``; by default C <=
+    256) six bf16 piece products each, else on the CUDA cores; bf16 inputs
+    of B5: three bf16 products."""
     one = 2 * b * l * l * c
     if not fp32:
         t_ops = 3 * one / PEAK_FLOPS
-    elif c <= 256:
+    elif (c <= 256) if split is None else split:
         t_ops = 6 * products * one / PEAK_FLOPS
     else:
         t_ops = products * one / FP32_FLOPS
@@ -178,7 +181,9 @@ def _fp32_bwd_rows(attention, g) -> list:
         rows.append({
             "shape": [b, l, c], "ms": _time_ms(fn),
             "sdpa_fp32_bwd_ms": _time_ms(sdpa_fwd_bwd) - _time_ms(sdpa),
-            "bound_ms": _route_bound_ms(b, l, c, True, 7 * q.numel() * 4 + 2 * b * l * 4, 5),
+            "bound_ms": _route_bound_ms(
+                b, l, c, True, 7 * q.numel() * 4 + 2 * b * l * 4, 5,
+                split=c in getattr(attention, "SPLIT_BWD_CHANNELS", (64, 128, 256))),
             "max_err_rel_rms": max(_rel_err(x, y) for x, y in zip(got, want)),
             "kernel_ms": _kernel_split(fn),
         })

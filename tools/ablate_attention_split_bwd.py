@@ -51,12 +51,12 @@ ERROR_CASES = (((2, 256, 256), 1.0), ((2, 1024, 256), 1.0), ((2, 4096, 256), 1.0
                ((1, 16384, 256), 1.0), ((2, 4096, 256), 4.0))
 _LOAD = ("          mbar_expect_tx(&full[s], TILE);\n"
          "          load_tile<C>(ring + s * TILE, tm, &full[s], (op * NP + p) * BL + r);")
-_ROLES = ("kernel<<<dim3(L / BR, B, 3)", "if (blockIdx.z == DK) {",
+_ROLES = ("return go(attn_bwd_split_wgmma_kernel<C>, 3);", "if (blockIdx.z == DK) {",
           "} else if (blockIdx.z == DQ) {")
 
 
 def _role_only(role: int) -> list:
-    return [(_ROLES[0], "kernel<<<dim3(L / BR, B, 1)"),
+    return [(_ROLES[0], "return go(attn_bwd_split_wgmma_kernel<C>, 1);"),
             (_ROLES[1], f"if (blockIdx.z + {role} == DK) {{"),
             (_ROLES[2], f"}} else if (blockIdx.z + {role} == DQ) {{")]
 
