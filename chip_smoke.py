@@ -10,14 +10,14 @@ Phases (any failure raises and exits non-zero, before the result line):
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
    kernels (B1 and the flash variant B5), the fp32 split-precision attention
-   forward (B1 and B5 in fp32 at C <= 256), the bf16 fused
+   forward (B1 and B5 in fp32 at C <= 256 and at C = 512), the bf16 fused
    GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
    (B8) and the fp32 split-precision attention backward (B2 in fp32 at
    C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA (UTMALDG)
    instructions in their SASS (cuobjdump), B6-B8, the split-precision kernels
    and the fp32 conv kernels of conv3x3.cu no mma.sync (HMMA), none of the
-   wgmma kernels may spill, and ptxas may not serialize the split-precision
-   kernels' wgmma;
+   wgmma kernels may spill, ptxas may not serialize the split-precision
+   kernels' wgmma, and the FMA fp32 forward (attn_fwd_f32_kernel) is gone;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -26,7 +26,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    calls) and the card's bound (for B7 and B8 the products the Winograd
    form does, half the direct conv's at F(4,3)): the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
-   flagship train step (batch 16), the fused GroupNorm+SiLU+conv (B6) at
+   flagship train step (batch 16; the GroupNorm backward with a bit-equal
+   repeat and its share of the bound), the fused GroupNorm+SiLU+conv (B6) at
    every fused detector site and at W = 96 (batch 8, with a bit-equal
    repeat), the row-Winograd forward, dgrad and
    weight gradient (B7, B8) at every fused train site (batch 16, each with a
@@ -36,8 +37,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    forward, flash forward and backward at shapes off the kernels' grid
    ((1, 576, 512), (2, 400, 512), (2, 256, 96): padded, masked, sliced), in
    bf16 and fp32; the attention bounds count the products each route runs
-   (fp32 at C <= 256: six bf16 piece products for each of S and P V, and at
-   every C for each of the backward's five products). The kernel phase sets
+   (fp32: six bf16 piece products for each of S and P V and for each of the
+   backward's five products). The kernel phase sets
    TF32 off for its library calls and restores PyTorch's defaults after it;
 5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
@@ -60,9 +61,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    Winograd forward, dgrad and weight gradient per in-band site), every
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
    and the discriminator moved; then the config's own fp32 step (3 warm-up
-   and 5 timed steps), whose attention sites at C <= 256 run the
-   split-precision forward, and all seven the split-precision backward (two
-   at C = 512);
+   and 5 timed steps), whose seven attention sites all run the
+   split-precision forward and backward (two at C = 512);
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
@@ -172,14 +172,15 @@ TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows 
 OFF_GRID_ATTN = ((1, 576, 512), (2, 400, 512), (2, 256, 96))
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
-# and the flash variant B5 in bf16, B1 and B5 in fp32 at C <= 256 on split
-# precision, B2 in bf16 at C = 256 and in fp32 at C <= 256 on split
-# precision), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
+# and the flash variant B5 in bf16, B1 and B5 in fp32 on split precision, B2
+# in bf16 at C = 256 and in fp32 on split precision; the split kernels at
+# C <= 256 and at C = 512), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
 # or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
 # and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 and the
 # split-precision kernels have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
+SPLIT_512_KERNEL = "attn_fwd_split512_wgmma_kernel"
 SPLIT_BWD_KERNEL = "attn_bwd_split_wgmma_kernel"
 SPLIT_BWD_512_KERNEL = "attn_bwd_split512_wgmma_kernel"
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
@@ -187,9 +188,11 @@ _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgm
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
 _ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
                   for flash in (0, 1))
-_SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in attention.SPLIT_CHANNELS for lse in (0, 1))
-_SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in attention.SPLIT_CHANNELS) + (
-    SPLIT_BWD_512_KERNEL,)
+SPLIT_NARROW = (64, 128, 256)  # the widths of the split kernels' C template
+_SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in SPLIT_NARROW for lse in (0, 1)) + tuple(
+    f"{SPLIT_512_KERNEL}ILb{lse}" for lse in (0, 1))
+_SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in SPLIT_NARROW) + (SPLIT_BWD_512_KERNEL,)
+SPLIT_KERNELS = (SPLIT_KERNEL, SPLIT_512_KERNEL, SPLIT_BWD_KERNEL, SPLIT_BWD_512_KERNEL)
 WGMMA_KERNELS = (_ATTN_FWD + _SPLIT + ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
                  + _SPLIT_BWD + _B6 + _WINO)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
@@ -204,7 +207,9 @@ COUNTED = {
     "group_norm_affine": norm.group_norm_affine,
     "attention": attention.single_head_attention, "attention_bwd": attention.attention_backward,
     "flash_attention": attention.flash_attention_forward, "fused_conv": fused_conv.gn_silu_conv,
-    "attention_split": attention.split_precision, "attention_split_bwd": attention.split_backward,
+    "attention_split": attention.split_precision,
+    "attention_split_512": attention.split_precision_512,
+    "attention_split_bwd": attention.split_backward,
     "attention_split_bwd_512": attention.split_backward_512,
     "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
     "wino_wgrad": wr.wino_wgrad,
@@ -311,11 +316,13 @@ def phase_build() -> None:
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
     # at C = 256), the fp32 split-precision attention forward and backward
-    # (C = 64, 128, 256), B6, B7 and B8 must run on wgmma and TMA, and must not
+    # (C = 64, 128, 256 and 512), B6, B7 and B8 must run on wgmma and TMA, and must not
     # spill; B6-B8 have no mma.sync left, nor has the fp32 conv3x3.cu
-    sass = {}
+    sass, fma = {}, []
     for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
-        sass.update({k: v for k, v in _sass_counts(n).items() if WGMMA_TAG in k})
+        counts = _sass_counts(n)
+        sass.update({k: v for k, v in counts.items() if WGMMA_TAG in k})
+        fma += [k for k in counts if "attn_fwd_f32_kernel" in k]
     fp32_conv = _sass_counts("conv3x3")
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings,
@@ -332,8 +339,9 @@ def phase_build() -> None:
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
     require(not [w for w in warnings if ("C7520" in w or "C7512" in w)
-                 and (SPLIT_KERNEL in w or SPLIT_BWD_KERNEL in w or SPLIT_BWD_512_KERNEL in w)],
+                 and any(k in w for k in SPLIT_KERNELS)],
             f"ptxas serializes the split-precision wgmma: {warnings}")
+    require(not fma, f"the FMA fp32 attention forward is still built: {fma}")
 
 
 def gn_case(g, hw, c, act, dtype):
@@ -373,17 +381,13 @@ def attn_bound(b, l, c, dtype, nbytes, products=2, flash=False) -> dict:
     peak of its unit: ``products`` L x L x C products (2 b l^2 c flops each;
     2 forward, 5 backward; of the true shape, not the padded one), bf16 on
     the tensor cores (the flash variant's P V twice: P in two pieces); fp32
-    where the route (by the kernels' width) is split precision (the
-    forward's C <= 256, the backward's every C) six bf16 piece products
-    each; else fp32 on the CUDA cores."""
+    on the split-precision route (every width, forward and backward) six
+    bf16 piece products each."""
     one = 2 * b * l * l * c
-    split = attention.SPLIT_BWD_CHANNELS if products == 5 else attention.SPLIT_CHANNELS
     if dtype == torch.bfloat16:
         t_ops = (products + flash) * one / PEAK_FLOPS[torch.bfloat16]
-    elif attention.kernel_shape(l, c)[1] in split:
-        t_ops = 6 * products * one / PEAK_FLOPS[torch.bfloat16]
     else:
-        t_ops = products * one / PEAK_FLOPS[torch.float32]
+        t_ops = 6 * products * one / PEAK_FLOPS[torch.bfloat16]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
@@ -393,7 +397,7 @@ def _attn_bwd_kernel(dtype, c) -> str:
     """The device kernels behind an attention backward call."""
     c = attention.kernel_shape(1, c)[1]
     if dtype == torch.float32:
-        return SPLIT_BWD_KERNEL if c in attention.SPLIT_CHANNELS else SPLIT_BWD_512_KERNEL
+        return SPLIT_BWD_KERNEL if c in SPLIT_NARROW else SPLIT_BWD_512_KERNEL
     return "attn_bwd_*_wgmma_kernel" if c == 256 else "attn_bwd_*_bf16_kernel"
 
 
@@ -401,7 +405,7 @@ def _attn_kernel(dtype, c, flash=False) -> str:
     """The device kernel behind an attention forward call."""
     c = attention.kernel_shape(1, c)[1]
     if dtype == torch.float32:
-        return SPLIT_KERNEL if c in attention.SPLIT_CHANNELS else "attn_fwd_f32_kernel"
+        return SPLIT_KERNEL if c in SPLIT_NARROW else SPLIT_512_KERNEL
     return f"attn_fwd_wgmma_kernel<{c}, {str(flash).lower()}>"
 
 
@@ -475,12 +479,16 @@ def gn_bwd_case(g, hw, c, act, dtype):
     _, mean, rstd = norm._gn_forward_reference(x, gamma, beta, 32, 1e-6, act)
     args = (x, dy, (partial,), gamma, beta, 32, 1e-6, act)
     dx, dgamma, dbeta = norm.group_norm_backward(*args)
+    again = norm.group_norm_backward(*args)
     want = norm._gn_backward_reference(x, dy, mean, rstd, gamma, beta, act)
     torch.cuda.synchronize()
     name = f"group_norm backward {tuple(x.shape)} {act} {dtype}"
     err = rms_close(f"{name} dx", dx, want[0], *GN_BWD_TOL[dtype])
     for what, got, w in (("dgamma", dgamma, want[1]), ("dbeta", dbeta, want[2])):
         check_close(f"{name} {what}", got, w, 1e-4 * w.abs().max().item(), 0.0)
+    require(all(torch.equal(a, b) for a, b in zip((dx, dgamma, dbeta), again)),
+            f"{name}: a repeat differs")
+    del again
 
     x_lib = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
     g_lib = gamma.to(dtype).requires_grad_(True)
@@ -496,14 +504,15 @@ def gn_bwd_case(g, hw, c, act, dtype):
 
     # the function moves x and dy in, dx out (and (C,) params and grads)
     nbytes = 3 * x.numel() * x.element_size() + 6 * c * 4
+    kernel_ms = time_ms(lambda: norm.group_norm_backward(*args))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "name": "group_norm_bwd", "shape": list(x.shape), "dtype": str(dtype).split(".")[1],
-        "act": act, "max_err": err,
-        "kernel_ms": time_ms(lambda: norm.group_norm_backward(*args)),
+        "act": act, "max_err": err, "repeat_equal": True, "kernel_ms": kernel_ms,
         "plain_ms": time_ms(
             lambda: norm._gn_backward_reference(x, dy, mean, rstd, gamma, beta, act), 3),
         "library_ms": time_ms(lib_fwd_bwd) - time_ms(lib_fwd),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / kernel_ms,
     }
 
 
@@ -977,8 +986,7 @@ def phase_detector_fp32(expect: dict) -> None:
     """The flagship detector in fp32, as its config ships it (under
     PyTorch's default TF32 flags: the detector turns TF32 off itself): p50
     and peak memory at batch 8 and 32, and the launches per request against
-    ``expect`` (two of its three attention sites run the split-precision
-    kernel)."""
+    ``expect`` (all three attention sites run a split-precision kernel)."""
     require_default_tf32("detector_fp32")
     model, net, hmin, hmax = flagship_detector()
     detect = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32")
@@ -1217,9 +1225,10 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     and its launches on the main path that runs it: the detector (B1, B3),
     the fused detector (B6 and its affine), the train step (B2, B4c/d), the
     train step with GDT_WINOGRAD=fused (B7, B8); the fp32 split-precision
-    forward (B1 in fp32 at (8, 4096, 256)) and backward (B2 in fp32 at (16,
-    4096, 256), and at (16, 256, 512) its C = 512 kernel) with their launches
-    in the config's own fp32 step. B5 is on
+    forward (B1 in fp32 at (8, 4096, 256), and at (8, 256, 512) its C = 512
+    kernel) and backward (B2 in fp32 at (16, 4096, 256), and at (16, 256,
+    512) its C = 512 kernel) with their launches in the config's own fp32
+    step. B5 is on
     no path of the port (the JAX package reaches it only from its
     availability probe, whose role the kernel check here plays): its bf16
     and fp32 entries. ``kernels_per_call`` device kernels
@@ -1248,6 +1257,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
          train_fp32["attention_split_bwd"]),
         (cases[("attention_bwd", 256, 512, fp32)], "attention_bwd.cu", "attention.py:251", 2,
          train_fp32["attention_split_bwd_512"]),
+        (cases[("attention", 256, 512, fp32)], "attention.cu", "attention.py:226", 2,
+         train_fp32["attention_split_512"]),
         (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
          fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
@@ -1274,6 +1285,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
         if e["name"] in CONV_KERNELS:
             e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]
+        if e["name"] == "group_norm_bwd":
+            e["kernel"] = "gn_bwd_reduce_kernel + gn_bwd_dx_kernel"
+            e["bound_share"] = r["bound_share"]
         if e["name"] in step_sums:
             e["bound_share"] = r["bound_share"]
             e.update({k: v for k, v in step_sums[e["name"]].items() if k != "sites"})
@@ -1319,19 +1333,21 @@ def main() -> int:
     train_fused = phase_train(
         {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
-    # the config's own fp32 path: the detector, then the step; the attention
-    # sites at C <= 256 run the split-precision forward and backward, those
-    # at C = 512 the split-precision backward's C = 512 kernel
-    n_split_det = sum(n for (_, c), n in ATTN_SITES.items() if c in attention.SPLIT_CHANNELS)
-    n_split = sum(n for (_, c), n in attn_train.items() if c in attention.SPLIT_CHANNELS)
+    # the config's own fp32 path: the detector, then the step; every
+    # attention site runs split precision, forward and backward, at C <= 256
+    # the narrow kernels and at C = 512 the wide ones
+    n_split_det = sum(n for (_, c), n in ATTN_SITES.items() if c in SPLIT_NARROW)
+    n_split_det_512 = sum(n for (_, c), n in ATTN_SITES.items() if c == 512)
+    n_split = sum(n for (_, c), n in attn_train.items() if c in SPLIT_NARROW)
     n_split_512 = sum(n for (_, c), n in attn_train.items() if c == 512)
-    require(n_split_det > 0 and n_split > 0 and n_split_512 > 0,
-            "no attention site takes the split-precision kernels")
+    require(n_split_det > 0 and n_split_det_512 > 0 and n_split > 0 and n_split_512 > 0,
+            "no attention site takes one of the split-precision kernels")
     phase_detector_fp32({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
-                         "attention_split": n_split_det})
+                         "attention_split": n_split_det, "attention_split_512": n_split_det_512})
     train_fp32 = phase_train(
-        {**per_step, "attention_split": n_split, "attention_split_bwd": n_split,
-         "attention_split_bwd_512": n_split_512}, "0", fp32=True)
+        {**per_step, "attention_split": n_split, "attention_split_512": n_split_512,
+         "attention_split_bwd": n_split, "attention_split_bwd_512": n_split_512}, "0",
+        fp32=True)
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64

@@ -59,11 +59,11 @@
 //     four-slot ring (K0 K1 K2 V0 V1 V2 per key tile), each slot released
 //     as soon as the products that read it retire; V keeps its transpose
 //     bit, which 16-bit pieces allow (a TF32 split would need V^T).
-// fp32 at C = 512 (the memory-bound (B, 256, 512) site; three Q pieces and
-// a 64 x 512 O do not fit one block) runs attn_fwd_f32_kernel on the CUDA
-// cores: per K/V tile, K and V into shared memory, S = Q K^T * scale into
-// shared memory, the online softmax with 8 threads a row, O = O * exp(m -
-// m_new) + P V in registers.
+// fp32 at C = 512 (the (B, 256, 512) mid-block site) runs
+// attn_fwd_split512_wgmma_kernel after the same pre-pass: three Q pieces and
+// a 64 x 512 O do not fit one block, so a block owns 64 query rows and half
+// of O's channels and streams 64 x 256 piece tiles (the C = 512 section
+// below).
 //
 // Lengths off the grid: the wrapper pads L to a multiple of 128 with zero
 // rows and passes the true length l_valid. Every kernel walks only the key
@@ -80,191 +80,8 @@
 #include <algorithm>
 
 #include "hopper.cuh"
-#include "vec.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 8 warps
-
-// ---------------------------------------------------------------------------
-// fp32 at C = 512: FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kF32BQ = 32;
-constexpr int kF32BK = 32;
-
-template <int C>
-struct F32Cfg {
-  static constexpr int ST = C + 4;        // rows shift by 4 banks: float4 reads
-  static constexpr int SST = kF32BK + 1;  // of 8 consecutive rows are conflict-free
-  static constexpr size_t smem_bytes =
-      sizeof(float) * ((kF32BQ + 2 * kF32BK) * ST + kF32BQ * SST + 2 * kF32BQ);
-};
-
-template <int C>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int rows) {
-  constexpr int V = C / 4;
-  constexpr int ST = F32Cfg<C>::ST;
-  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 4;
-    *reinterpret_cast<float4*>(dst + r * ST + c) =
-        *reinterpret_cast<const float4*>(src + (size_t)r * C + c);
-  }
-}
-
-// LSE: write the row logsumexp (the flash variant writes none).
-template <int C, bool LSE>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int L, int l_valid, float scale) {
-  constexpr int BQ = kF32BQ, BK = kF32BK;
-  constexpr int ST = F32Cfg<C>::ST, SST = F32Cfg<C>::SST;
-  // phase 3: a lane holds VW consecutive channels of each 32 VW-wide chunk
-  constexpr int VW = C >= 128 ? 4 : 2, NJ = C / (32 * VW);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + BQ * ST;
-  float* Vs = Ks + BK * ST;
-  float* Ss = Vs + BK * ST;
-  float* s_alpha = Ss + BQ * SST;
-  float* s_l = s_alpha + BQ;
-
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t img = (size_t)b * L * C;
-  load_tile_f32<C>(Qs, q + img + (size_t)q0 * C, BQ);
-
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;      // phase 1
-  const int p_row = threadIdx.x / 8, p_part = threadIdx.x % 8;  // phase 2
-  float m_run = -INFINITY, l_run = 0.f;
-  float acc[4][NJ][VW];                                         // phase 3
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < VW; ++e) acc[r][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < l_valid; k0 += BK) {
-    __syncthreads();
-    load_tile_f32<C>(Ks, k + img + (size_t)k0 * C, BK);
-    load_tile_f32<C>(Vs, v + img + (size_t)k0 * C, BK);
-    __syncthreads();
-
-    // ---- 1. S[ty + 16a][tx + 16b] = q . k * scale
-    {
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      const float* qr0 = Qs + ty * ST;
-      const float* qr1 = Qs + (ty + 16) * ST;
-      const float* kr0 = Ks + tx * ST;
-      const float* kr1 = Ks + (tx + 16) * ST;
-#pragma unroll 4
-      for (int d = 0; d < C; d += 4) {
-        const float4 a0 = *reinterpret_cast<const float4*>(qr0 + d);
-        const float4 a1 = *reinterpret_cast<const float4*>(qr1 + d);
-        const float4 b0 = *reinterpret_cast<const float4*>(kr0 + d);
-        const float4 b1 = *reinterpret_cast<const float4*>(kr1 + d);
-        s[0][0] += a0.x * b0.x + a0.y * b0.y + a0.z * b0.z + a0.w * b0.w;
-        s[0][1] += a0.x * b1.x + a0.y * b1.y + a0.z * b1.z + a0.w * b1.w;
-        s[1][0] += a1.x * b0.x + a1.y * b0.y + a1.z * b0.z + a1.w * b0.w;
-        s[1][1] += a1.x * b1.x + a1.y * b1.y + a1.z * b1.z + a1.w * b1.w;
-      }
-      const bool live0 = k0 + tx < l_valid, live1 = k0 + tx + 16 < l_valid;
-      Ss[ty * SST + tx] = live0 ? s[0][0] * scale : -INFINITY;
-      Ss[ty * SST + tx + 16] = live1 ? s[0][1] * scale : -INFINITY;
-      Ss[(ty + 16) * SST + tx] = live0 ? s[1][0] * scale : -INFINITY;
-      Ss[(ty + 16) * SST + tx + 16] = live1 ? s[1][1] * scale : -INFINITY;
-    }
-    __syncthreads();
-
-    // ---- 2. online softmax, 8 threads per row; P overwrites S in place
-    {
-      float* srow = Ss + p_row * SST;
-      float mx = -INFINITY;
-      for (int c = p_part; c < BK; c += 8) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-      for (int c = p_part; c < BK; c += 8) {
-        const float p = expf(srow[c] - m_new);
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      const float alpha = expf(m_run - m_new);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if (p_part == 0) s_alpha[p_row] = alpha;
-    }
-    __syncthreads();
-
-    // ---- 3. rows warp*4 .. +3, columns lane*VW + 32 VW j
-    {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float al = s_alpha[warp * 4 + r];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < VW; ++e) acc[r][j][e] *= al;
-      }
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float p[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) p[r] = Ss[(warp * 4 + r) * SST + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          float vv[VW];
-          load_vw<VW>(Vs + kk * ST + lane * VW + 32 * VW * j, vv);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int e = 0; e < VW; ++e) acc[r][j][e] += p[r] * vv[e];
-        }
-      }
-    }
-  }
-
-  if (p_part == 0) {
-    s_l[p_row] = l_run;
-    if (LSE) lse[(size_t)b * L + q0 + p_row] = m_run + logf(l_run);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = warp * 4 + r;
-    const float inv = 1.f / s_l[row];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float out[VW];
-#pragma unroll
-      for (int e = 0; e < VW; ++e) out[e] = acc[r][j][e] * inv;
-      store_vw<VW>(o + img + (size_t)(q0 + row) * C + lane * VW + 32 * VW * j, out);
-    }
-  }
-}
-
-template <int C, bool LSE>
-int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-               int L, int l_valid, float scale, cudaStream_t stream) {
-  auto kernel = attn_fwd_f32_kernel<C, LSE>;
-  const size_t smem = F32Cfg<C>::smem_bytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(L / kF32BQ, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), L, l_valid, scale);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA, warp-specialized (see the top of the file)
@@ -479,7 +296,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// fp32 at C = 64, 128, 256: split-precision wgmma (see the top of the file)
+// fp32: split-precision wgmma (see the top of the file)
 // ---------------------------------------------------------------------------
 
 namespace sp {
@@ -687,27 +504,34 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// scratch: NP * 3 * B * L * C bf16 (the pieces of q, k, v).
+// The pre-pass into scratch: NP * 3 * n bf16 (the pieces of q, k, v; n =
+// B L C elements each).
+int split_operands(const void* q, const void* k, const void* v, __nv_bfloat16* pieces, size_t n,
+                   cudaStream_t stream) {
+  const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 132 * 8);
+  attn_fwd_split_operands_kernel<<<dim3(blocks, 3), 256, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      pieces, n);
+  return (int)cudaGetLastError();
+}
+
 template <int C, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
            int B, int L, int l_valid, float scale, cudaStream_t stream) {
   using K = Cfg<C>;
   const size_t n = (size_t)B * L * C;
   __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
-  const int blocks = (int)std::min<size_t>((n / 8 + 255) / 256, 132 * 8);
-  attn_fwd_split_operands_kernel<<<dim3(blocks, 3), 256, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      pieces, n);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int err = split_operands(q, k, v, pieces, n, stream);
+  if (err) return err;
   CUtensorMap tq, tk, tv;
   const uint64_t rows = (uint64_t)NP * B * L;
-  int err = hopper::make_map_bf16(&tq, pieces, rows, C, K::BQ);
+  err = hopper::make_map_bf16(&tq, pieces, rows, C, K::BQ);
   if (!err) err = hopper::make_map_bf16(&tk, pieces + NP * n, rows, C, K::BK);
   if (!err) err = hopper::make_map_bf16(&tv, pieces + 2 * NP * n, rows, C, K::BK);
   if (err) return err;
   auto kernel = attn_fwd_split_wgmma_kernel<C, LSE>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3(L / K::BQ, B), K::THREADS, K::SMEM, stream>>>(
       tq, tk, tv, static_cast<float*>(o), static_cast<float*>(lse), L, B * L, l_valid,
@@ -715,10 +539,308 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, void
   return (int)cudaGetLastError();
 }
 
+// ---- C = 512 ---------------------------------------------------------------
+//
+// A 64-row piece tile is 64 KB at C = 512 and a 64 x 512 fp32 O 256
+// registers a thread, so the C <= 256 layout (three Q pieces resident, one
+// warpgroup owning O) does not fit. As the fp32 backward at C = 512
+// (attention_bwd.cu, run_block_wide): a block owns 64 query rows and one
+// half of O's channels (W = 256: 128 registers, as at C = 256; blockIdx.z =
+// half), and every piece tile is 64 rows x 256 columns (32 KB, one column
+// block; a 512-wide row is two). Q_0's two column blocks stay resident (64
+// KB); the other tiles stream through a ring of five, per key tile:
+//   S: Q1 K2 K1 K0 Q2 of column block 0, then of column block 1, chains
+//     S += (0,2) | (1,1) (0,1) | (1,0), frees Q1 | (2,0), and on the last
+//     column block (0,0), frees the rest; then K0 of block 0 again for
+//     block 0's (0,0). S is a contraction over all 512 channels in one
+//     accumulator, and every small piece product goes in before either
+//     leading (0, 0) one: the tensor core's fp32 accumulation rounds each
+//     step to the accumulator's size (a second accumulator beside O would
+//     spill; without the deferral the backward's peaked-softmax test failed);
+//   the online softmax as at C <= 256, P split into three register pieces;
+//   O += P_i V_j over the block's half: V2 V1 V0, smallest first.
+// Both halves take the column blocks in the same order, so they form the
+// same S and P bit for bit, and half 0 writes the lse. No more than five
+// tiles are live at once, and every tile is freed before the tile five later
+// needs its slot, so the ring cannot deadlock. The price of the halves: S is
+// formed twice, 36 piece products of 64 x 64 x 256 per pair of blocks and
+// key tile against the 24 of one pass; the grid, (L / 64, B, 2), is twice
+// as many blocks as one 512-channel block per 64 rows would give.
+constexpr int WIDE_C = 512, W = 256, CB = WIDE_C / W;  // two 256-column blocks
+
+struct WideCfg {
+  static constexpr int BR = 64, TILES = 7, STAGES = TILES - CB, THREADS = 160;
+  static constexpr uint32_t TILE = BR * W * 2;  // one piece of a 64 x 256 tile
+  // the tiles, 1 + 2 STAGES mbarriers
+  static constexpr size_t SMEM = 1024 + TILES * TILE + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// One (64, 256) piece tile by TMA: four 64 x 64 boxes from column col0.
+__device__ __forceinline__ void load_wide_tile(unsigned char* dst, const CUtensorMap* map,
+                                               uint64_t* bar, int row, int col0) {
+#pragma unroll
+  for (int ch = 0; ch < W / 64; ++ch)
+    hopper::tma_load_2d(dst + ch * WideCfg::BR * 128, map, bar, col0 + ch * 64, row);
+}
+
+// d (64 x 64) (+)= A B^T over one 256-column block, A and B piece tiles in
+// shared memory (descriptors of their first byte), both K-major; issued, not
+// committed. `first`: the key tile's first product (scale-d 0). The
+// descriptors pass through opaque() so that ptxas derives each wgmma's where
+// it is issued instead of holding a chain's ahead of it.
+__device__ __forceinline__ void mma_wide(float (&d)[WideCfg::BR / 2], uint64_t da, uint64_t db,
+                                         bool first) {
+  da = hopper::opaque(da);
+  db = hopper::opaque(db);
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * WideCfg::BR * 128 + (kk % 4) * 32) >> 4;
+    hopper::wgmma_ss<WideCfg::BR>(d, da + off, db + off, !(first && kk == 0));
+  }
+}
+
+// tm: the (3 NP B L, 512) bf16 map over the pieces (piece p of row r of
+// operand t, q k v, at row (t NP + p) B L + r), boxes of 64 columns x 64
+// rows. o: (B L, 512) fp32. blockIdx.z: O's channel half.
+template <bool LSE>
+__global__ void __launch_bounds__(WideCfg::THREADS, 1)
+attn_fwd_split512_wgmma_kernel(const __grid_constant__ CUtensorMap tm, float* __restrict__ o,
+                               float* __restrict__ lse, int L, int BL, int l_valid,
+                               float scale_log2) {
+  using namespace hopper;
+  using K = WideCfg;
+  constexpr int BR = K::BR, STAGES = K::STAGES;
+  constexpr uint32_t TILE = K::TILE;
+  constexpr int ITEMS = 5 * CB + 1 + NP;  // piece tiles a key tile: S's, K0 again, V's
+  enum { OPQ, OPK, OPV };
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = align_1024(smem_raw);  // Q_0: [CB][W / 64][BR][64]
+  unsigned char* ring = res + CB * TILE;      // [STAGES][W / 64][BR][64]
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(ring + STAGES * TILE);
+  uint64_t* full = res_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int half = blockIdx.z;  // O's channels half W .. + W - 1
+  const int row0 = blockIdx.y * L, rq = row0 + blockIdx.x * BR;
+  const int n_tiles = (l_valid + BR - 1) / BR;  // the live key tiles
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(res_full, CB * TILE);
+      for (int c = 0; c < CB; ++c) load_wide_tile(res + c * TILE, &tm, res_full, rq, c * W);
+      int n = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int rk = row0 + it * BR;
+        for (int k = 0; k < ITEMS; ++k, ++n) {
+          // (operand, piece, row, column block) of the key tile's k-th item
+          int op, p, r, c;
+          if (k < 5 * CB) {  // Q1 K2 K1 K0 Q2 of column block k / 5
+            const int j = k % 5;
+            const bool is_q = j == 0 || j == 4;
+            op = is_q ? OPQ : OPK, p = j == 0 ? 1 : j == 4 ? 2 : 3 - j, r = is_q ? rq : rk;
+            c = k / 5;
+          } else if (k == 5 * CB) {  // K0 of column block 0 again
+            op = OPK, p = 0, r = rk, c = 0;
+          } else {  // V2 V1 V0 of the block's half
+            op = OPV, p = NP - 1 - (k - 5 * CB - 1), r = rk, c = half;
+          }
+          const int s = n % STAGES;
+          mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], TILE);
+          load_wide_tile(ring + s * TILE, &tm, &full[s], (op * NP + p) * BL + r, c * W);
+        }
+      }
+    }
+    return;
+  }
+  // ---- the consumer warpgroup
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};  // rows g, g + 8
+
+  mbar_wait(res_full, 0);
+  int n = 0;  // piece tiles taken from the ring
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint64_t dres = desc_kmajor(opaque(smem_u32(res)));
+    const uint64_t dring = desc_kmajor(opaque(smem_u32(ring)));
+    const uint64_t dring_mn = desc_mnmajor(opaque(smem_u32(ring)), BR * 128);
+    auto slot = [&](int item) { return dring + ((item % STAGES) * TILE >> 4); };
+    auto wait = [&](int item) { mbar_wait(&full[item % STAGES], (item / STAGES) & 1); };
+    auto free_slot = [&](int item) { mbar_arrive(&empty[item % STAGES]); };
+
+    // S = sum of Q_i K_j^T over both column blocks (raw logits; the scale is
+    // folded into the exponent), each column block's items Q1 K2 K1 K0 Q2
+    float sc[BR / 2];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      const uint64_t q0 = dres + ((c * TILE) >> 4);
+      wait(n + 1);
+      if (c) fence_regs(sc);
+      wgmma_fence();
+      mma_wide(sc, q0, slot(n + 1), c == 0);  // (0, 2)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      wait(n);
+      wait(n + 2);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_wide(sc, slot(n), slot(n + 2), false);  // (1, 1)
+      mma_wide(sc, q0, slot(n + 2), false);       // (0, 1)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      wait(n + 3);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_wide(sc, slot(n), slot(n + 3), false);  // (1, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) free_slot(n);  // Q1
+      wait(n + 4);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_wide(sc, slot(n + 4), slot(n + 3), false);       // (2, 0)
+      if (c == CB - 1) mma_wide(sc, q0, slot(n + 3), false);  // (0, 0)
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0)
+        for (int i = 1; i < 5; ++i) free_slot(n + i);  // K2 K1 K0 Q2
+      n += 5;
+    }
+    // item n: K0 of column block 0 again, for its (0, 0)
+    wait(n);
+    fence_regs(sc);
+    wgmma_fence();
+    mma_wide(sc, dres, slot(n), false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) free_slot(n);
+    n += 1;
+    mask_keys<BR, true>(sc, it * BR, l_valid, warp, g, tq);
+
+    // online softmax in the log2 domain, rows g (h = 0) and g + 8 (h = 1)
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_row[h], mx * scale_log2);
+      alpha[h] = exp2f(m_row[h] - m_new);
+      m_row[h] = m_new;
+      l_row[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[4 * j + e], scale_log2, -m_row[e / 2]));
+        sc[4 * j + e] = p;
+        l_row[e / 2] += p;
+      }
+    }
+    uint32_t pa[NP][BR / 16][4];
+    acc_to_a_pieces<BR / 8, NP>(sc, pa);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // O += sum over i + j <= 2 of P_i V_j over the block's half, one drained
+    // chain per V piece, V_{2-q} at item n + q
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int s = (n + q) % STAGES;
+      wait(n + q);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+        for (int i = q; i >= 0; --i)
+          wgmma_rs_mn<W>(acc, pa[i][kk], dring_mn + ((s * TILE + kk * 16 * 128) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    n += NP;
+  }
+
+  // O / l, lse = m + log(l) (natural log; half 0 writes it)
+  float inv[2];
+  const int row = rq + warp * 16 + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_row[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[h] = 1.f / l;
+    if (LSE && half == 0 && tq == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
+  }
+  float* orow = o + (size_t)row * WIDE_C + half * W + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    *reinterpret_cast<float2*>(orow + 8 * j) =
+        make_float2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
+    *reinterpret_cast<float2*>(orow + 8 * WIDE_C + 8 * j) =
+        make_float2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
+  }
+}
+
+template <bool LSE>
+int launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
+                int B, int L, int l_valid, float scale, cudaStream_t stream) {
+  using K = WideCfg;
+  __nv_bfloat16* pieces = static_cast<__nv_bfloat16*>(scratch);
+  int err = split_operands(q, k, v, pieces, (size_t)B * L * WIDE_C, stream);
+  if (err) return err;
+  CUtensorMap tm;
+  err = hopper::make_map_bf16(&tm, pieces, (uint64_t)3 * NP * B * L, WIDE_C, K::BR);
+  if (err) return err;
+  auto kernel = attn_fwd_split512_wgmma_kernel<LSE>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(L / K::BR, B, CB), K::THREADS, K::SMEM, stream>>>(
+      tm, static_cast<float*>(o), static_cast<float*>(lse), L, B * L, l_valid,
+      scale * hopper::kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sp
 
-// fp32 forward, with or without the lse: the split-precision kernel at C <= 256,
-// the FMA kernel at C = 512.
+// fp32 forward, with or without the lse: split precision at every width.
 template <bool LSE>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch,
                 int B, int L, int C, int lv, float scale, cudaStream_t s) {
@@ -726,7 +848,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
     case 64: return sp::launch<64, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
     case 128: return sp::launch<128, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
     case 256: return sp::launch<256, LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
-    case 512: return launch_f32<512, LSE>(q, k, v, o, lse, B, L, lv, scale, s);
+    case 512: return sp::launch_wide<LSE>(q, k, v, o, lse, scratch, B, L, lv, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -748,8 +870,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
 extern "C" {
 
 // q, k, v, o: (B, L, C) contiguous, 16-byte aligned, fp32 (dtype 0) or bf16
-// (dtype 1); lse: (B, L) fp32. scratch: for fp32 at C <= 256, 9 B L C bf16
-// (the operand pieces), else unused. Takes C in {64, 128, 256, 512} and L %
+// (dtype 1); lse: (B, L) fp32. scratch: for fp32, 9 B L C bf16 (the
+// operand pieces), else unused. Takes C in {64, 128, 256, 512} and L %
 // 128 == 0 (the Python wrapper pads other shapes to these and raises
 // outside them); keys at or past l_valid (1 <= l_valid <= L) are masked.
 // Returns a CUDA error code (cudaGetLastError() after the launch).

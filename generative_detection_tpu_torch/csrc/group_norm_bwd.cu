@@ -23,12 +23,18 @@
 //        group sums (the m2 and m1 numerators) to grp[b][tile][2][G].
 //   (ii) gn_bwd_dx (B4d): block (tile, b) folds the forward stats and grp of
 //        image b, reads x and dy again and writes dx in the input dtype. The
-//        first blocks also fold chan over (b, tile) into dgamma and dbeta.
+//        first 2C / 32 blocks also fold chan over (b, tile) into dgamma and
+//        dbeta, 32 columns a block and 8 warps down the rows, not one
+//        block's threads down all of them.
 //
 // Bound on the H100: memory. The function must read x and dy once and write
-// dx once; the kernels read x and dy twice (the second read partly from L2)
-// and write dx once, with 16-byte vector accesses by consecutive threads on
-// consecutive channels. Statistics and all sums are fp32.
+// dx once; the kernels read x and dy twice (the second read from L2 only
+// where the pair fits it) and write dx once, with 16-byte vector accesses by
+// consecutive threads on consecutive channels (bf16: four rows of x and dy
+// a thread in flight). The SiLU's derivative takes the fast exp and
+// reciprocal (one MUFU operation each). Statistics and all sums are fp32.
+// One launch that reads x and dy from HBM once lost to these two, in two
+// designs (PERF.md records the ablations).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,16 +44,24 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// N: values in 16 bytes. U: rows of 16-byte loads of x and of dy a thread of
+// the two launches has in flight (bf16: four; fp32, whose four values a load
+// carry half the arithmetic, is bound by HBM at one, and more lose)
 template <typename T> struct VecTraits;
-template <> struct VecTraits<float> { static constexpr int N = 4; };
-template <> struct VecTraits<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct VecTraits<float> { static constexpr int N = 4, U = 1; };
+template <> struct VecTraits<__nv_bfloat16> { static constexpr int N = 8, U = 4; };
 
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  float4 u = *reinterpret_cast<const float4*>(p);
-  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
+// 16 bytes of a row (N values): loaded raw, unpacked to fp32 where they are used
+__device__ __forceinline__ uint4 load_raw(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack(uint4 u, float* out, float) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(uint4 u, float* out, __nv_bfloat16) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -91,7 +105,7 @@ template <bool SILU>
 __device__ __forceinline__ float grad_z(float xhat, float dy, float ga, float be) {
   if (!SILU) return dy;
   const float z = xhat * ga + be;
-  const float sig = 1.f / (1.f + expf(-z));
+  const float sig = __frcp_rn(1.f + __expf(-z));
   return dy * sig * (1.f + z * (1.f - sig));
 }
 
@@ -102,7 +116,7 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      const float* __restrict__ beta, float* __restrict__ chan,
                      float* __restrict__ grp, int L, int C, int G, int rows_per_tile,
                      int tiles, float eps) {
-  constexpr int N = VecTraits<T>::N;
+  constexpr int N = VecTraits<T>::N, U = VecTraits<T>::U;
   const int lanes = C / N, rpi = kThreads / lanes;
   extern __shared__ float smem[];
   float* s_mean = smem;                   // [G]
@@ -130,17 +144,28 @@ gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const int row0 = tile * rows_per_tile;
     const int row1 = min(row0 + rows_per_tile, L);
     const size_t off = (size_t)b * L * C + lane * N;
-    for (int row = row0 + ri; row < row1; row += rpi) {
-      float xv[N], gv[N];
-      load_vec(x + off + (size_t)row * C, xv);
-      load_vec(dy + off + (size_t)row * C, gv);
+    for (int row = row0 + ri; row < row1; row += U * rpi) {
+      uint4 xr[U], gr[U];
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xhat = (xv[j] - m[j]) * r[j];
-        const float dz = grad_z<SILU>(xhat, gv[j], ga[j], be[j]);
-        sdx[j] += dz * xhat;
-        sd[j] += dz;
-      }
+      for (int u = 0; u < U; ++u)
+        if (row + u * rpi < row1) {
+          xr[u] = load_raw(x + off + (size_t)(row + u * rpi) * C);
+          gr[u] = load_raw(dy + off + (size_t)(row + u * rpi) * C);
+        }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (row + u * rpi < row1) {
+          float xv[N], gv[N];
+          unpack(xr[u], xv, T());
+          unpack(gr[u], gv, T());
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const float xhat = (xv[j] - m[j]) * r[j];
+            const float dz = grad_z<SILU>(xhat, gv[j], ga[j], be[j]);
+            sdx[j] += dz * xhat;
+            sd[j] += dz;
+          }
+        }
     }
 #pragma unroll
     for (int j = 0; j < N; ++j) {
@@ -179,7 +204,7 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                  const float* __restrict__ grp, T* __restrict__ dx,
                  float* __restrict__ dgb, int B, int L, int C, int G, int rows_per_tile,
                  int tiles, float eps) {
-  constexpr int N = VecTraits<T>::N;
+  constexpr int N = VecTraits<T>::N, U = VecTraits<T>::U;
   extern __shared__ float smem[];  // [4][G]: mean, rstd, m1, m2
   float* s_mean = smem;
   float* s_rstd = smem + G;
@@ -199,15 +224,28 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     s_m2[g] = s2 / denom;
   }
 
-  // dgamma, dbeta: the first blocks fold chan over (b, tile) in a fixed order.
-  const int nblocks = gridDim.x * gridDim.y;
-  for (int k = (blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x; k < 2 * C;
-       k += nblocks * kThreads) {
+  // dgamma, dbeta: block j folds chan's columns 32 j .. 32 j + 31 (and j +
+  // the grid's blocks, ...) over (b, tile): warp w the rows w, w + 8, ... in
+  // order, then the eight warps' sums in warp order.
+  __shared__ float s_fold[kThreads / 32][32];
+  const int nblocks = gridDim.x * gridDim.y, w = threadIdx.x / 32, wl = threadIdx.x % 32;
+  for (int cb = blockIdx.y * gridDim.x + blockIdx.x; cb * 32 < 2 * C; cb += nblocks) {
+    const int k = cb * 32 + wl;
     float acc = 0.f;
-    for (int bt = 0; bt < B * tiles; ++bt) acc += chan[(size_t)bt * 2 * C + k];
-    dgb[k] = acc;
+    if (k < 2 * C) {
+#pragma unroll 4
+      for (int bt = w; bt < B * tiles; bt += kThreads / 32) acc += chan[(size_t)bt * 2 * C + k];
+    }
+    s_fold[w][wl] = acc;
+    __syncthreads();
+    if (w == 0 && k < 2 * C) {
+      float sum = 0.f;
+      for (int i = 0; i < kThreads / 32; ++i) sum += s_fold[i][wl];
+      dgb[k] = sum;
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  __syncthreads();  // the stats above, for blocks that folded no columns
 
   const int lanes = C / N, rpi = kThreads / lanes;
   const int lane = threadIdx.x % lanes, ri = threadIdx.x / lanes;
@@ -227,17 +265,28 @@ gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int row0 = tile * rows_per_tile;
   const int row1 = min(row0 + rows_per_tile, L);
   const size_t off = (size_t)b * L * C + lane * N;
-  for (int row = row0 + ri; row < row1; row += rpi) {
-    float xv[N], gv[N];
-    load_vec(x + off + (size_t)row * C, xv);
-    load_vec(dy + off + (size_t)row * C, gv);
+  for (int row = row0 + ri; row < row1; row += U * rpi) {
+    uint4 xr[U], gr[U];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float xhat = (xv[j] - m[j]) * r[j];
-      const float dz = grad_z<SILU>(xhat, gv[j], ga[j], be[j]);
-      xv[j] = (dz * ga[j] - m1[j] - xhat * m2[j]) * r[j];
-    }
-    store_vec(dx + off + (size_t)row * C, xv);
+    for (int u = 0; u < U; ++u)
+      if (row + u * rpi < row1) {
+        xr[u] = load_raw(x + off + (size_t)(row + u * rpi) * C);
+        gr[u] = load_raw(dy + off + (size_t)(row + u * rpi) * C);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (row + u * rpi < row1) {
+        float xv[N], gv[N];
+        unpack(xr[u], xv, T());
+        unpack(gr[u], gv, T());
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float xhat = (xv[j] - m[j]) * r[j];
+          const float dz = grad_z<SILU>(xhat, gv[j], ga[j], be[j]);
+          xv[j] = (dz * ga[j] - m1[j] - xhat * m2[j]) * r[j];
+        }
+        store_vec(dx + off + (size_t)(row + u * rpi) * C, xv);
+      }
   }
 }
 
@@ -264,6 +313,7 @@ int launch(const void* x, const void* dy, const void* partial, const void* gamma
       C, G, rows_per_tile, tiles, eps);
   return (int)cudaGetLastError();
 }
+
 
 }  // namespace
 

@@ -16,11 +16,12 @@ Kernel notes:
   in TPU VMEM. Hopper's 227 KB of shared memory cannot: the kernel streams
   K/V tiles with an online softmax. bf16 runs a warp-specialized kernel (a
   TMA producer, two ``wgmma`` consumer warpgroups, S and P in registers; at
-  C = 512 the warpgroups split O's channels). fp32 at C <= 256 runs both
-  products on the tensor cores at fp32 accuracy: a pre-pass splits q, k and
+  C = 512 the warpgroups split O's channels). fp32 runs both products on
+  the tensor cores at fp32 accuracy: a pre-pass splits q, k and
   v into three bf16 pieces each (into scratch this wrapper allocates, 18
   bytes an element), and each product is the six piece products with
-  i + j <= 2 (split-precision ``wgmma``); fp32 at C = 512 runs FMA. At
+  i + j <= 2 (split-precision ``wgmma``); at C = 512 a block owns half of
+  O's channels and forms S over all 512 from 256-column piece tiles. At
   (B, 4096, 256) it is compute-bound; at (B, 256, 512) memory-bound.
 - backward: replaces ``_mha_bwd_call`` (kernel ``_mha_bwd_kernel``), one
   k-major pass with two (L, C) fp32 accumulators in VMEM. On the H100 it is
@@ -28,7 +29,7 @@ Kernel notes:
   bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
   one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
   C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices.
-  fp32 at every width (``SPLIT_BWD_CHANNELS``) runs all five products
+  fp32 at every width runs all five products
   split-precision, as the forward: a pre-pass splits q, k, v and dO into
   three bf16 pieces each (into scratch this wrapper allocates, 24 bytes an
   element of q), then one launch whose blocks each accumulate dK, dQ or dV
@@ -70,11 +71,8 @@ from . import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = (64, 128, 256, 512)
 KERNEL_L_MULTIPLE = 128  # the JAX package's gate (l % 128 == 0); the forward's q tile
-# fp32 widths that take the split-precision kernels, forward and backward,
-# and the bf16 pieces they keep in scratch, three of each operand: q, k, v
-# (forward), and dO (backward)
-SPLIT_CHANNELS = (64, 128, 256)
-SPLIT_BWD_CHANNELS = (64, 128, 256, 512)
+# The bf16 pieces the split-precision kernels keep in scratch, three of each
+# operand: q, k, v (forward), and dO (backward)
 SPLIT_PIECES = 9
 SPLIT_BWD_PIECES = 12
 
@@ -191,19 +189,16 @@ def _check_kernel_args(*tensors):
 
 
 def split_precision(q) -> bool:
-    """Whether an attention forward on ``q`` on the card (either entry
-    point) runs the split-precision kernel: fp32 at C in ``SPLIT_CHANNELS``
-    (``q`` on the kernels' grid)."""
-    return q.dtype == torch.float32 and q.shape[-1] in SPLIT_CHANNELS
+    """Whether attention on ``q`` on the card (either forward entry point,
+    and the backward) runs the split-precision kernels: fp32, at every
+    width of the kernels' grid."""
+    return q.dtype == torch.float32
 
 
-def split_precision_backward(q) -> bool:
-    """Whether an attention backward on ``q`` on the card runs the
-    split-precision kernels: fp32 at C in ``SPLIT_BWD_CHANNELS``."""
-    return q.dtype == torch.float32 and q.shape[-1] in SPLIT_BWD_CHANNELS
-
-
-split_precision.launches = 0  # forward calls that launched the split-precision kernel
+# forward calls that launched the split-precision kernel: at C <= 256
+# (attn_fwd_split_wgmma_kernel), and at C = 512 (attn_fwd_split512_wgmma_kernel)
+split_precision.launches = 0
+split_precision_512 = SimpleNamespace(launches=0)
 # backward calls that launched the split-precision kernels: at C <= 256
 # (attn_bwd_split_wgmma_kernel), and at C = 512 (attn_bwd_split512_wgmma_kernel)
 split_backward = SimpleNamespace(launches=0)
@@ -214,13 +209,13 @@ def _split_scratch(q, backward=False):
     """The bf16 pieces (of q, k, v, and dO in the backward) that the
     split-precision kernels write and read, or None where the kernels need
     none."""
-    if not (split_precision_backward(q) if backward else split_precision(q)):
+    if not split_precision(q):
         return None
     pieces = SPLIT_BWD_PIECES if backward else SPLIT_PIECES
     return torch.empty(pieces * q.numel(), dtype=torch.bfloat16, device=q.device)
 
 
-def _count_split(scratch, counter=split_precision) -> None:
+def _count_split(scratch, counter) -> None:
     if scratch is not None:
         counter.launches += 1
 
@@ -245,7 +240,7 @@ def _launch_fwd(q, k, v, l_valid, scale):
     )
     _build.check(lib, rc, "attention kernel launch")
     single_head_attention.launches += 1
-    _count_split(scratch)
+    _count_split(scratch, split_precision_512 if c == 512 else split_precision)
     return o, lse
 
 
@@ -265,7 +260,7 @@ def _launch_flash(q, k, v, l_valid, scale):
     )
     _build.check(lib, rc, "flash attention kernel launch")
     flash_attention_forward.launches += 1
-    _count_split(scratch)
+    _count_split(scratch, split_precision_512 if c == 512 else split_precision)
     return o
 
 

@@ -1,7 +1,7 @@
 """The split-precision design of the port's fp32 attention, forward and
 backward, on the CPU.
 
-On the card, fp32 attention at C in ``SPLIT_CHANNELS`` runs every product on
+On the card, fp32 attention at every width runs every product on
 the bf16 tensor cores: every fp32 operand x becomes three bf16 pieces, each
 the round-to-nearest-even bf16 of what the earlier pieces leave, and each
 product sums the six piece products with i + j <= 2 in fp32 (the backward
@@ -11,7 +11,10 @@ fp32 bits, so the design is held to the fp32 gate here (max |err| <= 1e-3
 RMS of the plain output, as on the card) against the port's plain versions
 and the JAX package's Pallas kernels in interpret mode. A single TF32 pass
 (the tensor core's other fp32 input type, 10 mantissa bits) misses that gate:
-the split is what makes the tensor cores usable for fp32.
+the split is what makes the tensor cores usable for fp32. At C = 512 the
+forward forms S from 256-column piece tiles in one fp32 accumulator, every
+small piece product before either leading one; ``_kernel_512_forward``
+repeats that order, with the kernel's online softmax over 64-key tiles.
 """
 
 import jax
@@ -20,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from generative_detection_tpu.ops.attention import _attention_pallas, _make_attention_custom
+from generative_detection_tpu.ops.attention import (
+    _attention_pallas, _make_attention_custom, _mha_fwd_call,
+)
 from generative_detection_tpu_torch.ops import attention
 
 FP32_REL_TOL = 1e-3  # ATTN_REL_TOL[float32] of the card tests and chip_smoke.py
@@ -82,6 +87,45 @@ def _emulated_backward(q, k, v, do, lse, di, matmul):
             matmul("blm,blc->bmc", p, do))
 
 
+# The C = 512 forward's order of S's piece products (i, j) of Q_i K_j^T over
+# 256-column block cb: each block's small ones, block 1's leading (0, 0), and
+# block 0's (0, 0) last (from its K_0 streamed again).
+S_ORDER_512 = ([(0, 2, 0), (1, 1, 0), (0, 1, 0), (1, 0, 0), (2, 0, 0)]
+               + [(0, 2, 1), (1, 1, 1), (0, 1, 1), (1, 0, 1), (2, 0, 1), (0, 0, 1)]
+               + [(0, 0, 0)])
+
+
+def _kernel_512_forward(q, k, v, bk=64, w=256):
+    """``attn_fwd_split512_wgmma_kernel``'s arithmetic in its order, each
+    piece product exact in fp32 and summed in fp32: per tile of ``bk`` keys,
+    S from ``S_ORDER_512``; the online softmax in the log2 domain (running
+    max m, P = 2^(S scale log2(e) - m), l rescaled by 2^(m_old - m)); O
+    rescaled, then O += P_i V_j over V_2, V_1, V_0 (i <= 2 - j, small
+    first). Returns (O / l, lse)."""
+    log2e = 1.4426950408889634
+    scale_log2 = q.shape[-1] ** -0.5 * log2e
+    qp, kp, vp = (_pieces(t, 3) for t in (q, k, v))
+    acc = torch.zeros_like(q)
+    m = torch.full(q.shape[:2], float("-inf"))
+    lsum = torch.zeros(q.shape[:2])
+    for k0 in range(0, k.shape[1], bk):
+        keys = slice(k0, k0 + bk)
+        s = torch.zeros(q.shape[0], q.shape[1], bk)
+        for i, j, cb in S_ORDER_512:
+            cols = slice(cb * w, (cb + 1) * w)
+            s = s + torch.einsum("blc,bmc->blm", qp[i][..., cols], kp[j][:, keys, cols])
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new[..., None])
+        m, lsum = m_new, lsum * alpha + p.sum(-1)
+        pp = _pieces(p, 3)
+        acc = acc * alpha[..., None]
+        for j in (2, 1, 0):
+            for i in range(2 - j, -1, -1):
+                acc = acc + torch.einsum("blm,bmc->blc", pp[i], vp[j][:, keys])
+    return acc / lsum[..., None], (m + torch.log2(lsum)) / log2e
+
+
 def _rel_max_err(got, want) -> float:
     return ((got - want).abs().max() / want.pow(2).mean().sqrt()).item()
 
@@ -141,35 +185,56 @@ def test_split_backward_meets_the_fp32_gate_and_one_tf32_pass_does_not():
         assert _rel_max_err(got, w) <= FP32_REL_TOL
 
 
+def test_split_forward_at_512_in_the_kernels_order_meets_the_fp32_gate():
+    """The C = 512 kernel's order (the deferred leading product of column
+    block 0 included) against the JAX package's ``_mha_fwd_call`` in
+    interpret mode and the port's plain version, o and lse; one TF32 pass
+    misses the gate."""
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal((2, 256, 512)).astype(np.float32) for _ in range(3)]
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    o_jax, lse_jax = _mha_fwd_call(*(jnp.asarray(a) for a in arrays), 128, True)
+    pallas = (torch.from_numpy(np.array(o_jax)), torch.from_numpy(np.array(lse_jax))[:, 0])
+    plain = attention._attention_reference(q, k, v)
+    o, lse = _kernel_512_forward(q, k, v)
+    tf32 = _emulated(q, k, v, lambda eq, a, b: torch.einsum(eq, _tf32_trunc(a), _tf32_trunc(b)))
+    for want_o, want_lse in (pallas, plain):
+        assert _rel_max_err(o, want_o) <= FP32_REL_TOL
+        assert (lse - want_lse).abs().max().item() <= 1e-3  # LSE_TOL of the card checks
+        assert _rel_max_err(tf32, want_o) > FP32_REL_TOL
+
+
 @pytest.mark.parametrize("dtype, c, split", [
     (torch.float32, 64, True), (torch.float32, 128, True), (torch.float32, 256, True),
-    (torch.float32, 512, False), (torch.bfloat16, 256, False),
+    (torch.float32, 512, True), (torch.bfloat16, 256, False),
 ])
 def test_split_precision_widths(dtype, c, split):
-    # ``split``: the forward's route (fp32 at C <= 256; C = 512 keeps FMA);
-    # the backward takes the split-precision kernels at every fp32 width
+    # ``split``: fp32 takes the split-precision kernels at every width, the
+    # forward (C = 512 since its own kernel) and the backward; bf16 never
     q = torch.zeros(1, 128, c, dtype=dtype)
     assert attention.split_precision(q) == split
-    assert attention.split_precision_backward(q) == (dtype == torch.float32)
     scratch = attention._split_scratch(q)
     assert (scratch is not None) == split
     backward = attention._split_scratch(q, backward=True)
-    assert (backward is not None) == (dtype == torch.float32)
-    if split:  # three pieces of q, k, v
+    assert (backward is not None) == split
+    if split:  # three pieces of q, k, v, and of dO in the backward
         assert scratch.dtype == torch.bfloat16 and scratch.numel() == 9 * q.numel()
-    if backward is not None:  # and of dO in the backward
         assert backward.dtype == torch.bfloat16 and backward.numel() == 12 * q.numel()
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    q = torch.randn(1, 128, 256)
-    before = (attention.split_precision.launches, attention.flash_attention_forward.launches,
-              attention.split_backward.launches, attention.attention_backward.launches)
-    assert torch.equal(attention.flash_attention_forward(q, q, q),
-                       attention._flash_reference(q, q, q))
-    o, lse = attention.single_head_attention(q, q, q, return_lse=True)
-    got = attention.attention_backward(q, q, q, o, lse, q)
-    want = attention._attention_backward_reference(q, q, q, q, lse, (q * o).sum(-1))
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert (attention.split_precision.launches, attention.flash_attention_forward.launches,
-            attention.split_backward.launches, attention.attention_backward.launches) == before
+    for c in (256, 512):
+        q = torch.randn(1, 128, c)
+        before = (attention.split_precision.launches, attention.split_precision_512.launches,
+                  attention.flash_attention_forward.launches, attention.split_backward.launches,
+                  attention.split_backward_512.launches, attention.attention_backward.launches)
+        assert torch.equal(attention.flash_attention_forward(q, q, q),
+                           attention._flash_reference(q, q, q))
+        o, lse = attention.single_head_attention(q, q, q, return_lse=True)
+        got = attention.attention_backward(q, q, q, o, lse, q)
+        want = attention._attention_backward_reference(q, q, q, q, lse, (q * o).sum(-1))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert (attention.split_precision.launches, attention.split_precision_512.launches,
+                attention.flash_attention_forward.launches, attention.split_backward.launches,
+                attention.split_backward_512.launches,
+                attention.attention_backward.launches) == before

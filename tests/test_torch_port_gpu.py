@@ -22,10 +22,10 @@ from generative_detection_tpu_torch.train import create_train_state, make_train_
 pytestmark = pytest.mark.gpu
 REPO = Path(__file__).resolve().parents[1]
 
-# (h=w, C): the flagship's rows, and the tiny configs' C = 32 and 64 (one and
-# two channels per group)
-GN_ROWS = [(256, 128), (128, 128), (64, 128), (64, 256), (32, 256), (16, 256), (16, 512),
-           (16, 32), (32, 32), (16, 64)]
+# (h=w, C): the flagship's rows (every train-step site), and the tiny configs'
+# C = 32 and 64 (one and two channels per group)
+GN_ROWS = [(256, 128), (128, 128), (128, 256), (64, 128), (64, 256), (32, 256), (32, 512),
+           (16, 256), (16, 512), (16, 32), (32, 32), (16, 64)]
 # fp32: the same fp32 arithmetic in another order. bf16: both sides round the
 # fp32 result to bf16 (one ulp is 2^-8 relative) from values that differ in
 # the last bits.
@@ -87,19 +87,23 @@ def test_group_norm_kernel_is_deterministic(cuda):
 def test_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.single_head_attention.launches
-    split_before = attention.split_precision.launches
+    split_before = _split_forward_launches()
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     want_o, want_lse = attention._attention_reference(q, k, v)
     torch.cuda.synchronize()
     assert attention.single_head_attention.launches == before + 1
-    # fp32 at C <= 256 takes the split-precision kernel, everything else not
-    assert attention.split_precision.launches == split_before + (
-        dtype == torch.float32 and shape[-1] <= 256)
+    # fp32 takes the split-precision kernel at every width, bf16 not
+    assert _split_forward_launches() == split_before + (dtype == torch.float32)
     assert o.dtype == dtype and lse.shape == shape[:2]
     want_o = want_o.float()
     limit = ATTN_REL_TOL[dtype] * want_o.pow(2).mean().sqrt()
     assert (o.float() - want_o).abs().max() <= limit
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def _split_forward_launches():
+    """Forward calls that ran either split-precision kernel (C <= 256, C = 512)."""
+    return attention.split_precision.launches + attention.split_precision_512.launches
 
 
 def _split_backward_launches():
@@ -134,6 +138,22 @@ def test_group_norm_backward_kernel_matches_plain(cuda, hw, c, act, dtype):
         torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * w.abs().max().item())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 256, 256, 128), (16, 16, 16, 512)])
+def test_group_norm_backward_kernel_is_deterministic(cuda, shape, dtype):
+    """The flagship step's largest site (units of half or a quarter of an
+    image's channels, many tiles each) and a 16^2 site (one unit per image):
+    dx, dgamma and dbeta repeat bit for bit."""
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype)
+    dy = torch.randn(x.shape, device="cuda", generator=cuda).to(dtype)
+    _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, "silu")
+    args = (x, dy, (partial,), gamma, beta, 32, 1e-6, "silu")
+    first = norm.group_norm_backward(*args)
+    second = norm.group_norm_backward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_group_norm_autograd_runs_the_backward_kernel(cuda):
     x, gamma, beta = _gn_inputs(cuda, (2, 32, 32, 256), torch.bfloat16)
     x.requires_grad_(True)
@@ -158,7 +178,7 @@ def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     # fp32 takes the split-precision backward at every width, bf16 not
     assert (attention.attention_backward.launches, _split_backward_launches()) == (
-        before[0] + 1, before[1] + attention.split_precision_backward(q))
+        before[0] + 1, before[1] + attention.split_precision(q))
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
         _rms_close(g, w, ATTN_REL_TOL[dtype])
@@ -599,25 +619,26 @@ def test_conv_autograd_runs_the_kernels(cuda):
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(3))
     before = attention.flash_attention_forward.launches
-    split_before = attention.split_precision.launches
+    split_before = _split_forward_launches()
     o = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     assert attention.flash_attention_forward.launches == before + 1
-    assert attention.split_precision.launches == split_before + (
-        dtype == torch.float32 and shape[-1] <= 256)
+    assert _split_forward_launches() == split_before + (dtype == torch.float32)
     _rel_close(o, want, ATTN_REL_TOL[dtype])
 
 
-@pytest.mark.parametrize("c", [64, 128, 256])
-@pytest.mark.parametrize("l", [256, 1024, 4096])
+@pytest.mark.parametrize("l, c", [(l, c) for c in (64, 128, 256) for l in (256, 1024, 4096)]
+                         + [(256, 512), (1024, 512)])
 def test_split_precision_forward_matches_plain(cuda, l, c):
-    """fp32 at every width the split-precision kernel takes, through both
-    entry points: B1 with its lse, B5 without; each repeated bit for bit."""
+    """fp32 at every width, through both entry points: B1 with its lse, B5
+    without (at C = 512 the kernel that owns half of O's channels); each
+    repeated bit for bit."""
     shape = (2, l, c)
     q, k, v = (torch.randn(shape, device="cuda", generator=cuda) for _ in range(3))
+    counter = attention.split_precision_512 if c == 512 else attention.split_precision
     before = (attention.single_head_attention.launches,
-              attention.flash_attention_forward.launches, attention.split_precision.launches)
+              attention.flash_attention_forward.launches, counter.launches)
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     o2, lse2 = attention.single_head_attention(q, k, v, return_lse=True)
     f = attention.flash_attention_forward(q, k, v)
@@ -626,7 +647,7 @@ def test_split_precision_forward_matches_plain(cuda, l, c):
     want_f = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     assert (attention.single_head_attention.launches, attention.flash_attention_forward.launches,
-            attention.split_precision.launches) == (before[0] + 2, before[1] + 2, before[2] + 4)
+            counter.launches) == (before[0] + 2, before[1] + 2, before[2] + 4)
     assert o.dtype == f.dtype == torch.float32 and lse.shape == shape[:2]
     _rel_close(o, want_o, ATTN_REL_TOL[torch.float32])
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
@@ -640,13 +661,13 @@ def test_flash_attention_bf16_kernel_matches_plain(cuda, l, c):
     """B5 on bf16 inputs (P in two bf16 pieces) at every width, repeated bit
     for bit; it runs no split-precision kernel."""
     q, k, v = (torch.randn(2, l, c, device="cuda", generator=cuda).bfloat16() for _ in range(3))
-    before = attention.flash_attention_forward.launches, attention.split_precision.launches
+    before = attention.flash_attention_forward.launches, _split_forward_launches()
     o = attention.flash_attention_forward(q, k, v)
     again = attention.flash_attention_forward(q, k, v)
     want = attention._flash_reference(q, k, v)
     torch.cuda.synchronize()
     assert (attention.flash_attention_forward.launches,
-            attention.split_precision.launches) == (before[0] + 2, before[1])
+            _split_forward_launches()) == (before[0] + 2, before[1])
     assert o.dtype == torch.bfloat16
     _rel_close(o, want, ATTN_REL_TOL[torch.bfloat16])
     assert torch.equal(o, again)

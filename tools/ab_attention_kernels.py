@@ -19,9 +19,11 @@ and prints one JSON line with the card's bound (bf16 peak 989 TFLOP/s,
 at the flagship's fp32 sites at batch 8, 16 and 32 (a train step's and a
 detector request's), and B5 on fp32 and on bf16 inputs at batch 8, each
 beside SDPA on fp32 copies of q, k, v (TF32 off), with the bound of the
-split-precision route: six bf16 piece products for each of S and P V at
-C <= 256 (C = 512: fp32 on the CUDA cores, 67 TFLOP/s), three bf16
-products for B5 on bf16 inputs. B5 on bf16 inputs is also timed on fp32
+tree's route: six bf16 piece products for each of S and P V where it runs
+split precision (every C since the C = 512 kernel, C <= 256 before), else
+fp32 on the CUDA cores (67 TFLOP/s); three bf16 products for B5 on bf16
+inputs. Each fp32 forward row also gives its error with a peaked softmax
+(q and k scaled by 4) and whether a repeat is bit-equal. B5 on bf16 inputs is also timed on fp32
 copies of its inputs (the fp32 route with the inputs widened). Then the
 fp32 backward (``_attention_backward_cuda``) at (16, 4096, 256), (16, 256,
 512) and (2, 256, 64), beside fp32 SDPA's backward (its forward and
@@ -91,16 +93,25 @@ def _bound_ms(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
+def _splits(attention, c: int, backward: bool = False) -> bool:
+    """Whether the tree runs fp32 attention at width ``c`` split precision:
+    at the widths it names (older trees), else at every width."""
+    for name in ("SPLIT_BWD_CHANNELS", "SPLIT_CHANNELS")[0 if backward else 1:]:
+        if hasattr(attention, name):
+            return c in getattr(attention, name)
+    return True
+
+
 def _route_bound_ms(b, l, c, fp32: bool, nbytes: float, products: int = 2,
-                    split: bool | None = None) -> float:
+                    split: bool = True) -> float:
     """``products`` L x L x C products of 2 b l^2 c flops (2 forward, 5
-    backward): fp32 on the split-precision route (``split``; by default C <=
-    256) six bf16 piece products each, else on the CUDA cores; bf16 inputs
-    of B5: three bf16 products."""
+    backward): fp32 on the split-precision route (``split``) six bf16 piece
+    products each, else on the CUDA cores; bf16 inputs of B5: three bf16
+    products."""
     one = 2 * b * l * l * c
     if not fp32:
         t_ops = 3 * one / PEAK_FLOPS
-    elif (c <= 256) if split is None else split:
+    elif split:
         t_ops = 6 * products * one / PEAK_FLOPS
     else:
         t_ops = products * one / FP32_FLOPS
@@ -122,15 +133,22 @@ def _fp32_rows(attention, g) -> dict:
     out = {"forward_fp32": [], "flash": []}
     for b, l, c in FP32_SITES:
         q, k, v = (torch.randn(b, l, c, device="cuda", generator=g) for _ in range(3))
-        o, _ = attention.single_head_attention(q, k, v, return_lse=True)
+        o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+        again = attention.single_head_attention(q, k, v, return_lse=True)
         fn = lambda: attention.single_head_attention(q, k, v, return_lse=True)  # noqa: E731
+        qp, kp = 4 * q, 4 * k
+        peaked = attention.single_head_attention(qp, kp, v)
         out["forward_fp32"].append({
             "shape": [b, l, c], "ms": _time_ms(fn), "sdpa_fp32_ms": _sdpa_fp32_ms(q, k, v),
-            "bound_ms": _route_bound_ms(b, l, c, True, 4 * q.numel() * 4 + b * l * 4),
+            "bound_ms": _route_bound_ms(b, l, c, True, 4 * q.numel() * 4 + b * l * 4,
+                                        split=_splits(attention, c)),
             "max_err_rel_rms": _rel_err(o, attention._attention_reference(q, k, v)[0]),
+            "peaked_err_rel_rms": _rel_err(peaked,
+                                           attention._attention_reference(qp, kp, v)[0]),
+            "repeat_equal": bool(torch.equal(o, again[0]) and torch.equal(lse, again[1])),
             "kernel_ms": _kernel_split(fn),
         })
-        del q, k, v, o
+        del q, k, v, o, lse, again, qp, kp, peaked
         torch.cuda.empty_cache()
     for b, l, c in FLASH_SITES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -141,7 +159,8 @@ def _fp32_rows(attention, g) -> dict:
             row = {"shape": [b, l, c], "dtype": str(dtype).split(".")[1], "ms": _time_ms(fn),
                    "sdpa_fp32_ms": _sdpa_fp32_ms(q, k, v),
                    "bound_ms": _route_bound_ms(b, l, c, dtype == torch.float32,
-                                               4 * q.numel() * q.element_size()),
+                                               4 * q.numel() * q.element_size(),
+                                               split=_splits(attention, c)),
                    "max_err_rel_rms": _rel_err(o, attention._flash_reference(q, k, v)),
                    "kernel_ms": _kernel_split(fn)}
             if dtype == torch.bfloat16:
@@ -183,7 +202,7 @@ def _fp32_bwd_rows(attention, g) -> list:
             "sdpa_fp32_bwd_ms": _time_ms(sdpa_fwd_bwd) - _time_ms(sdpa),
             "bound_ms": _route_bound_ms(
                 b, l, c, True, 7 * q.numel() * 4 + 2 * b * l * 4, 5,
-                split=c in getattr(attention, "SPLIT_BWD_CHANNELS", (64, 128, 256))),
+                split=_splits(attention, c, backward=True)),
             "max_err_rel_rms": max(_rel_err(x, y) for x, y in zip(got, want)),
             "kernel_ms": _kernel_split(fn),
         })
