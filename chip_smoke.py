@@ -338,20 +338,37 @@ def phase_build() -> None:
             f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
+    require(not [sp for sp in spills if "gn_" in (sp[1] or "") and "gn_bwd" not in sp[1]],
+            f"the GroupNorm forward kernels spill: {spills}")
     require(not [w for w in warnings if ("C7520" in w or "C7512" in w)
                  and any(k in w for k in SPLIT_KERNELS)],
             f"ptxas serializes the split-precision wgmma: {warnings}")
     require(not fma, f"the FMA fp32 attention forward is still built: {fma}")
 
 
-def gn_case(g, hw, c, act, dtype):
-    x = (torch.randn(BATCH, hw, hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+def _gn_route(x) -> dict:
+    """The forward's route for ``x`` (``norm.forward_route``) as the kernels
+    line names it: the resident kernel (one launch) or the two passes."""
+    r = norm._route_of(x, 32)
+    if r.kind == "resident":
+        return {"route": "resident", "kernel": "gn_fwd_resident_kernel", "kernels_per_call": 1,
+                "tiles": r.tiles, "grid": r.grid}
+    return {"route": "two_pass", "kernel": "gn_stats_kernel + gn_apply_kernel",
+            "kernels_per_call": 2}
+
+
+def gn_case(g, hw, c, act, dtype, b=BATCH):
+    x = (torch.randn(b, hw, hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
     beta = 0.1 * torch.randn(c, device="cuda", generator=g)
     got = norm.group_norm(x, gamma, beta, 32, 1e-6, act)
+    again = norm.group_norm(x, gamma, beta, 32, 1e-6, act)
     want = norm._gn_reference(x, gamma, beta, 32, 1e-6, act)
     torch.cuda.synchronize()
-    err = check_close(f"group_norm {x.shape} {act} {dtype}", got, want, *GN_TOL[dtype])
+    name = f"group_norm {tuple(x.shape)} {act} {dtype}"
+    err = check_close(name, got, want, *GN_TOL[dtype])
+    require(torch.equal(got, again), f"{name}: a repeat is not bit-equal")
+    del want, again
     x_nchw = x.permute(0, 3, 1, 2)
     g_lib, b_lib = gamma.to(dtype), beta.to(dtype)
 
@@ -360,13 +377,14 @@ def gn_case(g, hw, c, act, dtype):
         return F.silu(y) if act == "silu" else y
 
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
+    kernel_ms = time_ms(lambda: norm.group_norm(x, gamma, beta, 32, 1e-6, act))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "name": "group_norm", "shape": list(x.shape), "dtype": str(dtype).split(".")[1],
-        "act": act, "max_err": err,
-        "kernel_ms": time_ms(lambda: norm.group_norm(x, gamma, beta, 32, 1e-6, act)),
+        "act": act, "max_err": err, "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: norm._gn_reference(x, gamma, beta, 32, 1e-6, act), 5),
-        "library_ms": time_ms(library),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": "bytes",
+        "bound_share": bound_ms / kernel_ms, "repeat_equal": True, **_gn_route(x),
     }
 
 
@@ -620,20 +638,27 @@ def _dname(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def gn_affine_case(g, hw, c, dtype):
-    x, gamma, beta, _, _ = _conv_inputs(g, BATCH, hw, c, 128, dtype)
-    a, shift, _ = norm.group_norm_affine(x, gamma, beta)
+def gn_affine_case(g, hw, c, dtype, b=BATCH):
+    x, gamma, beta, _, _ = _conv_inputs(g, b, hw, c, 128, dtype)
+    a, shift, (partial,) = norm.group_norm_affine(x, gamma, beta)
+    a2, shift2, (partial2,) = norm.group_norm_affine(x, gamma, beta)
     wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
     torch.cuda.synchronize()
-    err = max(rms_close(f"group_norm_affine {tuple(x.shape)} {dtype} {n}", got, want, 1e-4)
+    name = f"group_norm_affine {tuple(x.shape)} {dtype}"
+    err = max(rms_close(f"{name} {n}", got, want, 1e-4)
               for n, got, want in (("a", a, wa), ("b", shift, wb)))
-    nbytes = x.numel() * x.element_size() + 2 * BATCH * c * 4 + 2 * c * 4
+    require(torch.equal(a, a2) and torch.equal(shift, shift2) and torch.equal(partial, partial2),
+            f"{name}: a repeat is not bit-equal")
+    nbytes = x.numel() * x.element_size() + 2 * b * c * 4 + 2 * c * 4
+    kernel_ms = time_ms(lambda: norm.group_norm_affine(x, gamma, beta))
+    bound = _bound(0, nbytes, dtype)
     return {
         "name": "group_norm_affine", "shape": list(x.shape), "dtype": _dname(dtype),
-        "max_err": err,
-        "kernel_ms": time_ms(lambda: norm.group_norm_affine(x, gamma, beta)),
+        "max_err": err, "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: norm._gn_affine_reference(x, gamma, beta, 32, 1e-6), 5),
-        "library_ms": None, **_bound(0, nbytes, dtype),
+        "library_ms": None, **bound, "bound_share": bound["bound_ms"] / kernel_ms,
+        "repeat_equal": True, "kernel": "gn_stats_kernel + gn_affine_kernel",
+        "kernels_per_call": 2,
     }
 
 
@@ -814,6 +839,22 @@ def _kernel_cases(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
             r = attn_case(g, l, c, dtype)
             cases[("attention", l, c, dtype)] = r
             emit(r)
+        # the forward and its affine at the train step's sites (batch 16), the
+        # affine at the detector's too (batch 8)
+        for hw, c, act in sorted(gn_train, key=lambda k: (k[0], k[1], k[2] or ""),
+                                 reverse=True):
+            r = gn_case(g, hw, c, act, dtype, TRAIN_BATCH)
+            cases[("group_norm_train", hw, c, act, dtype)] = r
+            emit(r)
+            torch.cuda.empty_cache()
+        for hw, c in sorted({(hw, c) for hw, c, _ in gn_train}, reverse=True):
+            r = gn_affine_case(g, hw, c, dtype, TRAIN_BATCH)
+            cases[("group_norm_affine_train", hw, c, dtype)] = r
+            emit(r)
+        for hw, c in sorted({(hw, c) for hw, c, _ in GN_SITES}, reverse=True):
+            r = gn_affine_case(g, hw, c, dtype)
+            cases[("group_norm_affine", hw, c, dtype)] = r
+            emit(r)
         for hw, c in sorted({(hw, c) for hw, c, _ in gn_train}, reverse=True):
             for act in ("silu", None):
                 r = gn_bwd_case(g, hw, c, act, dtype)
@@ -845,14 +886,13 @@ def _kernel_cases(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
                 r = fn(g, hw, c, "silu", dtype)
                 cases[(key, hw, c, "silu", dtype)] = r
                 emit(r)
+            r = gn_affine_case(g, hw, c, dtype)
+            cases[("group_norm_affine", hw, c, dtype)] = r
+            emit(r)
         for b, l, c in OFF_GRID_ATTN:
             for r in off_grid_cases(g, b, l, c, dtype):
                 cases[(r["name"], l, c, dtype)] = r
                 emit(r)
-        hw0, c0, _ = max(sites["detector"], key=lambda k: k[0] * k[0] * k[1])
-        r = gn_affine_case(g, hw0, c0, dtype)
-        cases[("group_norm_affine", hw0, c0, dtype)] = r
-        emit(r)
         for hw, c, co in sorted(sites["detector"], reverse=True):
             r = fused_conv_case(g, hw, c, co, dtype)
             cases[("fused_conv", hw, c, co, dtype)] = r
@@ -893,6 +933,7 @@ def reset_counts() -> None:
         fn.launches = 0
     norm.group_norm_backward.grad_copies = attention.attention_backward.grad_copies = 0
     attention.single_head_attention.pad_copies = 0
+    norm.group_norm.two_pass = 0
 
 
 def read_counts() -> dict:
@@ -903,11 +944,14 @@ def read_counts() -> dict:
     counts["grad_copies"] = (norm.group_norm_backward.grad_copies
                              + attention.attention_backward.grad_copies)
     counts["pad_copies"] = attention.single_head_attention.pad_copies
+    counts["gn_two_pass"] = norm.group_norm.two_pass
     return counts
 
 
 def require_no_copies(label: str, counts: dict) -> None:
     require(counts["pad_copies"] == 0, f"{label}: {counts['pad_copies']} attention calls padded")
+    require(counts["gn_two_pass"] == 0,
+            f"{label}: {counts['gn_two_pass']} GroupNorm calls took the two-pass kernels")
 
 
 def require_default_tf32(label: str) -> None:
@@ -1241,7 +1285,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     det_n, fdet_n = det["launches"], det_fused["launches"]
     rows = (
         (cases[("group_norm", 256, 128, "silu", bf16)], "group_norm.cu", "norm.py:109,361,388",
-         2, det_n["group_norm"]),
+         cases[("group_norm", 256, 128, "silu", bf16)]["kernels_per_call"],
+         det_n["group_norm"]),
         (cases[("attention", 4096, 256, bf16)], "attention.cu", "attention.py:226", 1,
          det_n["attention"]),
         (_largest({k: v for k, v in cases.items() if k[1] != LONG_L}, "group_norm_bwd"),
@@ -1259,8 +1304,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
          train_fp32["attention_split_bwd_512"]),
         (cases[("attention", 256, 512, fp32)], "attention.cu", "attention.py:226", 2,
          train_fp32["attention_split_512"]),
-        (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361", 2,
-         fdet_n["group_norm_affine"]),
+        (_largest(cases, "group_norm_affine"), "group_norm.cu", "norm.py:361",
+         _largest(cases, "group_norm_affine")["kernels_per_call"], fdet_n["group_norm_affine"]),
         (_largest(cases, "fused_conv"), "conv3x3_wino.cu", "fused_conv.py:196", 1,
          fdet_n["fused_conv"]),
         (_largest(cases, "wino_rows"), "conv3x3_wino.cu", "winograd_pallas.py:252", 1,
@@ -1281,7 +1326,7 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         })
     entries[4]["on_main_path"] = entries[6]["on_main_path"] = False
     for e, r in zip(entries, (row[0] for row in rows)):
-        if "kernel" in r:  # the attention kernels
+        if "kernel" in r:  # the attention and GroupNorm forward kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
         if e["name"] in CONV_KERNELS:
             e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]

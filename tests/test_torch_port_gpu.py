@@ -60,25 +60,98 @@ def _gn_inputs(g, shape, dtype):
     return x, gamma, beta
 
 
+@pytest.mark.parametrize("batch", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", [None, "silu"])
 @pytest.mark.parametrize("hw, c", GN_ROWS)
-def test_group_norm_kernel_matches_plain(cuda, hw, c, act, dtype):
-    x, gamma, beta = _gn_inputs(cuda, (2, hw, hw, c), dtype)
-    before = norm.group_norm.launches
+def test_group_norm_kernel_matches_plain(cuda, hw, c, act, dtype, batch):
+    x, gamma, beta = _gn_inputs(cuda, (batch, hw, hw, c), dtype)
+    before, two_pass = norm.group_norm.launches, norm.group_norm.two_pass
     got = norm.group_norm(x, gamma, beta, 32, 1e-6, act)
     want = norm._gn_reference(x, gamma, beta, 32, 1e-6, act)
     torch.cuda.synchronize()
     assert norm.group_norm.launches == before + 1
+    assert norm.group_norm.two_pass == two_pass  # every model row takes the resident kernel
     assert got.dtype == dtype and got.is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), **GN_TOL[dtype])
 
 
-def test_group_norm_kernel_is_deterministic(cuda):
-    x, gamma, beta = _gn_inputs(cuda, (4, 128, 128, 128), torch.float32)
-    a = norm.group_norm(x, gamma, beta, 32, 1e-6, "silu")
-    b = norm.group_norm(x, gamma, beta, 32, 1e-6, "silu")
-    assert torch.equal(a, b)
+# Rows off the model's grid (B, H, W, C, dtype) and the route the rule gives
+# them: ragged row counts, the widest rows, a batch whose rows take many
+# rounds of the card, a group that splits a 16-byte vector (C / G = 3) and
+# rows too long for the card (the two-pass kernels)
+GN_EDGE_ROWS = [
+    ((2, 24, 24, 128), torch.bfloat16, "resident"), ((3, 40, 40, 256), torch.float32, "resident"),
+    ((2, 8, 8, 2048), torch.bfloat16, "resident"), ((2, 8, 8, 1024), torch.float32, "resident"),
+    ((1, 250, 250, 64), torch.bfloat16, "resident"), ((1, 300, 300, 64), torch.bfloat16, "two_pass"),
+    ((16, 256, 256, 128), torch.bfloat16, "resident"),
+    ((2, 7, 5, 96), torch.bfloat16, "two_pass"), ((1, 512, 512, 64), torch.float32, "two_pass"),
+]
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("shape, dtype, route", GN_EDGE_ROWS)
+def test_group_norm_kernel_takes_edge_rows(cuda, shape, dtype, route, act):
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype)
+    assert norm._route_of(x, 32).kind == route
+    two_pass = norm.group_norm.two_pass
+    got = norm.group_norm(x, gamma, beta, 32, 1e-6, act)
+    want = norm._gn_reference(x, gamma, beta, 32, 1e-6, act)
+    torch.cuda.synchronize()
+    assert norm.group_norm.two_pass == two_pass + (route == "two_pass")
+    torch.testing.assert_close(got.float(), want.float(), **GN_TOL[dtype])
+
+
+# The SiLU's tail: t = 6 xhat - 10 reaches t < -16, where silu(t) is tiny and
+# an absolute limit says nothing. The kernel's y must keep the plain one's
+# relative precision there: one bf16 rounding (2^-7), or fp32's (t itself
+# differs in its last bits, which |t| amplifies). The atol covers t near 0,
+# where 6 xhat - 10 cancels: t carries the rounding of 10 (~1e-6), and so
+# does y = t / 2 there.
+SILU_TAIL_TOL = {torch.float32: dict(rtol=1e-4, atol=5e-6),
+                 torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, route", [((2, 64, 64, 128), "resident"),
+                                          ((2, 7, 5, 96), "two_pass")])
+def test_group_norm_silu_tail_keeps_relative_precision(cuda, shape, route, dtype):
+    x, _, _ = _gn_inputs(cuda, shape, dtype)
+    gamma = torch.full((shape[-1],), 6.0, device="cuda")
+    beta = torch.full((shape[-1],), -10.0, device="cuda")
+    assert norm._route_of(x, 32).kind == route
+    got = norm.group_norm(x, gamma, beta, 32, 1e-6, "silu").float()
+    want = norm._gn_reference(x, gamma, beta, 32, 1e-6, "silu").float()
+    assert ((want < 0) & (want > -1e-6)).any()  # the tail (t < -16) is reached
+    torch.testing.assert_close(got, want, **SILU_TAIL_TOL[dtype])
+
+
+@pytest.mark.parametrize("shape, dtype", [((4, 128, 128, 128), torch.float32),
+                                          ((16, 256, 256, 128), torch.bfloat16),
+                                          ((2, 16, 16, 512), torch.bfloat16),
+                                          ((2, 7, 5, 96), torch.bfloat16)])
+def test_group_norm_kernel_is_deterministic(cuda, shape, dtype):
+    """Both routes (the last shape takes the two-pass kernels): y and the
+    stats repeat bit for bit."""
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype)
+    a, pa = norm._gn_cuda(x, gamma, beta, 32, 1e-6, "silu")
+    b, pb = norm._gn_cuda(x, gamma, beta, 32, 1e-6, "silu")
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 256, 256, 128), (3, 40, 40, 256), (2, 16, 16, 512)])
+def test_group_norm_stats_layout_matches_plain(cuda, shape, dtype):
+    """The resident kernel's stats for the backward: each image's (sum,
+    sumsq) per group in tile 0, exact zeros in the other tiles; the affine's
+    per-tile partials fold (over tiles) to the same sums."""
+    x, gamma, beta = _gn_inputs(cuda, shape, dtype)
+    _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, None)
+    _, _, (partial_aff,) = norm.group_norm_affine(x, gamma, beta)
+    want = norm._gn_partial_reference(x, 32)
+    assert partial.shape == partial_aff.shape == want.shape and not partial[:, 1:].any()
+    for got in (partial[:, 0], partial_aff.sum(dim=1)):
+        torch.testing.assert_close(got, want[:, 0], rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -472,14 +545,23 @@ def _rel_close(got, want, tol):
     assert err <= tol * want.pow(2).mean().sqrt(), f"max err {err}, rms {want.pow(2).mean().sqrt()}"
 
 
+# The detector's GroupNorm rows (h=w, C), where the fused detector takes the affine
+AFFINE_ROWS = [(256, 128), (128, 128), (64, 128), (64, 256), (32, 256), (16, 256), (16, 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_group_norm_affine_kernel_matches_plain(cuda, dtype):
-    x, gamma, beta = _gn_inputs(cuda, (2, 64, 64, 256), dtype)
+@pytest.mark.parametrize("hw, c", AFFINE_ROWS + [(7, 96)])
+def test_group_norm_affine_kernel_matches_plain(cuda, hw, c, dtype):
+    x, gamma, beta = _gn_inputs(cuda, (2, hw, hw, c), dtype)
+    before = norm.group_norm_affine.launches
     a, b, (partial,) = norm.group_norm_affine(x, gamma, beta)
+    a2, b2, (partial2,) = norm.group_norm_affine(x, gamma, beta)
     wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
+    assert norm.group_norm_affine.launches == before + 2
     torch.testing.assert_close(a, wa, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(b, wb, rtol=1e-4, atol=1e-5)
-    assert partial.shape[0] == 2 and partial.shape[2:] == (2, 32)
+    assert partial.shape == norm._partial_shape(2, hw * hw, 32)
+    assert torch.equal(a, a2) and torch.equal(b, b2) and torch.equal(partial, partial2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -61,7 +61,7 @@ CLASSES = (
     ("fused_conv_kernel", ("fused_conv_wgmma_kernel", "conv3x3_bf16")),
     ("conv3x3_kernel", ("conv3x3_f32",)),  # B6 and B7 in fp32
     ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "::fold_kernel")),  # B8
-    ("group_norm_kernel", ("gn_stats", "gn_apply", "gn_affine")),
+    ("group_norm_kernel", ("gn_fwd_resident", "gn_stats", "gn_apply", "gn_affine")),
     ("group_norm_bwd_kernel", ("gn_bwd",)),
     ("attention_kernel", ("attn_fwd",)),
     ("attention_bwd_kernel", ("attn_bwd",)),
