@@ -9,15 +9,18 @@ Phases (any failure raises and exits non-zero, before the result line):
 1. device: the card's name, the device count, nvidia-smi's name and power limit;
 2. build: nvcc builds every kernel under generative_detection_tpu_torch/csrc
    (one process per source, all started together); the bf16 attention
-   kernels (B1 and the flash variant B5), the fp32 split-precision attention
+   kernels (B1 and the flash variant B5, and the backward B2 at every width),
+   the fp32 split-precision attention
    forward (B1 and B5 in fp32 at C <= 256 and at C = 512), the bf16 fused
    GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
    (B8) and the fp32 split-precision attention backward (B2 in fp32 at
    C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in their SASS (cuobjdump), B6-B8, the split-precision kernels
-   and the fp32 conv kernels of conv3x3.cu no mma.sync (HMMA), none of the
-   wgmma kernels may spill, ptxas may not serialize the split-precision
-   kernels' wgmma, and the FMA fp32 forward (attn_fwd_f32_kernel) is gone;
+   instructions in their SASS (cuobjdump), B6-B8, the split-precision
+   kernels, every kernel of attention_bwd.cu and the fp32 conv kernels of
+   conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may spill, ptxas
+   may not serialize the wgmma of the split-precision kernels and of the
+   bf16 C = 512 backward, and the FMA fp32 forward (attn_fwd_f32_kernel) is
+   gone;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
@@ -33,7 +36,9 @@ Phases (any failure raises and exits non-zero, before the result line):
    weight gradient (B7, B8) at every fused train site (batch 16, each with a
    bit-equal repeat, and their sums over a fused step's sites), the
    forward-only flash attention (B5) at the detector's attention shapes, and
-   the attention forward and backward at L = 16384 (B9's length), and the
+   the attention forward and backward at L = 16384 (B9's length) and at
+   (2, 256, 64) and the backward at (2, 256, 128) (the tiny configs' width and
+   the width C = 65..128 pads to), and the
    forward, flash forward and backward at shapes off the kernels' grid
    ((1, 576, 512), (2, 400, 512), (2, 256, 96): padded, masked, sliced), in
    bf16 and fp32; the attention bounds count the products each route runs
@@ -173,16 +178,21 @@ OFF_GRID_ATTN = ((1, 576, 512), (2, 400, 512), (2, 256, 96))
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
 # and the flash variant B5 in bf16, B1 and B5 in fp32 on split precision, B2
-# in bf16 at C = 256 and in fp32 on split precision; the split kernels at
+# in bf16 at every width (dK/dV and dQ at C = 64, 128, 256, the role kernel
+# at C = 512) and in fp32 on split precision; the split kernels at
 # C <= 256 and at C = 512), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
 # or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
-# and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8 and the
-# split-precision kernels have no mma.sync (HMMA).
+# and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8, the
+# split-precision kernels and attention_bwd.cu have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
 SPLIT_512_KERNEL = "attn_fwd_split512_wgmma_kernel"
 SPLIT_BWD_KERNEL = "attn_bwd_split_wgmma_kernel"
 SPLIT_BWD_512_KERNEL = "attn_bwd_split512_wgmma_kernel"
+BWD_512_KERNEL = "attn_bwd_c512_wgmma_kernel"  # bf16 at C = 512: dK, dQ and dV in one launch
+BWD_NARROW = (64, 128, 256)  # the widths of the bf16 dK/dV and dQ kernels' C template
+_BWD = tuple(f"attn_bwd_{k}_wgmma_kernelILi{c}E" for k in ("dkdv", "dq")
+             for c in BWD_NARROW) + (BWD_512_KERNEL,)
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
@@ -193,8 +203,9 @@ _SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in SPLIT_NARROW for lse in 
     f"{SPLIT_512_KERNEL}ILb{lse}" for lse in (0, 1))
 _SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in SPLIT_NARROW) + (SPLIT_BWD_512_KERNEL,)
 SPLIT_KERNELS = (SPLIT_KERNEL, SPLIT_512_KERNEL, SPLIT_BWD_KERNEL, SPLIT_BWD_512_KERNEL)
-WGMMA_KERNELS = (_ATTN_FWD + _SPLIT + ("attn_bwd_dkdv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
-                 + _SPLIT_BWD + _B6 + _WINO)
+WGMMA_KERNELS = _ATTN_FWD + _SPLIT + _BWD + _SPLIT_BWD + _B6 + _WINO
+# kernels whose wgmma chains ptxas may not serialize (C7520, C7512)
+NO_SERIAL = SPLIT_KERNELS + (BWD_512_KERNEL,)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
 # The device kernel behind each conv entry of the kernels line
 CONV_KERNELS = {"fused_conv": "fused_conv_wgmma_kernel", "wino_rows": "wino_rows_wgmma_kernel",
@@ -211,6 +222,7 @@ COUNTED = {
     "attention_split_512": attention.split_precision_512,
     "attention_split_bwd": attention.split_backward,
     "attention_split_bwd_512": attention.split_backward_512,
+    "attention_bwd_512": attention.backward_512,
     "wino_rows": wr.wino_rows_forward, "wino_rows_dgrad": wr.wino_rows_dgrad,
     "wino_wgrad": wr.wino_wgrad,
 }
@@ -314,19 +326,23 @@ def phase_build() -> None:
                 ptxas.setdefault(kernel, []).append(ln.strip())
             elif "(C7" in ln:  # ptxas performance warnings (serialized wgmma, setmaxnreg)
                 warnings.append(ln.strip())
-    # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2's dK/dV and dQ
-    # at C = 256), the fp32 split-precision attention forward and backward
+    # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2 at C = 64,
+    # 128, 256 and 512), the fp32 split-precision attention forward and backward
     # (C = 64, 128, 256 and 512), B6, B7 and B8 must run on wgmma and TMA, and must not
-    # spill; B6-B8 have no mma.sync left, nor has the fp32 conv3x3.cu
-    sass, fma = {}, []
+    # spill; B6-B8 and every kernel of attention_bwd.cu have no mma.sync left,
+    # nor has the fp32 conv3x3.cu
+    sass, fma, bwd_hmma = {}, [], {}
     for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
         counts = _sass_counts(n)
         sass.update({k: v for k, v in counts.items() if WGMMA_TAG in k})
         fma += [k for k in counts if "attn_fwd_f32_kernel" in k]
+        if n == "attention_bwd":
+            bwd_hmma = {k: v["HMMA"] for k, v in counts.items()}
     fp32_conv = _sass_counts("conv3x3")
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings,
-          "conv3x3_hmma": sum(ops["HMMA"] for ops in fp32_conv.values())})
+          "conv3x3_hmma": sum(ops["HMMA"] for ops in fp32_conv.values()),
+          "attention_bwd_hmma": sum(bwd_hmma.values())})
     require(len(sass) == len(WGMMA_KERNELS) and all(
         any(name in k for k in sass) for name in WGMMA_KERNELS),
         f"wgmma kernels in the SASS: {sorted(sass)}")
@@ -336,13 +352,14 @@ def phase_build() -> None:
                 f"{k}: mma.sync left ({ops})")
     require(fp32_conv and not any(ops["HMMA"] for ops in fp32_conv.values()),
             f"conv3x3.cu holds mma.sync: {fp32_conv}")
+    require(bwd_hmma and not any(bwd_hmma.values()), f"attention_bwd.cu holds mma.sync: {bwd_hmma}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
     require(not [sp for sp in spills if "gn_" in (sp[1] or "") and "gn_bwd" not in sp[1]],
             f"the GroupNorm forward kernels spill: {spills}")
     require(not [w for w in warnings if ("C7520" in w or "C7512" in w)
-                 and any(k in w for k in SPLIT_KERNELS)],
-            f"ptxas serializes the split-precision wgmma: {warnings}")
+                 and any(k in w for k in NO_SERIAL)],
+            f"ptxas serializes the wgmma of {NO_SERIAL}: {warnings}")
     require(not fma, f"the FMA fp32 attention forward is still built: {fma}")
 
 
@@ -416,7 +433,9 @@ def _attn_bwd_kernel(dtype, c) -> str:
     c = attention.kernel_shape(1, c)[1]
     if dtype == torch.float32:
         return SPLIT_BWD_KERNEL if c in SPLIT_NARROW else SPLIT_BWD_512_KERNEL
-    return "attn_bwd_*_wgmma_kernel" if c == 256 else "attn_bwd_*_bf16_kernel"
+    if c == 512:
+        return BWD_512_KERNEL
+    return f"attn_bwd_dkdv_wgmma_kernel<{c}> + attn_bwd_dq_wgmma_kernel<{c}>"
 
 
 def _attn_kernel(dtype, c, flash=False) -> str:
@@ -881,6 +900,10 @@ def _kernel_cases(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
             r = fn(g, 256, 64, dtype, 2)
             cases[(key, 256, 64, dtype)] = r
             emit(r)
+        # the backward's C = 128 kernels (every width from 65 to 128 pads to them)
+        r = attn_bwd_case(g, 256, 128, dtype, 2)
+        cases[("attention_bwd", 256, 128, dtype)] = r
+        emit(r)
         for hw, c in TINY_GN_ROWS:
             for fn, key in ((gn_case, "group_norm"), (gn_bwd_case, "group_norm_bwd")):
                 r = fn(g, hw, c, "silu", dtype)
@@ -1272,7 +1295,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     forward (B1 in fp32 at (8, 4096, 256), and at (8, 256, 512) its C = 512
     kernel) and backward (B2 in fp32 at (16, 4096, 256), and at (16, 256,
     512) its C = 512 kernel) with their launches in the config's own fp32
-    step. B5 is on
+    step; last the bf16 backward's C = 512 kernel at (16, 256, 512) with its
+    launches in the bf16 step (B2's bf16 entry counts every width). B5 is on
     no path of the port (the JAX package reaches it only from its
     availability probe, whose role the kernel check here plays): its bf16
     and fp32 entries. ``kernels_per_call`` device kernels
@@ -1314,6 +1338,8 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
          train_fused["wino_rows_dgrad"]),
         (_largest(cases, "wino_wgrad"), "conv3x3_wgrad.cu", "winograd_pallas.py:430", 2,
          train_fused["wino_wgrad"]),
+        (cases[("attention_bwd", 256, 512, bf16)], "attention_bwd.cu", "attention.py:251", 1,
+         train["attention_bwd_512"]),
     )
     entries = []
     for r, source, replaces, per_call, n in rows:
@@ -1374,9 +1400,13 @@ def main() -> int:
                                 "fused_conv": n_b6, "group_norm_affine": n_b6}, fuse=True)
     per_step = {"group_norm": n_gn, "group_norm_bwd": n_gn, "attention": n_attn,
                 "attention_bwd": n_attn}
-    train = phase_train(per_step, "0")
+    # the bf16 backward's C = 512 kernel at the mid-block sites (fp32 there
+    # takes the split-precision kernel)
+    bf16_bwd_512 = {"attention_bwd_512": sum(n for (_, c), n in attn_train.items() if c == 512)}
+    require(bf16_bwd_512["attention_bwd_512"] > 0, "no attention site at C = 512")
+    train = phase_train({**per_step, **bf16_bwd_512}, "0")
     train_fused = phase_train(
-        {**per_step, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
+        {**per_step, **bf16_bwd_512, "group_norm": n_gn - n_wino, "group_norm_affine": n_wino,
          "wino_rows": n_wino, "wino_rows_dgrad": n_dgrad, "wino_wgrad": n_wgrad}, "fused")
     # the config's own fp32 path: the detector, then the step; every
     # attention site runs split precision, forward and backward, at C <= 256

@@ -6,17 +6,17 @@
 // `_mha_bwd_kernel`). The TPU kernel runs one pass over q blocks with the
 // whole (L, C) K and V of an image and two (L, C) fp32 dK/dV accumulators in
 // VMEM (about 16 MiB at 4096 x 256). A Hopper block has 227 KB of shared
-// memory and 64K registers, so this splits the work into two launches, both
-// deterministic (no atomics; two calls give the same bits):
+// memory and 64K registers, so the work is split into blocks that each own
+// 64 rows of one output, all deterministic (no atomics; two calls give the
+// same bits):
 //
-//   dK/dV: block (key tile, b) keeps its rows of K and V and walks all q
-//     tiles:
+//   dK, dV: a block of 64 key rows walks all q tiles:
 //       S^T  = K Q^T * scale,  P^T = exp(S^T - lse)            (fp32)
 //       dV  += bf(P^T) dO                                      (fp32 acc)
 //       dP^T = V dO^T,         dS^T = bf(P^T (dP^T - di) * scale)
 //       dK  += dS^T Q                                          (fp32 acc)
-//   dQ: block (q tile, b) keeps its rows of Q and dO and walks all key
-//     tiles: S, P, dP, dS as above, dQ += dS K.
+//   dQ: a block of 64 query rows walks all key tiles: S, P, dP, dS as
+//     above, dQ += dS K.
 //
 // bf() is the rounding of `_mha_bwd_kernel`: P is cast to dO's dtype before
 // the dV product and dS to q's dtype before the dK and dQ products; every
@@ -25,28 +25,46 @@
 // Bound on the H100: at (B, 4096, 256) the backward is compute-bound (five
 // L x L x C products, 10 B L^2 C flops); at (B, 256, 512) memory-bound.
 //
-// bf16 at C = 256 (the flagship's L = 4096 sites) runs two warp-specialized
-// wgmma + TMA kernels; a producer warpgroup (one thread) streams tiles by
-// TMA into a two-stage ring of 128-byte swizzled shared memory, paced by
-// full/empty mbarriers:
-//   attn_bwd_dkdv_wgmma_kernel: a block owns 64 key rows (K, V resident)
-//     and streams 64-row (Q, dO, lse, di) tiles. Its two consumer
-//     warpgroups split the work by role, not by channel, so nothing is
-//     recomputed: warpgroup A computes S^T (wgmma, operands in shared
-//     memory), P^T in registers, hands the fp32 P^T to warpgroup B through
-//     an 18 KB shared buffer, and adds bf(P^T) dO into dV (P^T from
-//     registers as the A operand, dO MN-major through the transpose bit);
-//     warpgroup B computes dP^T, dS^T and dK += dS^T Q. Each dK/dV
-//     accumulator (64 x 256 fp32) holds its warpgroup's 128 registers a
-//     thread.
-//   attn_bwd_dq_wgmma_kernel: a block owns 64 query rows (Q, dO, lse, di
+// Every kernel is warp-specialized on TMA and wgmma: a producer (one thread)
+// streams tiles by TMA into a ring of 128-byte swizzled shared memory, paced
+// by full/empty mbarriers, while consumer warpgroups run the products with
+// the accumulators in registers; P^T and dS^T (or P and dS) go from the
+// accumulator to the next product's A operand in registers (RS wgmma).
+//
+// bf16 at C = 64, 128, 256 (namespace wg: the flagship's L = 4096 sites at
+// 256, the tiny configs' (B, 256, 64), every width 65..128 padded to 128):
+//   attn_bwd_dkdv_wgmma_kernel<C>: a block owns 64 key rows (K, V resident)
+//     and streams 64-row (Q, dO, lse, di) tiles through a two-stage ring.
+//     Its two consumer warpgroups split the work by role, not by channel, so
+//     nothing is recomputed: warpgroup A computes S^T (wgmma, operands in
+//     shared memory), P^T in registers, hands the fp32 P^T to warpgroup B
+//     through an 18 KB shared buffer, and adds bf(P^T) dO into dV (dO
+//     MN-major through the transpose bit); warpgroup B computes dP^T, dS^T
+//     and dK += dS^T Q. Each dK/dV accumulator (64 x C fp32) holds C / 2
+//     registers a thread.
+//   attn_bwd_dq_wgmma_kernel<C>: a block owns 64 query rows (Q, dO, lse, di
 //     resident) and streams 64-row K and V tiles; one consumer warpgroup
-//     computes S and dP (wgmma), dS in registers, dQ += dS K.
+//     computes S and dP, dS in registers, dQ += dS K.
 // Together they run the four products of the dK/dV pass once each and S,
-// dP, dQ in the dQ pass: 14 B L^2 C flops against the bound's 10.
-// bf16 at C = 64, 128 and 512 keeps the mma.sync kernels below
-// (FlashAttention-2's split with min(C, 128)-channel slices that recompute
-// S^T and dP^T; one slice at C = 64, the tiny configs' (B, 256, 64) sites).
+// dP, dQ in the dQ pass: 14 B L^2 C flops against the bound's 10. At C =
+// 64 and 128 the grids of the checked sites have fewer blocks than SMs, so
+// a block's latency decides and one block an SM (all registers) is kept.
+//
+// bf16 at C = 512 (the flagship's (B, 256, 512) mid-block sites; namespace
+// wide): a 64 x 512 fp32 accumulator is 256 registers a thread and K, V,
+// Q, dO tiles of 64 rows are 64 KB each, so neither the dK/dV pair of one
+// block nor full-width tiles in a ring fit. attn_bwd_c512_wgmma_kernel: a
+// block owns 64 rows and one 256-channel half of one role's output (dK, dQ
+// or dV; blockIdx.z = 2 role + half, the heavier roles first) in one
+// consumer warpgroup (128 registers a thread), and forms the role's S (and
+// dP) over all 512 channels from 64 x 256 tiles. dK and dQ keep their R and
+// X operands resident (K, V or Q, dO: 128 KB) and stream X's other operand
+// and T (dO, Q or V, K) through a ring of three 32 KB tiles; dV keeps K and
+// streams Q and its half of dO through a ring of five. Its 227 KB make it
+// one block an SM, so a block's chains have the tensor cores alone: where
+// the grid (6 B L / 64 blocks) fits one wave, a block's latency is the
+// kernel's time. The launch forms S six times, dP four times and each
+// output once: 26 B L^2 C flops against the bound's 10.
 //
 // fp32 at every C runs all five products on the tensor cores at
 // fp32 accuracy (split precision, as the fp32 forward in attention.cu): a
@@ -96,341 +114,57 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores via mma.sync.m16n8k16 (row.col, fp32 accumulate)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy `rows` rows of C bf16 from global (row stride C) to shared memory
-// (row stride ST), 16 bytes per thread per step.
-template <int C, int ST>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src, int rows) {
-  constexpr int V = C / 8;
-  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ST + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * C + c);
-  }
-}
-
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int rows) {
-  for (int i = threadIdx.x; i < rows; i += kThreads) dst[i] = src[i];
-}
-
-// Phase A, shared by both bf16 kernels. The block computes two (64 x BN)
-// fp32 products that contract over all C channels,
-//   X = A1 B1^T  and  Y = A2 B2^T,
-// with A1, A2 (64 x C) and B1, B2 (BN x C) row-major bf16 in shared memory
-// (row stride ST). Warp w owns rows 16 (w / 2) .. +15 and columns
-// (w % 2) BN / 2 .. +BN/2-1, so X and Y come out in the same fragment layout
-// and the caller combines them element by element.
-template <int C, int ST, int BN>
-__device__ __forceinline__ void phase_a(const __nv_bfloat16* A1, const __nv_bfloat16* B1,
-                                        const __nv_bfloat16* A2, const __nv_bfloat16* B2,
-                                        float (*x)[4], float (*y)[4]) {
-  constexpr int NT = BN / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int strip = warp / 2, n0 = (warp % 2) * (BN / 2);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { x[j][e] = 0.f; y[j][e] = 0.f; }
-  const __nv_bfloat16* a1 = A1 + (strip * 16 + g) * ST + 2 * tq;
-  const __nv_bfloat16* a2 = A2 + (strip * 16 + g) * ST + 2 * tq;
-#pragma unroll 2
-  for (int kk = 0; kk < C; kk += 16) {
-    uint32_t f1[4], f2[4];
-    f1[0] = ld32(a1 + kk);
-    f1[1] = ld32(a1 + 8 * ST + kk);
-    f1[2] = ld32(a1 + kk + 8);
-    f1[3] = ld32(a1 + 8 * ST + kk + 8);
-    f2[0] = ld32(a2 + kk);
-    f2[1] = ld32(a2 + 8 * ST + kk);
-    f2[2] = ld32(a2 + kk + 8);
-    f2[3] = ld32(a2 + 8 * ST + kk + 8);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int off = (n0 + j * 8 + g) * ST + kk + 2 * tq;
-      mma_bf16(x[j], f1, ld32(B1 + off), ld32(B1 + off + 8));
-      mma_bf16(y[j], f2, ld32(B2 + off), ld32(B2 + off + 8));
-    }
-  }
-}
-
-// Phase B: acc (64 x CS/2 per warp half) += Pm (64 x K, row-major bf16, row
-// stride PST) times Vm (K x CS, row-major bf16, row stride VST). Warp w owns
-// rows 16 (w % 4) .. +15 and channels (w / 4) CS / 2 .. of the slice.
-template <int K, int PST, int VST, int CS>
-__device__ __forceinline__ void phase_b(const __nv_bfloat16* Pm, const __nv_bfloat16* Vm,
-                                        float (*acc)[4]) {
-  constexpr int ONT = CS / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int strip = warp % 4, c0 = (warp / 4) * (CS / 2);
-  const __nv_bfloat16* pa = Pm + (strip * 16 + g) * PST + 2 * tq;
-  const int mat = lane >> 3, mi = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < K; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(pa + kk);
-    a[1] = ld32(pa + 8 * PST + kk);
-    a[2] = ld32(pa + kk + 8);
-    a[3] = ld32(pa + 8 * PST + kk + 8);
-    const __nv_bfloat16* vrow = Vm + (kk + mi + (mat & 1) * 8) * VST + (mat >> 1) * 8 + c0;
-#pragma unroll
-    for (int j = 0; j < ONT; j += 2) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, vrow + j * 8);
-      mma_bf16(acc[j], a, bfr[0], bfr[1]);
-      mma_bf16(acc[j + 1], a, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// Write a phase-B accumulator (64 x CS slice at channel cs0) as bf16 rows of
-// a (rows, C) tensor starting at `out`.
-template <int C, int CS>
-__device__ __forceinline__ void store_acc_bf16(__nv_bfloat16* out, int cs0,
-                                               const float (*acc)[4]) {
-  constexpr int ONT = CS / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int row = (warp % 4) * 16 + g, c0 = cs0 + (warp / 4) * (CS / 2) + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < ONT; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + c0 + j * 8) =
-        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * C + c0 + j * 8) =
-        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-  }
-}
-
-template <int C, int BQ>
-struct DkdvCfg {
-  static constexpr int BK = 64, CS = C < 128 ? C : 128;  // channel slice per block
-  static constexpr int ST = C + 8;   // padded row strides (elements): rows
-  static constexpr int PST = BQ + 8; // shift by 4 banks, fragment loads conflict-free
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * ((2 * BK + 2 * BQ) * ST + 2 * BK * PST) +
-      sizeof(float) * 2 * BQ;
-};
-
-template <int C, int BQ>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ di,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                          int L, int l_valid, float scale) {
-  using Cfg = DkdvCfg<C, BQ>;
-  constexpr int BK = Cfg::BK, CS = Cfg::CS, ST = Cfg::ST, PST = Cfg::PST;
-  constexpr int NT = BQ / 16, ONT = CS / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK * ST;
-  __nv_bfloat16* Qs = Vs + BK * ST;
-  __nv_bfloat16* dOs = Qs + BQ * ST;
-  __nv_bfloat16* Ps = dOs + BQ * ST;   // P^T  (BK x BQ)
-  __nv_bfloat16* dSs = Ps + BK * PST;  // dS^T (BK x BQ)
-  float* s_lse = reinterpret_cast<float*>(dSs + BK * PST);
-  float* s_di = s_lse + BQ;
-
-  const int b = blockIdx.y, k0 = blockIdx.x * BK, cs0 = blockIdx.z * CS;
-  const size_t img = (size_t)b * L * C;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int strip = warp / 2, n0 = (warp % 2) * (BQ / 2);
-  const bool tail = k0 + BK > l_valid;  // the block holds keys at or past l_valid
-
-  load_tile_bf16<C, ST>(Ks, k + img + (size_t)k0 * C, BK);
-  load_tile_bf16<C, ST>(Vs, v + img + (size_t)k0 * C, BK);
-
-  float acc_dv[ONT][4], acc_dk[ONT][4];
-#pragma unroll
-  for (int j = 0; j < ONT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { acc_dv[j][e] = 0.f; acc_dk[j][e] = 0.f; }
-
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    __syncthreads();  // the previous tile's Q, dO, P, dS are no longer read
-    load_tile_bf16<C, ST>(Qs, q + img + (size_t)q0 * C, BQ);
-    load_tile_bf16<C, ST>(dOs, dout + img + (size_t)q0 * C, BQ);
-    load_rows_f32(s_lse, lse + (size_t)b * L + q0, BQ);
-    load_rows_f32(s_di, di + (size_t)b * L + q0, BQ);
-    __syncthreads();
-
-    // S^T = K Q^T * scale and dP^T = V dO^T, then P^T and dS^T
-    {
-      float s[NT][4], dp[NT][4];
-      phase_a<C, ST, BQ>(Ks, Qs, Vs, dOs, s, dp);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-          const int row = strip * 16 + g + 8 * h, col = n0 + j * 8 + 2 * tq;
-          float p[2], ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // a key row at or past l_valid: logit -inf (only in a block past it)
-            if (tail && k0 + row >= l_valid) s[j][2 * h + e] = -INFINITY;
-            p[e] = expf(s[j][2 * h + e] * scale - s_lse[col + e]);
-            ds[e] = p[e] * (dp[j][2 * h + e] - s_di[col + e]) * scale;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(Ps + row * PST + col) =
-              __floats2bfloat162_rn(p[0], p[1]);
-          *reinterpret_cast<__nv_bfloat162*>(dSs + row * PST + col) =
-              __floats2bfloat162_rn(ds[0], ds[1]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q over this block's channel slice
-    phase_b<BQ, PST, ST, CS>(Ps, dOs + cs0, acc_dv);
-    phase_b<BQ, PST, ST, CS>(dSs, Qs + cs0, acc_dk);
-  }
-  store_acc_bf16<C, CS>(dk + img + (size_t)k0 * C, cs0, acc_dk);
-  store_acc_bf16<C, CS>(dv + img + (size_t)k0 * C, cs0, acc_dv);
-}
-
-template <int C, int BK>
-struct DqCfg {
-  static constexpr int BQ = 64, CS = C < 256 ? C : 256;
-  static constexpr int ST = C + 8;
-  static constexpr int PST = BK + 8;
-  static constexpr size_t smem_bytes =
-      sizeof(__nv_bfloat16) * ((2 * BQ + 2 * BK) * ST + BQ * PST) + sizeof(float) * 2 * BQ;
-};
-
-template <int C, int BK>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        __nv_bfloat16* __restrict__ dq, int L, int l_valid, float scale) {
-  using Cfg = DqCfg<C, BK>;
-  constexpr int BQ = Cfg::BQ, CS = Cfg::CS, ST = Cfg::ST, PST = Cfg::PST;
-  constexpr int NT = BK / 16, ONT = CS / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + BQ * ST;
-  __nv_bfloat16* Ks = dOs + BQ * ST;
-  __nv_bfloat16* Vs = Ks + BK * ST;
-  __nv_bfloat16* dSs = Vs + BK * ST;  // dS (BQ x BK)
-  float* s_lse = reinterpret_cast<float*>(dSs + BQ * PST);
-  float* s_di = s_lse + BQ;
-
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ, cs0 = blockIdx.z * CS;
-  const size_t img = (size_t)b * L * C;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int strip = warp / 2, n0 = (warp % 2) * (BK / 2);
-
-  load_tile_bf16<C, ST>(Qs, q + img + (size_t)q0 * C, BQ);
-  load_tile_bf16<C, ST>(dOs, dout + img + (size_t)q0 * C, BQ);
-  load_rows_f32(s_lse, lse + (size_t)b * L + q0, BQ);
-  load_rows_f32(s_di, di + (size_t)b * L + q0, BQ);
-
-  float acc[ONT][4];
-#pragma unroll
-  for (int j = 0; j < ONT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < l_valid; k0 += BK) {  // the live key tiles
-    __syncthreads();  // the previous tile's K, V, dS are no longer read
-    load_tile_bf16<C, ST>(Ks, k + img + (size_t)k0 * C, BK);
-    load_tile_bf16<C, ST>(Vs, v + img + (size_t)k0 * C, BK);
-    __syncthreads();
-
-    // S = Q K^T * scale and dP = dO V^T, then dS
-    {
-      float s[NT][4], dp[NT][4];
-      phase_a<C, ST, BK>(Qs, Ks, dOs, Vs, s, dp);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-        const int row = strip * 16 + g + 8 * h;
-        const float l_row = s_lse[row], d_row = s_di[row];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = n0 + j * 8 + 2 * tq;
-          float ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // a key column at or past l_valid: logit -inf (only in the last tile)
-            if (k0 + BK > l_valid && k0 + col + e >= l_valid) s[j][2 * h + e] = -INFINITY;
-            const float p = expf(s[j][2 * h + e] * scale - l_row);
-            ds[e] = p * (dp[j][2 * h + e] - d_row) * scale;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(dSs + row * PST + col) =
-              __floats2bfloat162_rn(ds[0], ds[1]);
-        }
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K over this block's channel slice
-    phase_b<BK, PST, ST, CS>(dSs, Ks + cs0, acc);
-  }
-  store_acc_bf16<C, CS>(dq + img + (size_t)q0 * C, cs0, acc);
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
+// Rows 16 warp + g and + 8 of a (64, N) fp32 accumulator (as wgmma leaves
+// it) as bf16 rows of `out` (row stride LD), from its column 2 tq.
+template <int N, int LD>
+__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* out, const float (&acc)[N / 2],
+                                                int warp, int g, int tq) {
+  __nv_bfloat16* r = out + (size_t)(warp * 16 + g) * LD + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(r + 8 * LD + 8 * j) =
+        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// bf16 at C = 256: wgmma + TMA, warp-specialized (see the top of the file)
+// bf16 at C = 64, 128, 256: wgmma + TMA, warp-specialized (see the top of the file)
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int C = 256, BR = 64, STAGES = 2;  // BR: rows of every tile
-constexpr int CHUNKS = C / 64;
-constexpr uint32_t TILE = BR * C * 2;  // one (64, 256) bf16 tile, 32 KB
+constexpr int BR = 64, STAGES = 2;     // BR: rows of every tile
 constexpr uint32_t ROW_STAT = BR * 4;  // 64 fp32 lse or di values
 constexpr int PST = BR + 8;            // fp32 P^T row stride: float2 stores conflict-free
 
-// One (64, 256) tile by TMA: four (64, 64) boxes, one per column chunk.
+template <int C>
+struct Cfg {
+  static constexpr int CHUNKS = C / 64;           // 128-byte column chunks of a tile
+  static constexpr uint32_t TILE = BR * C * 2;    // one (64, C) bf16 tile
+  static constexpr size_t DKDV_SMEM = 1024 + 6 * TILE + 4 * ROW_STAT + BR * PST * 4 + 8 * 8;
+  static constexpr size_t DQ_SMEM = 1024 + 6 * TILE + 2 * ROW_STAT + 8 * 8;
+};
+
+// One (64, C) tile by TMA: C / 64 boxes of (64, 64), one per column chunk.
+template <int C>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
                                           uint64_t* bar, int row) {
 #pragma unroll
-  for (int ch = 0; ch < CHUNKS; ++ch)
+  for (int ch = 0; ch < Cfg<C>::CHUNKS; ++ch)
     hopper::tma_load_2d(dst + ch * BR * 128, map, bar, ch * 64, row);
 }
 
-// acc (64 x 256) += A (64 x 64 from registers) B, B a (64, 256) tile in
-// shared memory read MN-major: four K steps of 16 rows.
+// acc (64 x C) += A (64 x 64 from registers) B, B a (64, C) tile in shared
+// memory read MN-major: four K steps of 16 rows.
+template <int C>
 __device__ __forceinline__ void mma_rs_tile(float (&acc)[C / 2], uint32_t (&a)[BR / 16][4],
                                             uint32_t b_addr) {
   using namespace hopper;
@@ -439,14 +173,15 @@ __device__ __forceinline__ void mma_rs_tile(float (&acc)[C / 2], uint32_t (&a)[B
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BR / 16; ++kk)
-    wgmma_rs_n256_mn(acc, a[kk], desc_mnmajor(b_addr + kk * 16 * 128, BR * 128));
+    wgmma_rs_mn<C>(acc, a[kk], desc_mnmajor(b_addr + kk * 16 * 128, BR * 128));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
 }
 
-// d (64 x 64) = A B^T with A, B (64, 256) tiles in shared memory, both
-// K-major (the contraction over the 256 channels); committed, not waited.
+// d (64 x 64) = A B^T with A, B (64, C) tiles in shared memory, both
+// K-major (the contraction over the C channels); committed, not waited.
+template <int C>
 __device__ __forceinline__ void mma_ss_tile(float (&d)[BR / 2], uint32_t a_addr, uint32_t b_addr) {
   using namespace hopper;
 #pragma unroll
@@ -457,22 +192,7 @@ __device__ __forceinline__ void mma_ss_tile(float (&d)[BR / 2], uint32_t a_addr,
   wgmma_commit();
 }
 
-// Rows 16 warp + g and + 8 of a (64, 256) fp32 accumulator as bf16 rows of
-// `out` (row stride C).
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[C / 2],
-                                           int warp, int g, int tq) {
-  __nv_bfloat16* r = out + (size_t)(warp * 16 + g) * C + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
-    *reinterpret_cast<__nv_bfloat162*>(r + 8 * j) =
-        __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(r + 8 * C + 8 * j) =
-        __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-constexpr size_t DKDV_SMEM = 1024 + 6 * TILE + 4 * ROW_STAT + BR * PST * 4 + 8 * 8;
-
+template <int C>
 __global__ void __launch_bounds__(384, 1)
 attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -482,6 +202,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                            int L, int l_valid, float scale) {
   using namespace hopper;
+  constexpr uint32_t TILE = Cfg<C>::TILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = align_1024(smem_raw);
   unsigned char* vs = ks + TILE;
@@ -514,14 +235,14 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, 2 * TILE);
-      load_tile(ks, &tm_k, kv_full, row0 + k0);
-      load_tile(vs, &tm_v, kv_full, row0 + k0);
+      load_tile<C>(ks, &tm_k, kv_full, row0 + k0);
+      load_tile<C>(vs, &tm_v, kv_full, row0 + k0);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, r = row0 + it * BR;
         mbar_wait(&qd_empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(&qd_full[s], 2 * TILE + 2 * ROW_STAT);
-        load_tile(qs + s * TILE, &tm_q, &qd_full[s], r);
-        load_tile(dos + s * TILE, &tm_do, &qd_full[s], r);
+        load_tile<C>(qs + s * TILE, &tm_q, &qd_full[s], r);
+        load_tile<C>(dos + s * TILE, &tm_do, &qd_full[s], r);
         bulk_load(lse_s + s * BR, lse + r, ROW_STAT, &qd_full[s]);
         bulk_load(di_s + s * BR, di + r, ROW_STAT, &qd_full[s]);
       }
@@ -552,7 +273,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
     wgmma_fence();
     // A: S^T = K Q^T;  B: dP^T = V dO^T
-    mma_ss_tile(sc, kv_addr, role_a ? q_addr : do_addr);
+    mma_ss_tile<C>(sc, kv_addr, role_a ? q_addr : do_addr);
     wgmma_wait<0>();
     fence_regs(sc);
 
@@ -576,7 +297,7 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       mbar_arrive(p_full);
       acc_to_a<BR / 8>(sc, a);  // bf(P^T)
-      mma_rs_tile(acc, a, do_addr);  // dV += P^T dO
+      mma_rs_tile<C>(acc, a, do_addr);  // dV += P^T dO
     } else {
       const float* ds_ = di_s + s * BR + 2 * tq;
       mbar_wait(p_full, it & 1);
@@ -592,16 +313,15 @@ attn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       mbar_arrive(p_empty);
       acc_to_a<BR / 8>(sc, a);  // bf(dS^T)
-      mma_rs_tile(acc, a, q_addr);  // dK += dS^T Q
+      mma_rs_tile<C>(acc, a, q_addr);  // dK += dS^T Q
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&qd_empty[s]);
   }
-  store_rows((role_a ? dv : dk) + (size_t)(row0 + k0) * C, acc, warp, g, tq);
+  store_rows_bf16<C, C>((role_a ? dv : dk) + (size_t)(row0 + k0) * C, acc, warp, g, tq);
 }
 
-constexpr size_t DQ_SMEM = 1024 + 6 * TILE + 2 * ROW_STAT + 8 * 8;
-
+template <int C>
 __global__ void __launch_bounds__(256, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -610,6 +330,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ lse, const float* __restrict__ di,
                          __nv_bfloat16* __restrict__ dq, int L, int l_valid, float scale) {
   using namespace hopper;
+  constexpr uint32_t TILE = Cfg<C>::TILE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);
   unsigned char* dos = qs + TILE;
@@ -639,17 +360,17 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---- producer warpgroup
     if (threadIdx.x == 0) {
       mbar_expect_tx(qd_full, 2 * TILE + 2 * ROW_STAT);
-      load_tile(qs, &tm_q, qd_full, row0 + q0);
-      load_tile(dos, &tm_do, qd_full, row0 + q0);
+      load_tile<C>(qs, &tm_q, qd_full, row0 + q0);
+      load_tile<C>(dos, &tm_do, qd_full, row0 + q0);
       bulk_load(lse_s, lse + row0 + q0, ROW_STAT, qd_full);
       bulk_load(di_s, di + row0 + q0, ROW_STAT, qd_full);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, r = row0 + it * BR;
         mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(&k_full[s], TILE);
-        load_tile(ks + s * TILE, &tm_k, &k_full[s], r);
+        load_tile<C>(ks + s * TILE, &tm_k, &k_full[s], r);
         mbar_expect_tx(&v_full[s], TILE);
-        load_tile(vs + s * TILE, &tm_v, &v_full[s], r);
+        load_tile<C>(vs + s * TILE, &tm_v, &v_full[s], r);
       }
     }
     return;
@@ -686,8 +407,8 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&k_full[s], ph);
     mbar_wait(&v_full[s], ph);
     wgmma_fence();
-    mma_ss_tile(sc, q_addr, k_addr);   // S = Q K^T
-    mma_ss_tile(dp, do_addr, v_addr);  // dP = dO V^T
+    mma_ss_tile<C>(sc, q_addr, k_addr);   // S = Q K^T
+    mma_ss_tile<C>(dp, do_addr, v_addr);  // dP = dO V^T
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
@@ -701,13 +422,14 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     uint32_t a[BR / 16][4];
     acc_to_a<BR / 8>(sc, a);  // bf(dS)
-    mma_rs_tile(acc, a, k_addr);  // dQ += dS K
+    mma_rs_tile<C>(acc, a, k_addr);  // dQ += dS K
     __syncwarp();
     if (lane == 0) mbar_arrive(&kv_empty[s]);
   }
-  store_rows(dq + (size_t)(row0 + q0) * C, acc, warp, g, tq);
+  store_rows_bf16<C, C>(dq + (size_t)(row0 + q0) * C, acc, warp, g, tq);
 }
 
+template <int C>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* di, void* dq, void* dk, void* dv, int B, int L, int l_valid, float scale,
            cudaStream_t stream) {
@@ -718,22 +440,18 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   if (!err) err = hopper::make_map_bf16(&tv, v, rows, C, BR);
   if (!err) err = hopper::make_map_bf16(&tdo, dout, rows, C, BR);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dkdv_wgmma_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)DKDV_SMEM);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_bwd_dq_wgmma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  cudaError_t e = allow_smem(attn_bwd_dkdv_wgmma_kernel<C>, Cfg<C>::DKDV_SMEM);
+  if (e == cudaSuccess) e = allow_smem(attn_bwd_dq_wgmma_kernel<C>, Cfg<C>::DQ_SMEM);
   if (e != cudaSuccess) return (int)e;
   using Q = __nv_bfloat16;
   const float* f_lse = static_cast<const float*>(lse);
   const float* f_di = static_cast<const float*>(di);
-  attn_bwd_dkdv_wgmma_kernel<<<dim3(L / BR, B), 384, DKDV_SMEM, stream>>>(
+  attn_bwd_dkdv_wgmma_kernel<C><<<dim3(L / BR, B), 384, Cfg<C>::DKDV_SMEM, stream>>>(
       tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dk), static_cast<Q*>(dv), L, l_valid,
       scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_wgmma_kernel<<<dim3(L / BR, B), 256, DQ_SMEM, stream>>>(
+  attn_bwd_dq_wgmma_kernel<C><<<dim3(L / BR, B), 256, Cfg<C>::DQ_SMEM, stream>>>(
       tq, tk, tv, tdo, f_lse, f_di, static_cast<Q*>(dq), L, l_valid, scale);
   return (int)cudaGetLastError();
 }
@@ -1473,35 +1191,272 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace sp
 
-template <int C>
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int L,
-                int l_valid, float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16 at C = 512: wgmma + TMA, a block per 64 rows of one role's output
+// and one channel half (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+using sp::BR;
+using sp::STATS;
+constexpr int C = 512, W = 256, CB = C / W;  // two 256-column blocks
+constexpr uint32_t TILE = BR * W * 2;        // 64 rows of one column block, 32 KB
+constexpr int TILES = 7;                     // tiles in shared memory: resident, then the ring
+constexpr int MAX_STAGES = TILES - CB;       // dV's ring
+// the tiles, two stats slots, 15 mbarriers
+constexpr size_t SMEM = 1024 + TILES * TILE + 2 * STATS * 4 + 8 * (1 + 2 * MAX_STAGES + 4);
+static_assert(SMEM <= 232448, "shared memory");
+
+// R and XA resident (the block's own rows: R's two column blocks, then XA's
+// for dK and dQ), the ring after them; stats and mbarriers after the tiles.
+template <int ROLE>
+struct Ops {
+  static constexpr bool DV = ROLE == sp::DV;
+  static constexpr int NRES = DV ? CB : 2 * CB;
+  static constexpr int STAGES = TILES - NRES;  // 5 (dV) or 3 (dK, dQ)
+  // ring items a step: dK, dQ: XB_0 XB_1 T_0 T_1; dV: T_0 T_1, then dO's
+  // the block's own half U_h
+  static constexpr int ITEMS = DV ? CB + 1 : 2 * CB;
+};
+
+struct Bars {
+  uint64_t *res_full, *full, *empty, *st_full, *st_empty;
+  __device__ explicit Bars(unsigned char* res)
+      : res_full(reinterpret_cast<uint64_t*>(res + TILES * TILE + 2 * STATS * 4)),
+        full(res_full + 1), empty(full + MAX_STAGES), st_full(empty + MAX_STAGES),
+        st_empty(st_full + 2) {}
+};
+
+// The operand maps of a role. S (dQ) or S^T (dK, dV) = R T^T; X = dP (dQ) or
+// dP^T (dK) = XA XB^T. R and XA are the block's own rows, T and XB the
+// step's; dV's output product reads dO (U).
+struct Maps {
+  const CUtensorMap *r, *t, *xa, *xb, *u;
+  __device__ Maps(int role, const CUtensorMap* q, const CUtensorMap* k, const CUtensorMap* v,
+                  const CUtensorMap* dout)
+      : r(role == sp::DQ ? q : k), t(role == sp::DQ ? k : q), xa(role == sp::DQ ? dout : v),
+        xb(role == sp::DQ ? v : dout), u(dout) {}
+};
+
+// The producer (one thread): the resident tiles (with dQ's own lse and di),
+// then each step's stats (dK, dV) and its ring items (Ops::ITEMS; _c: column
+// block c, h the block's half) in the order they are taken.
+template <int ROLE>
+__device__ __forceinline__ void produce(unsigned char* res, const Maps& m,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ di, int L, int l_valid,
+                                        int half) {
+  using namespace hopper;
+  using O = Ops<ROLE>;
+  constexpr int STAGES = O::STAGES;
+  unsigned char* ring = res + O::NRES * TILE;
+  float* stats = reinterpret_cast<float*>(res + TILES * TILE);
+  const Bars b(res);
+  const int row0 = blockIdx.y * L, rb = row0 + blockIdx.x * BR;
+  const int n_tiles = ROLE == sp::DQ ? (l_valid + BR - 1) / BR : L / BR;
+  mbar_expect_tx(b.res_full, O::NRES * TILE + (ROLE == sp::DQ ? STATS * 4 : 0));
+  for (int c = 0; c < CB; ++c) {
+    sp::load_tile<W>(res + c * TILE, m.r, b.res_full, rb, c * W);
+    if (!O::DV) sp::load_tile<W>(res + (CB + c) * TILE, m.xa, b.res_full, rb, c * W);
+  }
+  if (ROLE == sp::DQ) {
+    bulk_load(stats, lse + rb, BR * 4, b.res_full);
+    bulk_load(stats + BR, di + rb, BR * 4, b.res_full);
+  }
+  int n = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int ro = row0 + it * BR;
+    if (ROLE != sp::DQ) {
+      const int st = it % 2;
+      mbar_wait(&b.st_empty[st], ((it / 2) & 1) ^ 1);
+      mbar_expect_tx(&b.st_full[st], STATS * 4);
+      bulk_load(stats + st * STATS, lse + ro, BR * 4, &b.st_full[st]);
+      bulk_load(stats + st * STATS + BR, di + ro, BR * 4, &b.st_full[st]);
+    }
+    for (int k = 0; k < O::ITEMS; ++k, ++n) {
+      const CUtensorMap* map = k < CB ? (O::DV ? m.t : m.xb) : (O::DV ? m.u : m.t);
+      const int s = n % STAGES;
+      mbar_wait(&b.empty[s], ((n / STAGES) & 1) ^ 1);
+      mbar_expect_tx(&b.full[s], TILE);
+      const int c = k < CB ? k : O::DV ? half : k - CB;
+      sp::load_tile<W>(ring + s * TILE, map, &b.full[s], ro, c * W);
+    }
+  }
+}
+
+// A consumer warpgroup: output channels half W .. + W - 1 of the block's 64
+// rows, in 128 registers a thread. Each step it forms X (dK, dQ) and S over
+// all 512 channels, then P (and dS) in registers, and acc += A U: A = P^T
+// (dV), dS^T (dK) or dS (dQ) as bf16 register operands, U = dO's half (dV)
+// or T's half (dK, dQ; kept in the ring since S). Each chain is drained
+// before its slots go back. dK, dQ: an item needs the slot of the item three
+// before it (XB_0 XB_1 of the next step those of XB_1 and T_0, T_0 that of
+// T_1), always released by then: the ring cannot deadlock. dQ walks only the
+// key tiles below l_valid; dK and dV every query tile (a padded query row
+// has dO = 0 and di = 0, so it adds nothing).
+template <int ROLE>
+__device__ __forceinline__ void consume(unsigned char* res, __nv_bfloat16* __restrict__ out,
+                                        int L, int l_valid, float scale) {
+  using namespace hopper;
+  using O = Ops<ROLE>;
+  constexpr int STAGES = O::STAGES;
+  unsigned char* ring = res + O::NRES * TILE;
+  float* stats = reinterpret_cast<float*>(res + TILES * TILE);
+  const Bars b(res);
+  const int rb = blockIdx.y * L + blockIdx.x * BR;
+  const int n_tiles = ROLE == sp::DQ ? (l_valid + BR - 1) / BR : L / BR;
+  const int half = blockIdx.z % CB;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.f;
+  mbar_wait(b.res_full, 0);
+
+  int n = 0;  // items taken from the ring
+  for (int it = 0; it < n_tiles; ++it) {
+    // descriptors rebuilt each step from an opaque base (as in sp::run_block)
+    const uint64_t dres = desc_kmajor(opaque(smem_u32(res)));
+    const uint64_t dring = desc_kmajor(opaque(smem_u32(ring)));
+    auto slot = [&](int item) { return dring + ((item % STAGES) * TILE >> 4); };
+    auto wait = [&](int item) { mbar_wait(&b.full[item % STAGES], (item / STAGES) & 1); };
+    auto release = [&](int item) { mbar_arrive(&b.empty[item % STAGES]); };
+
+    float xp[BR / 2];  // dP^T (dK) or dP (dQ): XA_0 XB_0^T + XA_1 XB_1^T
+    if constexpr (!O::DV) {
+      wait(n);
+      wait(n + 1);
+      wgmma_fence();
+      sp::mma_ss<W>(xp, dres + (CB * TILE >> 4), slot(n), true);
+      sp::mma_ss<W>(xp, dres + ((CB + 1) * TILE >> 4), slot(n + 1), false);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(xp);
+      __syncwarp();
+      if (lane == 0) {
+        release(n);
+        release(n + 1);
+      }
+      n += CB;
+    }
+
+    // S = R_0 T_0^T + R_1 T_1^T
+    float sc[BR / 2];
+    wait(n);
+    wait(n + 1);
+    if constexpr (!O::DV) fence_regs(xp);
+    wgmma_fence();
+    sp::mma_ss<W>(sc, dres, slot(n), true);
+    sp::mma_ss<W>(sc, dres + (TILE >> 4), slot(n + 1), false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    const int own = n + half;  // T_half
+    __syncwarp();
+    if (lane == 0) {
+      release(n + 1 - half);
+      if (O::DV) release(own);  // dK, dQ keep T_half for the output product
+    }
+    n += CB;
+
+    // P = exp(S scale - lse); dK and dQ: dS = P (X - di) scale
+    sp::softmax_grad<ROLE>(sc, O::DV ? sc : xp, stats, b.st_full, b.st_empty, it, l_valid,
+                           scale, warp, lane);
+    uint32_t a[BR / 16][4];
+    acc_to_a<BR / 8>(sc, a);  // bf(P^T), bf(dS^T) or bf(dS)
+
+    const int item = O::DV ? n : own;
+    if (O::DV) wait(item);
+    const uint32_t u = opaque(smem_u32(ring)) + (item % STAGES) * TILE;
+    fence_regs(acc);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk)
+      wgmma_rs_n256_mn(acc, a[kk], desc_mnmajor(u + kk * 16 * 128, BR * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) release(item);
+    if constexpr (O::DV) n += O::ITEMS - CB;
+  }
+  store_rows_bf16<W, C>(out + (size_t)rb * C + half * W, acc, warp, g, tq);
+}
+
+// q, k, v, dout: (B L, 512) bf16 maps, boxes of 64 columns x 64 rows.
+// blockIdx.z = 2 role + half (dK, dQ, dV); the consumer warpgroup is threads
+// 0-127, the producer thread 128.
+__global__ void __launch_bounds__(160, 1)
+attn_bwd_c512_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse, const float* __restrict__ di,
+                           __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int L, int l_valid, float scale) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* res = align_1024(smem_raw);
+  const int role = blockIdx.z / CB, half = blockIdx.z % CB;
+  if (threadIdx.x == 0) {
+    const Bars b(res);
+    mbar_init(b.res_full, 1);
+    for (int s = 0; s < MAX_STAGES; ++s) {
+      mbar_init(&b.full[s], 1);
+      mbar_init(&b.empty[s], 4);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&b.st_full[s], 1);
+      mbar_init(&b.st_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      const Maps m(role, &tm_q, &tm_k, &tm_v, &tm_do);
+      if (role == sp::DK) {
+        produce<sp::DK>(res, m, lse, di, L, l_valid, half);
+      } else if (role == sp::DV) {
+        produce<sp::DV>(res, m, lse, di, L, l_valid, half);
+      } else {
+        produce<sp::DQ>(res, m, lse, di, L, l_valid, half);
+      }
+    }
+    return;
+  }
+  if (role == sp::DK) {
+    consume<sp::DK>(res, dk, L, l_valid, scale);
+  } else if (role == sp::DV) {
+    consume<sp::DV>(res, dv, L, l_valid, scale);
+  } else {
+    consume<sp::DQ>(res, dq, L, l_valid, scale);
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* di, void* dq, void* dk, void* dv, int B, int L, int l_valid,
+           float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t rows = (uint64_t)B * L;
+  int err = hopper::make_map_bf16(&tq, q, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tk, k, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tv, v, rows, C, BR);
+  if (!err) err = hopper::make_map_bf16(&tdo, dout, rows, C, BR);
+  if (err) return err;
   using Q = __nv_bfloat16;
-  constexpr int BQ = C > 256 ? 32 : 64;  // dK/dV launch: q rows per step
-  constexpr int BK = C > 256 ? 32 : 64;  // dQ launch: key rows per step
-  using KV = DkdvCfg<C, BQ>;
-  using DQ = DqCfg<C, BK>;
-  static_assert(KV::smem_bytes <= 232448 && DQ::smem_bytes <= 232448, "shared memory");
-  auto kv_kernel = attn_bwd_dkdv_bf16_kernel<C, BQ>;
-  auto dq_kernel = attn_bwd_dq_bf16_kernel<C, BK>;
-  cudaError_t err = allow_smem(kv_kernel, KV::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(dq_kernel, DQ::smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  kv_kernel<<<dim3(L / KV::BK, B, C / KV::CS), kThreads, KV::smem_bytes, stream>>>(
-      static_cast<const Q*>(q), static_cast<const Q*>(k), static_cast<const Q*>(v),
-      static_cast<const Q*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<Q*>(dk), static_cast<Q*>(dv), L, l_valid,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dq_kernel<<<dim3(L / DQ::BQ, B, C / DQ::CS), kThreads, DQ::smem_bytes, stream>>>(
-      static_cast<const Q*>(q), static_cast<const Q*>(k), static_cast<const Q*>(v),
-      static_cast<const Q*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<Q*>(dq), L, l_valid, scale);
+  const cudaError_t e = allow_smem(attn_bwd_c512_wgmma_kernel, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_c512_wgmma_kernel<<<dim3(L / BR, B, 3 * CB), 160, SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<Q*>(dq), static_cast<Q*>(dk), static_cast<Q*>(dv), L, l_valid, scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace wide
 
 }  // namespace
 
@@ -1509,7 +1464,7 @@ extern "C" {
 
 // q, k, v, dout, dq, dk, dv: (B, L, C) contiguous, 16-byte aligned, fp32
 // (dtype 0) or bf16 (dtype 1); lse, di: (B, L) fp32, 16-byte aligned.
-// scratch: for fp32, 12 B L C bf16 (the operand pieces), else unused. Takes
+// scratch: for fp32, 12 B L C bf16 (the operand pieces); unused for bf16. Takes
 // C in {64, 128, 256, 512} and L % 128 == 0 (the Python wrapper pads other
 // shapes to these and raises outside them); keys at or past l_valid (1 <=
 // l_valid <= L) are masked. Returns a CUDA error code (cudaGetLastError()
@@ -1522,10 +1477,11 @@ int gdt_attention_bwd(const void* q, const void* k, const void* v, const void* d
   const int lv = l_valid;
   if (dtype == 1) {
     switch (C) {
-      case 64: return launch_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
-      case 128: return launch_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
-      case 256: return wg::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
-      case 512: return launch_bf16<512>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 64: return wg::launch<64>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 128: return wg::launch<128>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 256: return wg::launch<256>(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
+      case 512:
+        return wide::launch(q, k, v, dout, lse, di, dq, dk, dv, B, L, lv, scale, s);
     }
   } else if (dtype == 0) {
     void* w = scratch;

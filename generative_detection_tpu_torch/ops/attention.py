@@ -25,14 +25,15 @@ Kernel notes:
   (B, 4096, 256) it is compute-bound; at (B, 256, 512) memory-bound.
 - backward: replaces ``_mha_bwd_call`` (kernel ``_mha_bwd_kernel``), one
   k-major pass with two (L, C) fp32 accumulators in VMEM. On the H100 it is
-  two deterministic launches: dK/dV per key tile, then dQ per query tile.
-  bf16 at C = 256 runs them with TMA and ``wgmma``, the dK/dV launch with
-  one warpgroup per accumulator (S^T, P^T and dV; dP^T, dS^T and dK);
-  C = 64, 128 and 512 run ``mma.sync`` over min(C, 128)-channel slices.
-  fp32 at every width runs all five products
-  split-precision, as the forward: a pre-pass splits q, k, v and dO into
-  three bf16 pieces each (into scratch this wrapper allocates, 24 bytes an
-  element of q), then one launch whose blocks each accumulate dK, dQ or dV
+  blocks that each own 64 rows of one output, deterministic (no atomics).
+  bf16 runs TMA and ``wgmma`` at every width: at C = 64, 128 and 256 two
+  launches, dK/dV per key tile with one warpgroup per accumulator (S^T, P^T
+  and dV; dP^T, dS^T and dK), then dQ per query tile; at C = 512 one launch
+  whose blocks each own 64 rows and one 256-channel half of dK, dQ or dV
+  and form S (and dP) over all 512 channels. fp32 at every width runs all
+  five products split-precision, as the forward: a pre-pass splits q, k, v
+  and dO into three bf16 pieces each (into scratch this wrapper allocates,
+  24 bytes an element of q), then one launch whose blocks each accumulate dK, dQ or dV
   for 64 rows, keep one operand's pieces resident and stream the rest; at
   C = 512 a block owns half the output channels and forms S and dP over
   all 512 from 256-column piece tiles.
@@ -203,6 +204,8 @@ split_precision_512 = SimpleNamespace(launches=0)
 # (attn_bwd_split_wgmma_kernel), and at C = 512 (attn_bwd_split512_wgmma_kernel)
 split_backward = SimpleNamespace(launches=0)
 split_backward_512 = SimpleNamespace(launches=0)
+# bf16 backward calls that launched the C = 512 kernel (attn_bwd_c512_wgmma_kernel)
+backward_512 = SimpleNamespace(launches=0)
 
 
 def _split_scratch(q, backward=False):
@@ -292,6 +295,8 @@ def _launch_bwd(q, k, v, do, lse, di, l_valid, scale):
     _build.check(lib, rc, "attention backward kernel launch")
     attention_backward.launches += 1
     _count_split(scratch, split_backward_512 if c == 512 else split_backward)
+    if scratch is None and c == 512:
+        backward_512.launches += 1
     return dq, dk, dv
 
 

@@ -240,25 +240,29 @@ def test_group_norm_autograd_runs_the_backward_kernel(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (1, 256, 128), (2, 256, 64),
-                                   (4, 1024, 64)])
+                                   (4, 1024, 64), (16, 256, 512), (2, 256, 128)])
 def test_attention_backward_kernel_matches_plain(cuda, shape, dtype):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
     di = (do.float() * o.float()).sum(-1)
-    before = attention.attention_backward.launches, _split_backward_launches()
+    before = (attention.attention_backward.launches, _split_backward_launches(),
+              attention.backward_512.launches)
     got = attention.attention_backward(q, k, v, o, lse, do)
     want = attention._attention_backward_reference(q, k, v, do, lse, di)
     torch.cuda.synchronize()
-    # fp32 takes the split-precision backward at every width, bf16 not
-    assert (attention.attention_backward.launches, _split_backward_launches()) == (
-        before[0] + 1, before[1] + attention.split_precision(q))
+    # fp32 takes the split-precision backward at every width, bf16 not; bf16
+    # at C = 512 counts its own kernel
+    split = attention.split_precision(q)
+    assert (attention.attention_backward.launches, _split_backward_launches(),
+            attention.backward_512.launches) == (
+        before[0] + 1, before[1] + split, before[2] + (not split and shape[2] == 512))
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (16, 256, 512)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (16, 256, 512), (2, 256, 64), (1, 256, 128)])
 def test_attention_backward_kernel_is_deterministic(cuda, dtype, shape):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=cuda).to(dtype) for _ in range(4))
     o, lse = attention.single_head_attention(q, k, v, return_lse=True)
@@ -291,7 +295,8 @@ def test_split_precision_backward_matches_plain(cuda, l, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (16, 256, 512)])
+@pytest.mark.parametrize("shape", [(2, 4096, 256), (2, 256, 512), (16, 256, 512), (2, 256, 64),
+                                   (2, 256, 128)])
 def test_attention_peaked_softmax_matches_plain(cuda, shape, dtype):
     """q and k scaled by 4: each row's softmax sits on a handful of keys, so
     the output's RMS is that of v and a dropped, mis-indexed or permuted key

@@ -7,15 +7,20 @@ process, in the order given.
 
 A tree is a directory holding a checkout (e.g. from ``git archive``); its
 ``generative_detection_tpu_torch`` is imported and builds its own kernels.
-At every attention site of the flagship detector (batch 8) and train step
-(batch 16), and at L = 16384 (batch 1), each run times the forward
-(``single_head_attention`` with its lse) and the backward kernels
-(``_attention_backward_cuda``), mean of 20 launches after a warm-up (CUDA
-events), checks both against the plain versions (max |err| / RMS(plain)),
-splits the device time by kernel (``torch.profiler``, 3 calls: at small
-sites the host's launch cost exceeds the kernels' and sets the event time),
-and prints one JSON line with the card's bound (bf16 peak 989 TFLOP/s,
-3.35 TB/s) and the achieved TFLOP/s. Then the fp32 forward (B1 with its lse)
+At every attention site of the flagship detector (batch 8), and at L =
+16384 (batch 1), each run times the bf16 forward (``single_head_attention``
+with its lse); the bf16 backward (``_attention_backward_cuda``) at every
+site of the flagship train step (batch 16), the tiny configs' (C = 64), the
+C = 128 kernels', the shapes off the kernels' grid (padded) and L = 16384
+(``BWD_SITES``). Each is the mean of 20 launches after a warm-up (CUDA
+events), checked against the plain version (max |err| / RMS(plain)), its
+device time split by kernel (``torch.profiler``, 3 calls: at small sites
+the host's launch cost exceeds the kernels' and sets the event time), with
+the card's bound (bf16 peak 989 TFLOP/s, 3.35 TB/s) and the achieved
+TFLOP/s; each backward also with SDPA's backward on the same bf16 inputs
+(its forward and backward less its forward), whether a repeat is
+bit-equal, and its error with a peaked softmax (q and k scaled by 4). Then
+the fp32 forward (B1 with its lse)
 at the flagship's fp32 sites at batch 8, 16 and 32 (a train step's and a
 detector request's), and B5 on fp32 and on bf16 inputs at batch 8, each
 beside SDPA on fp32 copies of q, k, v (TF32 off), with the bound of the
@@ -44,7 +49,9 @@ import subprocess
 import sys
 
 FWD_SITES = ((8, 4096, 256), (8, 256, 512), (1, 16384, 256))
-BWD_SITES = ((16, 4096, 256), (16, 256, 512), (1, 16384, 256))
+BWD_SITES = ((16, 4096, 256), (16, 256, 512), (2, 256, 512), (2, 256, 64), (4, 1024, 64),
+             (1, 256, 128), (2, 256, 128), (2, 256, 96), (1, 576, 512), (2, 400, 512),
+             (1, 16384, 256))
 FP32_SITES = tuple((b, l, c) for b in (8, 16, 32) for l, c in ((4096, 256), (256, 512)))
 FLASH_SITES = ((8, 4096, 256), (8, 256, 512))
 FP32_BWD_SITES = ((16, 4096, 256), (16, 256, 512), (2, 256, 64))
@@ -211,6 +218,58 @@ def _fp32_bwd_rows(attention, g) -> list:
     return rows
 
 
+def _bwd_inputs(attention, g, b, l, c, peak=1.0):
+    import torch
+
+    q, k = (peak * torch.randn(b, l, c, device="cuda", generator=g) for _ in range(2))
+    v, do = (torch.randn(b, l, c, device="cuda", generator=g) for _ in range(2))
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def _bwd_row(attention, g, b, l, c) -> dict:
+    """The bf16 backward at (b, l, c): event and device ms, bound, SDPA's
+    backward, a bit-equal repeat, the error, and the error with a peaked
+    softmax."""
+    import torch
+    import torch.nn.functional as F
+
+    args = _bwd_inputs(attention, g, b, l, c)
+    got = attention._attention_backward_cuda(*args)
+    again = attention._attention_backward_cuda(*args)
+    fn = lambda: attention._attention_backward_cuda(*args)  # noqa: E731
+    ms = _time_ms(fn)
+    split = _kernel_split(fn)
+    want = attention._attention_backward_reference(*args)
+    err = max(_rel_err(x, y) for x, y in zip(got, want))
+    repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+    del got, again, want
+    q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in args[:3])
+    do4 = args[3][:, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+
+    sdpa_ms = _time_ms(sdpa_fwd_bwd) - _time_ms(sdpa)
+    del q4, k4, v4, do4, args
+    peaked = _bwd_inputs(attention, g, b, l, c, peak=4.0)
+    peaked_err = max(_rel_err(x, y) for x, y in zip(
+        attention._attention_backward_cuda(*peaked),
+        attention._attention_backward_reference(*peaked)))
+    flops = 10 * b * l * l * c
+    return {
+        "shape": [b, l, c], "grid": list(attention.kernel_shape(l, c)), "ms": ms,
+        "device_ms": sum(split.values()), "kernel_ms": split, "tflops": flops / ms / 1e9,
+        "bound_ms": _bound_ms(flops, 7 * b * l * c * 2 + 2 * b * l * 4),
+        "sdpa_bwd_ms": sdpa_ms, "repeat_equal": repeat, "max_err_rel_rms": err,
+        "peaked_err_rel_rms": peaked_err,
+    }
+
+
 def run_one(tree: str) -> dict:
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -238,22 +297,7 @@ def run_one(tree: str) -> dict:
         del q, k, v, o
         torch.cuda.empty_cache()
     for b, l, c in BWD_SITES:
-        q, k, v, do = (torch.randn(b, l, c, device="cuda", generator=g).bfloat16()
-                       for _ in range(4))
-        o, lse = attention.single_head_attention(q, k, v, return_lse=True)
-        di = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, di)
-        got = attention._attention_backward_cuda(*args)
-        ms = _time_ms(lambda: attention._attention_backward_cuda(*args))
-        want = attention._attention_backward_reference(*args)
-        flops = 10 * b * l * l * c
-        out["backward"].append({
-            "shape": [b, l, c], "ms": ms, "tflops": flops / ms / 1e9,
-            "bound_ms": _bound_ms(flops, 7 * q.numel() * 2 + 2 * b * l * 4),
-            "max_err_rel_rms": max(_rel_err(x, y) for x, y in zip(got, want)),
-            "kernel_ms": _kernel_split(lambda: attention._attention_backward_cuda(*args)),
-        })
-        del q, k, v, do, o, got, want
+        out["backward"].append(_bwd_row(attention, g, b, l, c))
         torch.cuda.empty_cache()
     out.update(_fp32_rows(attention, g))
     out["backward_fp32"] = _fp32_bwd_rows(attention, g)
