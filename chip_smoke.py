@@ -11,23 +11,27 @@ Phases (any failure raises and exits non-zero, before the result line):
    (one process per source, all started together); the bf16 attention
    kernels (B1 and the flash variant B5, and the backward B2 at every width),
    the fp32 split-precision attention
-   forward (B1 and B5 in fp32 at C <= 256 and at C = 512), the bf16 fused
-   GroupNorm+SiLU+conv (B6), row-Winograd forward (B7) and weight gradient
-   (B8) and the fp32 split-precision attention backward (B2 in fp32 at
-   C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in their SASS (cuobjdump), B6-B8, the split-precision
-   kernels, every kernel of attention_bwd.cu and the fp32 conv kernels of
-   conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels may spill, ptxas
-   may not serialize the wgmma of the split-precision kernels and of the
-   bf16 C = 512 backward, and the FMA fp32 forward (attn_fwd_f32_kernel) is
-   gone;
+   forward (B1 and B5 in fp32 at C <= 256 and at C = 512), the fused
+   GroupNorm+SiLU+conv (B6, bf16 and fp32 on split precision), the bf16
+   row-Winograd forward (B7), the weight gradient (B8, bf16 and fp32 on
+   split precision) and the fp32 split-precision attention backward (B2 in
+   fp32 at C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA
+   (UTMALDG) instructions in their SASS (cuobjdump), B6-B8, the
+   split-precision kernels, every kernel of attention_bwd.cu and the fp32
+   conv kernels of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels
+   may spill, ptxas may not serialize the wgmma of the split-precision
+   kernels and of the bf16 C = 512 backward, and the FMA fp32 kernels they
+   replaced (attn_fwd_f32_kernel, wgrad_f32_kernel, conv3x3.cu's direct
+   form conv3x3_f32_kernel<1>) are gone;
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
 4. kernels, each against its plain PyTorch version on the card, with its
    time, the plain version's, one library call's (a yardstick the port never
    calls) and the card's bound (for B7 and B8 the products the Winograd
-   form does, half the direct conv's at F(4,3)): the forward kernels at the flagship
+   form does, half the direct conv's at F(4,3); the fp32 B6 and B8 count
+   the split route's six bf16 piece products, beside the CUDA cores'
+   bound): the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
    flagship train step (batch 16; the GroupNorm backward with a bit-equal
    repeat and its share of the bound), the fused GroupNorm+SiLU+conv (B6) at
@@ -72,7 +76,8 @@ Phases (any failure raises and exits non-zero, before the result line):
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
    C = 32 and 64) with GDT_WINOGRAD unset; losses, d_weight and both
-   optimizers' Adam first moments must agree;
+   optimizers' Adam first moments must agree. The fp32 fused detector and
+   the fused tiny step are where the fp32 B6 and B8 kernels launch;
 8. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -182,8 +187,10 @@ LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # at C = 512) and in fp32 on split precision; the split kernels at
 # C <= 256 and at C = 512), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
 # or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
-# and weight gradient (B8), each at M = 2, 4 x GN off, on. B6-B8, the
-# split-precision kernels and attention_bwd.cu have no mma.sync (HMMA).
+# and weight gradient (B8), each at M = 2, 4 x GN off, on; in fp32 B6 and B8
+# on split precision (B6: 1, 2 or 4 image rows an accumulator, with and
+# without emit_z; B8: M = 2, 4 x GN off, on). B6-B8, the split-precision
+# kernels and attention_bwd.cu have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
 SPLIT_512_KERNEL = "attn_fwd_split512_wgmma_kernel"
@@ -196,20 +203,37 @@ _BWD = tuple(f"attn_bwd_{k}_wgmma_kernelILi{c}E" for k in ("dkdv", "dq")
 _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgmma_kernel")
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
+B6_SPLIT_KERNEL = "fused_conv_split_wgmma_kernel"
+B8_SPLIT_KERNEL = "wgrad_split_wgmma_kernel"
+_CONV_SPLIT = tuple(f"{B6_SPLIT_KERNEL}ILi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1)) + tuple(
+    f"{B8_SPLIT_KERNEL}ILi{m}ELb{gn}" for m in (2, 4) for gn in (0, 1))
 _ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
                   for flash in (0, 1))
 SPLIT_NARROW = (64, 128, 256)  # the widths of the split kernels' C template
 _SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in SPLIT_NARROW for lse in (0, 1)) + tuple(
     f"{SPLIT_512_KERNEL}ILb{lse}" for lse in (0, 1))
 _SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in SPLIT_NARROW) + (SPLIT_BWD_512_KERNEL,)
-SPLIT_KERNELS = (SPLIT_KERNEL, SPLIT_512_KERNEL, SPLIT_BWD_KERNEL, SPLIT_BWD_512_KERNEL)
-WGMMA_KERNELS = _ATTN_FWD + _SPLIT + _BWD + _SPLIT_BWD + _B6 + _WINO
+SPLIT_KERNELS = (SPLIT_KERNEL, SPLIT_512_KERNEL, SPLIT_BWD_KERNEL, SPLIT_BWD_512_KERNEL,
+                 B6_SPLIT_KERNEL, B8_SPLIT_KERNEL)
+WGMMA_KERNELS = _ATTN_FWD + _SPLIT + _BWD + _SPLIT_BWD + _B6 + _WINO + _CONV_SPLIT
+# the FMA fp32 kernels that the split-precision ones replaced: none may be built
+FMA_GONE = {"attention": "attn_fwd_f32_kernel", "conv3x3_wgrad": "wgrad_f32_kernel",
+            "conv3x3": "conv3x3_f32_kernelILi1E"}
 # kernels whose wgmma chains ptxas may not serialize (C7520, C7512)
 NO_SERIAL = SPLIT_KERNELS + (BWD_512_KERNEL,)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
-# The device kernel behind each conv entry of the kernels line
-CONV_KERNELS = {"fused_conv": "fused_conv_wgmma_kernel", "wino_rows": "wino_rows_wgmma_kernel",
-                "wino_rows_dgrad": "wino_rows_wgmma_kernel", "wino_wgrad": "wgrad_wgmma_kernel"}
+# The device kernel behind each conv entry of the kernels line, by dtype
+# (fp32 B7 stays on conv3x3.cu's FMA template)
+CONV_KERNELS = {
+    "fused_conv": {torch.bfloat16: "fused_conv_wgmma_kernel",
+                   torch.float32: f"split_weights_kernel + {B6_SPLIT_KERNEL}"},
+    "wino_rows": {torch.bfloat16: "wino_rows_wgmma_kernel", torch.float32: "conv3x3_f32_kernel"},
+    "wino_rows_dgrad": {torch.bfloat16: "wino_rows_wgmma_kernel",
+                        torch.float32: "conv3x3_f32_kernel"},
+    "wino_wgrad": {torch.bfloat16: "wgrad_wgmma_kernel + fold_kernel",
+                   torch.float32: f"{B8_SPLIT_KERNEL} + fold_kernel"},
+}
+SPLIT_CONV_PRODUCTS = 6  # bf16 piece products of an fp32 conv product on split precision
 
 
 # Every launch counter of the port, by the name the kernels line uses.
@@ -328,17 +352,18 @@ def phase_build() -> None:
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2 at C = 64,
     # 128, 256 and 512), the fp32 split-precision attention forward and backward
-    # (C = 64, 128, 256 and 512), B6, B7 and B8 must run on wgmma and TMA, and must not
-    # spill; B6-B8 and every kernel of attention_bwd.cu have no mma.sync left,
-    # nor has the fp32 conv3x3.cu
+    # (C = 64, 128, 256 and 512), B6, B7 and B8 (and B6, B8 in fp32) must run
+    # on wgmma and TMA, and must not spill; B6-B8 and every kernel of
+    # attention_bwd.cu have no mma.sync left, nor has the fp32 conv3x3.cu
     sass, fma, bwd_hmma = {}, [], {}
     for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
         counts = _sass_counts(n)
         sass.update({k: v for k, v in counts.items() if WGMMA_TAG in k})
-        fma += [k for k in counts if "attn_fwd_f32_kernel" in k]
+        fma += [k for k in counts if FMA_GONE.get(n, "!") in k]
         if n == "attention_bwd":
             bwd_hmma = {k: v["HMMA"] for k, v in counts.items()}
     fp32_conv = _sass_counts("conv3x3")
+    fma += [k for k in fp32_conv if FMA_GONE["conv3x3"] in k]
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings,
           "conv3x3_hmma": sum(ops["HMMA"] for ops in fp32_conv.values()),
@@ -360,7 +385,7 @@ def phase_build() -> None:
     require(not [w for w in warnings if ("C7520" in w or "C7512" in w)
                  and any(k in w for k in NO_SERIAL)],
             f"ptxas serializes the wgmma of {NO_SERIAL}: {warnings}")
-    require(not fma, f"the FMA fp32 attention forward is still built: {fma}")
+    require(not fma, f"FMA fp32 kernels that split precision replaced are still built: {fma}")
 
 
 def _gn_route(x) -> dict:
@@ -634,6 +659,16 @@ def _bound(flops, nbytes, dtype) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def _conv_bound(flops, nbytes, dtype, split) -> dict:
+    """``_bound``; with ``split`` (the fp32 split-precision route) the six
+    bf16 piece products of every product at the bf16 peak, with the bound on
+    the CUDA cores beside it."""
+    if not split:
+        return _bound(flops, nbytes, dtype)
+    return {**_bound(SPLIT_CONV_PRODUCTS * flops, nbytes, torch.bfloat16),
+            "cuda_cores_bound_ms": _bound(flops, nbytes, dtype)["bound_ms"]}
+
+
 def _conv_inputs(g, b, hw, c, co, dtype, w=None):
     x = (torch.randn(b, hw, w or hw, c, device="cuda", generator=g) * 2 + 0.5).to(dtype)
     gamma = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
@@ -682,10 +717,11 @@ def gn_affine_case(g, hw, c, dtype, b=BATCH):
 
 
 def fused_conv_case(g, hw, c, co, dtype, w=None):
-    """B6 at batch 8 (bf16: fused_conv_wgmma_kernel of csrc/conv3x3_wino.cu;
-    fp32: the direct mode of csrc/conv3x3.cu) with the GroupNorm prologue,
-    from the stats kernel's affine; also with emit_z, and a repeat that must
-    give the same bits. ``w``: a width other than ``hw``."""
+    """B6 at batch 8 (csrc/conv3x3_wino.cu: bf16 fused_conv_wgmma_kernel,
+    fp32 fused_conv_split_wgmma_kernel after its weight pre-pass) with the
+    GroupNorm prologue, from the stats kernel's affine; also with emit_z, and
+    a repeat that must give the same bits. ``w``: a width other than
+    ``hw``."""
     b, w = BATCH, w or hw
     x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype, w)
     a, shift, _ = norm.group_norm_affine(x, gamma, beta)
@@ -717,8 +753,8 @@ def fused_conv_case(g, hw, c, co, dtype, w=None):
         "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, w9, bias, 1, gn_ab=(a, shift))),
         "plain_ms": time_ms(lambda: fused_conv._conv_bias(
             fused_conv._silu_affine(x, a, shift), k, bias), 5),
-        "library_ms": time_ms(library),
-        **_bound(2 * 9 * b * hw * w * c * co, nbytes, dtype),
+        "library_ms": time_ms(library), "kernel": CONV_KERNELS["fused_conv"][dtype],
+        **_conv_bound(2 * 9 * b * hw * w * c * co, nbytes, dtype, dtype == torch.float32),
     }
     r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
     return r
@@ -732,7 +768,8 @@ def _cudnn_grads(dy, z, k, dtype, mask):
 
 def wino_cases(g, hw, c, co, dtype) -> list:
     """B7 forward (GroupNorm prologue, F(4,3)), B7 dgrad and B8 (GroupNorm
-    recompute) at batch 16, as GDT_WINOGRAD=fused runs them."""
+    recompute) at batch 16, as GDT_WINOGRAD=fused runs them (fp32: B8 on
+    split precision, B7 on conv3x3.cu's FMA template)."""
     b, m = TRAIN_BATCH, 4
     x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype)
     dy = torch.randn(b, hw, hw, co, device="cuda", generator=g).to(dtype)
@@ -765,21 +802,26 @@ def wino_cases(g, hw, c, co, dtype) -> list:
     isz, flops = x.element_size(), ab_wgrad.winograd_flops(b, hw, hw, c, co, m)
     act_in, act_out = x.numel() * isz, b * hw * hw * co * isz
     common = {"shape": [b, hw, hw, c, co], "dtype": _dname(dtype)}
+    splits = conv3x3._wgrad_splits(b, hw, hw, c, co, m, dtype)
     wgrad = {"name": "wino_wgrad", **common, "max_err": errs[2], "repeat_equal": True,
+             "kernel": CONV_KERNELS["wino_wgrad"][dtype], "splits": splits,
              "kernel_ms": time_ms(lambda: conv3x3.conv3x3_wgrad(x, dy, m, ab)),
              "plain_ms": time_ms(lambda: wr._wino_wgrad_reference(x, dy, a, shift, m), 3),
              "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [False, True, False])),
-             **_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype)}
-    if dtype == torch.bfloat16:  # the bytes the wgmma kernel's design moves
-        wgrad.update(ab_wgrad.wgrad_traffic(b, hw, hw, c, co, m))
+             **_conv_bound(flops, act_in + act_out + du.numel() * 4 + 2 * b * c * 4, dtype,
+                           dtype == torch.float32),
+             # the bytes the wgmma kernel's design moves
+             **ab_wgrad.wgrad_traffic(b, hw, hw, c, co, m, _dname(dtype), splits)}
     cases = [
         {"name": "wino_rows", **common, "max_err": errs[0], "repeat_equal": True,
+         "kernel": CONV_KERNELS["wino_rows"][dtype],
          "err_vs_fp32_direct_rel": _vs_fp32_direct(out, x, a, shift, k, bias),
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, u, bias, m, gn_ab=ab)),
          "plain_ms": time_ms(lambda: wr._wino_rows_reference(x, u, bias, a, shift, m), 3),
          "library_ms": time_ms(lambda: F.conv2d(z.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)),
          **_bound(flops, act_in + act_out + u.numel() * isz + (2 * b * c + co) * 4, dtype)},
         {"name": "wino_rows_dgrad", **common, "max_err": errs[1], "repeat_equal": True,
+         "kernel": CONV_KERNELS["wino_rows_dgrad"][dtype],
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(dy, u_rot, zero, m)),
          "plain_ms": time_ms(
              lambda: wr._wino_rows_reference(dy, u_rot, zero, None, None, m), 3),
@@ -984,10 +1026,11 @@ def require_default_tf32(label: str) -> None:
             f"{label}: the TF32 flags are not PyTorch's defaults")
 
 
-def phase_detector(expect: dict, fuse: bool) -> dict:
+def phase_detector(expect: dict, fuse: bool, fp32_fused: int = 0) -> dict:
     """Serve bf16 requests at batch 1, 8 and 32 (GDT_FUSE_INFERENCE=1 when
     ``fuse``): p50s, and the launches per request against ``expect``. Then
-    the fp32 detector on the card against the CPU in the same setting."""
+    the fp32 detector on the card against the CPU in the same setting, whose
+    one request launches B6 at ``fp32_fused`` sites."""
     label = "detector_fused" if fuse else "detector"
     with switches(GDT_FUSE_INFERENCE="1" if fuse else "0"):
         model, net, hmin, hmax = flagship_detector()
@@ -1031,13 +1074,21 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
             require(launches[name] == n * calls,
                     f"{label} {name} launches {launches[name]} != {n} x {calls}")
 
-        # fp32 on the card (kernels) against fp32 on the CPU (plain versions)
+        # fp32 on the card (kernels) against fp32 on the CPU (plain versions);
+        # fused, every site the fp32 routing rule admits runs the fp32 B6
+        # kernel once
         require_default_tf32(f"{label}_fp32_card_vs_cpu")
         args = detector_inputs(2, 99)
         outs = {}
         for device in ("cuda", "cpu"):
             det = make_detector_fn(model, net, hmin, hmax, 256, dtype="float32", device=device)
+            reset_counts()
             outs[device] = [t.cpu().numpy() for t in det(*args)]
+            if device == "cuda":
+                fp32_launches = read_counts()
+    require(fp32_launches["fused_conv"] == fp32_fused,
+            f"{label}_fp32_card_vs_cpu fused_conv launches {fp32_launches['fused_conv']} "
+            f"!= {fp32_fused}")
     (boxes, cls, score), (wboxes, wcls, wscore) = outs["cuda"], outs["cpu"]
     np.testing.assert_allclose(boxes, wboxes, **BOX_TOL)
     np.testing.assert_array_equal(cls, wcls)
@@ -1045,8 +1096,8 @@ def phase_detector(expect: dict, fuse: bool) -> dict:
     emit({"phase": f"{label}_fp32_card_vs_cpu", "batch": 2,
           "boxes_max_abs_err": float(np.abs(boxes - wboxes).max()),
           "score_max_abs_err": float(np.abs(score - wscore).max()),
-          "classes_equal": True, "boxes": boxes.tolist()})
-    return {"launches": launches, "results": results}
+          "classes_equal": True, "boxes": boxes.tolist(), "card_launches": fp32_launches})
+    return {"launches": launches, "results": results, "fp32_launches": fp32_launches}
 
 
 def phase_detector_fp32(expect: dict) -> None:
@@ -1189,7 +1240,7 @@ def phase_train(expect: dict, winograd: str, fp32: bool = False) -> dict:
     return {**counts, "result": result}
 
 
-def phase_train_card_vs_cpu(winograd, ch=128) -> None:
+def phase_train_card_vs_cpu(winograd, ch=128) -> dict:
     """One fp32 step of tiny_cpu.yaml from the same weights and draws on the
     card and the CPU, with GDT_WINOGRAD=``winograd`` (None: unset). At ch 128
     attention runs at C = 256 and 32x32 sites sit in the Winograd band; at
@@ -1242,33 +1293,45 @@ def phase_train_card_vs_cpu(winograd, ch=128) -> None:
           "batch": 2, "card": got, "cpu": want,
           "card_launches": launches,
           "mu_max_abs_err": dict(zip(("opt_ae", "opt_disc"), errs))})
+    return launches
 
 
-def _largest(cases, name):
-    """The bf16 case of ``name`` with the most work (shape product)."""
-    keys = [k for k in cases if k[0] == name and k[-1] == torch.bfloat16]
+def _largest(cases, name, dtype=torch.bfloat16):
+    """The ``dtype`` case of ``name`` with the most work (shape product)."""
+    keys = [k for k in cases if k[0] == name and k[-1] == dtype]
     return cases[max(keys, key=lambda k: math.prod(cases[k]["shape"]))]
 
 
-def wino_routed(wino: Counter) -> dict:
+def wino_routed(wino: Counter, dtype=torch.bfloat16) -> dict:
     """The fused step's sites (h=w, C, CO) -> count per step that take each
-    row-Winograd kernel: every fused site the forward; the dgrad and the
-    weight gradient where the JAX package's tile rules take the kernel, else
-    cuDNN (XLA there)."""
+    row-Winograd kernel in ``dtype``: every fused site the forward; the dgrad
+    and the weight gradient where the JAX package's tile rules (by the
+    dtype's item size) take the kernel, else cuDNN (XLA there)."""
+    isz = dtype.itemsize
     return {
         "wino_rows": dict(wino),
         "wino_rows_dgrad": {k: n for k, n in wino.items()
-                            if wr._pick_tile(k[0], k[0], k[2], k[1], 2, 4) is not None},
+                            if wr._pick_tile(k[0], k[0], k[2], k[1], isz, 4) is not None},
         "wino_wgrad": {k: n for k, n in wino.items()
-                       if wr._wgrad_tile(k[0], k[0], k[1], k[2], 2, 4) is not None},
+                       if wr._wgrad_tile(k[0], k[0], k[1], k[2], isz, 4) is not None},
     }
 
 
-def site_sums(cases: dict, name: str, routed: dict, per: str) -> dict:
-    """Kernel ``name``'s bf16 ms, the library call's and the bound summed
-    over the sites of one ``per`` (each site's time times its count), and
-    each site's numbers."""
-    rows = [(n, cases[(name, *k, torch.bfloat16)]) for k, n in sorted(routed.items())]
+def fused_routed(sites: Counter, dtype) -> dict:
+    """The fused detector's B6 sites (h=w, C, CO) -> count per request that
+    ``fused_conv.fused_eligible`` sends to the kernel in ``dtype`` (in fp32
+    the 16x16x512->512 sites exceed the TPU kernel's VMEM budget and take
+    the plain composite, as in the JAX package)."""
+    return {k: n for k, n in sites.items()
+            if fused_conv.fused_eligible((BATCH, k[0], k[0], k[1]), k[2], dtype)}
+
+
+def site_sums(cases: dict, name: str, routed: dict, per: str,
+              dtype=torch.bfloat16) -> dict:
+    """Kernel ``name``'s ``dtype`` ms, the library call's and the bound
+    summed over the sites of one ``per`` (each site's time times its count),
+    and each site's numbers."""
+    rows = [(n, cases[(name, *k, dtype)]) for k, n in sorted(routed.items())]
     return {
         f"{per}_ms": sum(n * r["kernel_ms"] for n, r in rows),
         f"{per}_library_ms": sum(n * r["library_ms"] for n, r in rows),
@@ -1279,14 +1342,14 @@ def site_sums(cases: dict, name: str, routed: dict, per: str) -> dict:
     }
 
 
-def wino_step_sums(cases: dict, wino: Counter) -> dict:
+def wino_step_sums(cases: dict, wino: Counter, dtype=torch.bfloat16) -> dict:
     """``site_sums`` of each row-Winograd kernel over one fused step."""
-    return {name: site_sums(cases, name, routed, "fused_step")
-            for name, routed in wino_routed(wino).items()}
+    return {name: site_sums(cases, name, routed, "fused_step", dtype)
+            for name, routed in wino_routed(wino, dtype).items()}
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
-                 train_fp32: dict, step_sums: dict):
+                 train_fp32: dict, tiny_fused: dict, step_sums: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -1295,14 +1358,17 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     forward (B1 in fp32 at (8, 4096, 256), and at (8, 256, 512) its C = 512
     kernel) and backward (B2 in fp32 at (16, 4096, 256), and at (16, 256,
     512) its C = 512 kernel) with their launches in the config's own fp32
-    step; last the bf16 backward's C = 512 kernel at (16, 256, 512) with its
-    launches in the bf16 step (B2's bf16 entry counts every width). B5 is on
+    step; the bf16 backward's C = 512 kernel at (16, 256, 512) with its
+    launches in the bf16 step (B2's bf16 entry counts every width); last the
+    fp32 split-precision B6 (at 8x256x256x128->128, launches in the fused
+    detector's fp32 request on the card) and B8 (at 16x128x128x256->128,
+    launches in the fused tiny fp32 step ``tiny_fused``). B5 is on
     no path of the port (the JAX package reaches it only from its
     availability probe, whose role the kernel check here plays): its bf16
     and fp32 entries. ``kernels_per_call`` device kernels
-    run per counted call. B7 and B8 also give their share of the bound and
-    their times summed over a fused step's sites, B6 over a fused detector
-    request's (``step_sums``)."""
+    run per counted call. B6-B8 also give their share of the bound and B6,
+    B8 (and bf16 B7) their times summed over a fused detector request's or a
+    fused step's sites (``step_sums``, by (name, dtype))."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -1340,6 +1406,10 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
          train_fused["wino_wgrad"]),
         (cases[("attention_bwd", 256, 512, bf16)], "attention_bwd.cu", "attention.py:251", 1,
          train["attention_bwd_512"]),
+        (_largest(cases, "fused_conv", fp32), "conv3x3_wino.cu", "fused_conv.py:196", 2,
+         det_fused["fp32_launches"]["fused_conv"]),
+        (_largest(cases, "wino_wgrad", fp32), "conv3x3_wgrad.cu", "winograd_pallas.py:430", 2,
+         tiny_fused["wino_wgrad"]),
     )
     entries = []
     for r, source, replaces, per_call, n in rows:
@@ -1352,16 +1422,16 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         })
     entries[4]["on_main_path"] = entries[6]["on_main_path"] = False
     for e, r in zip(entries, (row[0] for row in rows)):
-        if "kernel" in r:  # the attention and GroupNorm forward kernels
+        if "kernel" in r:  # the attention, GroupNorm forward and conv kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
-        if e["name"] in CONV_KERNELS:
-            e["kernel"], e["bound_share"] = CONV_KERNELS[e["name"]], r["bound_share"]
+        if "cuda_cores_bound_ms" in r:  # the fp32 split-precision conv kernels
+            e["cuda_cores_bound_ms"] = r["cuda_cores_bound_ms"]
         if e["name"] == "group_norm_bwd":
             e["kernel"] = "gn_bwd_reduce_kernel + gn_bwd_dx_kernel"
             e["bound_share"] = r["bound_share"]
-        if e["name"] in step_sums:
-            e["bound_share"] = r["bound_share"]
-            e.update({k: v for k, v in step_sums[e["name"]].items() if k != "sites"})
+        sums = step_sums.get((e["name"], e["dtype"]))
+        if sums:
+            e.update({k: v for k, v in sums.items() if k != "sites"})
     return {"kernels": entries}
 
 
@@ -1389,15 +1459,22 @@ def main() -> int:
           "winograd_shapes": sorted([list(k) + [n] for k, n in wino.items()])})
     require(n_b6 > 0 and n_wino > 0, "no fused-conv site found")
     cases = phase_kernels(gn_train, attn_train, sites)
-    step_sums = wino_step_sums(cases, wino)
-    emit({"phase": "winograd_fused_step_sums", **step_sums})
-    # B6 over one fused detector request's sites at batch 8
-    step_sums["fused_conv"] = site_sums(cases, "fused_conv", sites["detector"], "fused_request")
-    emit({"phase": "fused_detector_request_sums", **step_sums["fused_conv"]})
+    step_sums = {}  # by (kernel name, dtype name)
+    for dtype in (torch.bfloat16, torch.float32):
+        wino_sums = wino_step_sums(cases, wino, dtype)
+        emit({"phase": "winograd_fused_step_sums", "dtype": _dname(dtype), **wino_sums})
+        # B6 over one fused detector request's sites at batch 8
+        request = site_sums(cases, "fused_conv", fused_routed(sites["detector"], dtype),
+                            "fused_request", dtype)
+        emit({"phase": "fused_detector_request_sums", "dtype": _dname(dtype), **request})
+        step_sums.update({(name, _dname(dtype)): v for name, v in wino_sums.items()})
+        step_sums[("fused_conv", _dname(dtype))] = request
     det = phase_detector({"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD},
                          fuse=False)
     det_fused = phase_detector({"group_norm": n_det_gn, "attention": ATTN_PER_FORWARD,
-                                "fused_conv": n_b6, "group_norm_affine": n_b6}, fuse=True)
+                                "fused_conv": n_b6, "group_norm_affine": n_b6}, fuse=True,
+                               fp32_fused=sum(fused_routed(sites["detector"],
+                                                           torch.float32).values()))
     per_step = {"group_norm": n_gn, "group_norm_bwd": n_gn, "attention": n_attn,
                 "attention_bwd": n_attn}
     # the bf16 backward's C = 512 kernel at the mid-block sites (fp32 there
@@ -1424,9 +1501,10 @@ def main() -> int:
          "attention_split_bwd": n_split, "attention_split_bwd_512": n_split_512}, "0",
         fp32=True)
     phase_train_card_vs_cpu("0")
-    phase_train_card_vs_cpu("fused")
+    tiny_fused = phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
-    emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32, step_sums))
+    emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32, tiny_fused,
+                      step_sums))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

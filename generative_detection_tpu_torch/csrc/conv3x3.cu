@@ -1,28 +1,22 @@
-// 3x3 stride-1 SAME convolution over NHWC in fp32, with an optional
-// GroupNorm+SiLU prologue, for Hopper (sm_90a). One template, three row
-// formulations:
+// Row-Winograd 3x3 stride-1 SAME convolution over NHWC in fp32, with an
+// optional GroupNorm+SiLU prologue, for Hopper (sm_90a):
 //
-//   direct  (MODE 1): out[y] = sum_{dy} z[y + dy - 1] (*) K[dy]
-//   F(2,3)  (MODE 2) and F(4,3) (MODE 4): Winograd along rows, direct along
+//   F(2,3) (MODE 2) and F(4,3) (MODE 4): Winograd along rows, direct along
 //     columns, for the M = MODE output rows m t .. m t + M - 1 of "t-row" t:
 //       V_a[t]  = sum_u BT[a, u] z[M t + u - 1]      (fp32 sum)
 //       G_a     = sum_dx shift_dx(V_a) @ U[a, dx]    (fp32 accumulate)
 //       out[M t + i] = sum_a AT[i, a] G_a + bias     (fp32)
 //     with U[a, dx] = sum_ky G[a, ky] K[ky, dx] computed outside (a torch op).
 //
-// Replaces, in fp32 (bf16 runs conv3x3_wino.cu, TMA + wgmma):
-//   - generative_detection_tpu/ops/fused_conv.py `_fused_pallas` (kernel
-//     `_fused_kernel`): direct mode with the prologue z = silu(x a + b), and
-//     optionally writing z (`emit_z`, the training variant's saved
-//     activation);
-//   - generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
-//     (kernel `_wino_rows_kernel`): MODE 2/4, with or without the prologue;
-//     the same launch with the rotated, io-swapped kernel is the dgrad.
+// Replaces, in fp32 (bf16 runs conv3x3_wino.cu, TMA + wgmma; so does the
+// fp32 direct form with the prologue, B6, on split precision):
+// generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
+// (kernel `_wino_rows_kernel`), with or without the prologue; the same
+// launch with the rotated, io-swapped kernel is the dgrad.
 //
-// The arithmetic is the TPU kernels' in fp32: rows and columns outside the
-// image are zero AFTER the activation (fused_conv.py:145-161), products
-// accumulate in fp32, and the output transform and bias run in fp32
-// (winograd_pallas.py:235-248).
+// The arithmetic is the TPU kernel's in fp32: rows outside the image are
+// zero AFTER the activation, products accumulate in fp32, and the output
+// transform and bias run in fp32 (winograd_pallas.py:235-248).
 //
 // Design. A block takes BM = 64 output positions of one image (TT t-rows of
 // TW columns, TT * TW <= 64) and BN = 64 output channels, and walks the input
@@ -68,18 +62,14 @@ struct Geom {
   int n_xt;    // column tiles per image: ceil(W / tw)
 };
 
-// Points per t-row: 3 input rows for direct, M + 2 for F(M,3).
-template <int MODE> struct Pts { static constexpr int P = MODE == 1 ? 3 : MODE + 2; };
-
 // Stage V for input channels [c0, c0 + KC) into Vs[a][slot][k]: every slot
 // of the block's TT x (TW + 2) window, each thread 4 channels at a time.
-template <int MODE, bool GN, bool EMIT_Z>
+template <int M, bool GN>
 __device__ __forceinline__ void stage_v(float* Vs, const float* __restrict__ x,
                                         const float* __restrict__ ga,
-                                        const float* __restrict__ gb, float* __restrict__ zout,
-                                        const Geom& g, int b, int t0, int x0, int c0,
-                                        int slots, bool write_z) {
-  constexpr int P = Pts<MODE>::P, M = MODE, NV = KC / 4;
+                                        const float* __restrict__ gb, const Geom& g, int b,
+                                        int t0, int x0, int c0, int slots) {
+  constexpr int P = M + 2, NV = KC / 4;
   for (int it = threadIdx.x; it < slots * NV; it += kThreads) {
     const int s = it / NV, cv = (it % NV) * 4;
     const int tl = s / (g.tw + 2), xs = s % (g.tw + 2) - 1;
@@ -113,22 +103,15 @@ __device__ __forceinline__ void stage_v(float* Vs, const float* __restrict__ x,
         for (int j = 0; j < 4; ++j) r[u][j] = 0.f;
       }
     }
-    if (EMIT_Z && write_z && col_ok && xs >= 0 && xs < g.tw)
-      *reinterpret_cast<float4*>(zout + (((size_t)b * g.H + t) * g.W + xx) * g.C + c0 + cv) =
-          make_float4(r[1][0], r[1][1], r[1][2], r[1][3]);
 #pragma unroll
     for (int a = 0; a < P; ++a) {
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if constexpr (MODE == 1) {
-          v[j] = r[a][j];
-        } else {
-          float acc = 0.f;
+        float acc = 0.f;
 #pragma unroll
-          for (int u = 0; u < P; ++u) acc = fmaf(bt_c(MODE, a, u), r[u][j], acc);
-          v[j] = acc;
-        }
+        for (int u = 0; u < P; ++u) acc = fmaf(bt_c(M, a, u), r[u][j], acc);
+        v[j] = acc;
       }
       *reinterpret_cast<float4*>(Vs + ((size_t)a * slots + s) * VP + cv) =
           make_float4(v[0], v[1], v[2], v[3]);
@@ -161,26 +144,21 @@ __device__ __forceinline__ bool row_pos(const Geom& g, int r, int t0, int x0, in
 }
 
 // Output row i of one element from its points' accumulators G_a = acc[a],
-// plus the bias, in fp32 (direct mode keeps one accumulator).
-template <int MODE, int NA>
-__device__ __forceinline__ float out_value(const float (&g)[NA], int i, float bias) {
-  if constexpr (MODE == 1) {
-    return g[0] + bias;
-  } else {
-    float s = 0.f;
+// plus the bias, in fp32.
+template <int M, int P>
+__device__ __forceinline__ float out_value(const float (&g)[P], int i, float bias) {
+  float s = 0.f;
 #pragma unroll
-    for (int a = 0; a < NA; ++a) s = fmaf(at_c(MODE, i, a), g[a], s);
-    return s + bias;
-  }
+  for (int a = 0; a < P; ++a) s = fmaf(at_c(M, i, a), g[a], s);
+  return s + bias;
 }
 
-template <int MODE, bool GN, bool EMIT_Z>
+template <int M, bool GN>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
                    const float* __restrict__ bias, const float* __restrict__ ga,
-                   const float* __restrict__ gb, float* __restrict__ out,
-                   float* __restrict__ zout, Geom g) {
-  constexpr int P = Pts<MODE>::P, NA = MODE == 1 ? 1 : P, M = MODE;
+                   const float* __restrict__ gb, float* __restrict__ out, Geom g) {
+  constexpr int P = M + 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int slots = g.tt * (g.tw + 2);
   float* Us = reinterpret_cast<float*>(smem_raw);
@@ -196,9 +174,9 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
 #pragma unroll
   for (int rr = 0; rr < 4; ++rr) rok[rr] = row_pos(g, ty * 4 + rr, t0, x0, &rt[rr], &rx[rr], &rslot[rr]);
 
-  float acc[NA][4][4];
+  float acc[P][4][4];
 #pragma unroll
-  for (int a = 0; a < NA; ++a)
+  for (int a = 0; a < P; ++a)
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
@@ -207,7 +185,7 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
   for (int c0 = 0; c0 < g.C; c0 += KC) {
     __syncthreads();
     stage_u<P>(Us, U, g, c0, co0);
-    stage_v<MODE, GN, EMIT_Z>(Vs, x, ga, gb, zout, g, b, t0, x0, c0, slots, blockIdx.y == 0);
+    stage_v<M, GN>(Vs, x, ga, gb, g, b, t0, x0, c0, slots);
     cp_async_wait_all();
     __syncthreads();
 #pragma unroll
@@ -222,7 +200,7 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
 #pragma unroll
           for (int rr = 0; rr < 4; ++rr) {
             const float v = vb[rslot[rr] * VP + k];
-            float* ac = acc[MODE == 1 ? 0 : a][rr];
+            float* ac = acc[a][rr];
             ac[0] = fmaf(v, u.x, ac[0]);
             ac[1] = fmaf(v, u.y, ac[1]);
             ac[2] = fmaf(v, u.z, ac[2]);
@@ -244,10 +222,10 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float ge[NA];
+        float ge[P];
 #pragma unroll
-        for (int a = 0; a < NA; ++a) ge[a] = acc[a][rr][e];
-        v[e] = out_value<MODE, NA>(ge, i, bb[e]);
+        for (int a = 0; a < P; ++a) ge[a] = acc[a][rr][e];
+        v[e] = out_value<M, P>(ge, i, bb[e]);
       }
       *reinterpret_cast<float4*>(
           out + (((size_t)b * g.H + M * rt[rr] + i) * g.W + rx[rr]) * g.CO + co) =
@@ -256,18 +234,18 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ U,
   }
 }
 
-template <int MODE, bool GN, bool EMIT_Z>
+template <int M, bool GN>
 int launch(const float* x, const float* U, const float* bias, const float* ga, const float* gb,
-           float* out, float* zout, int B, const Geom& g, cudaStream_t stream) {
-  constexpr int P = Pts<MODE>::P;
+           float* out, int B, const Geom& g, cudaStream_t stream) {
+  constexpr int P = M + 2;
   const size_t smem =
       sizeof(float) * ((size_t)P * 3 * KC * UP + (size_t)P * g.tt * (g.tw + 2) * VP);
   dim3 grid(g.n_xt * ((g.HT + g.tt - 1) / g.tt), g.CO / BN, B);
-  auto kernel = conv3x3_f32_kernel<MODE, GN, EMIT_Z>;
+  auto kernel = conv3x3_f32_kernel<M, GN>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(x, U, bias, ga, gb, out, zout, g);
+  kernel<<<grid, kThreads, smem, stream>>>(x, U, bias, ga, gb, out, g);
   return (int)cudaGetLastError();
 }
 
@@ -275,26 +253,21 @@ int launch(const float* x, const float* U, const float* bias, const float* ga, c
 
 extern "C" {
 
-// x: (B, H, W, C) fp32; U: (P*3, C, CO) fp32 with P = 3 (mode 1, the direct
-// kernel K[dy, dx]) or mode + 2 (the row-Winograd U[a, dx]); bias: (CO,);
-// ga, gb: (B, C) GroupNorm affine when gn, else unused; out: (B, H, W, CO);
-// zout: (B, H, W, C) when emit_z (mode 1 with gn only; mode 1 needs gn).
-// The Python wrapper checks the rest: contiguous, 16-byte aligned, C % 16 ==
-// 0, CO % 64 == 0, H % mode == 0, tw * tt <= 64. Returns cudaGetLastError().
+// x: (B, H, W, C) fp32; U: (P*3, C, CO) fp32, the row-Winograd U[a, dx]
+// with P = mode + 2 (mode 2 or 4: the direct form runs in conv3x3_wino.cu);
+// bias: (CO,); ga, gb: (B, C) GroupNorm affine when gn, else unused; out:
+// (B, H, W, CO). The Python wrapper checks the rest: contiguous, 16-byte
+// aligned, C % 16 == 0, CO % 64 == 0, H % mode == 0, tw * tt <= 64. Returns
+// cudaGetLastError().
 int gdt_conv3x3_fwd(const float* x, const float* U, const float* bias, const float* ga,
-                    const float* gb, float* out, float* zout, int B, int H, int W, int C,
-                    int CO, int mode, int gn, int emit_z, int tw, int tt, void* stream) {
+                    const float* gb, float* out, int B, int H, int W, int C, int CO, int mode,
+                    int gn, int tw, int tt, void* stream) {
   const Geom g{H, W, C, CO, H / mode, tw, tt, (W + tw - 1) / tw};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 1 && gn && !emit_z)
-    return launch<1, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 1 && gn && emit_z)
-    return launch<1, true, true>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (emit_z) return (int)cudaErrorInvalidValue;
-  if (mode == 2 && !gn) return launch<2, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 2 && gn) return launch<2, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 4 && !gn) return launch<4, false, false>(x, U, bias, ga, gb, out, zout, B, g, s);
-  if (mode == 4 && gn) return launch<4, true, false>(x, U, bias, ga, gb, out, zout, B, g, s);
+  if (mode == 2 && !gn) return launch<2, false>(x, U, bias, ga, gb, out, B, g, s);
+  if (mode == 2 && gn) return launch<2, true>(x, U, bias, ga, gb, out, B, g, s);
+  if (mode == 4 && !gn) return launch<4, false>(x, U, bias, ga, gb, out, B, g, s);
+  if (mode == 4 && gn) return launch<4, true>(x, U, bias, ga, gb, out, B, g, s);
   return (int)cudaErrorInvalidValue;
 }
 

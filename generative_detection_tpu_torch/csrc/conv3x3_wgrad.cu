@@ -46,17 +46,37 @@
 // and this chunk's wgmma. The point a is a template argument of the operand
 // code (form_chunk), so zero transform coefficients cost nothing.
 //
-// fp32 runs wgrad_f32_kernel: each block keeps 64 input x 64 output
-// channels and three accumulators (one per dx); per chunk of KP = 32 columns
-// it stages V_a for the KP + 2 columns (the column shift is an offset into
-// shared memory) and dM_a, then multiplies with FMA.
+// fp32 runs wgrad_split_wgmma_kernel: the same grid and pipeline on the
+// bf16 tensor cores at fp32 accuracy, as the fp32 attention does. V_a and
+// dM_a are formed and summed in fp32 (silu recomputed in fp32, no rounding
+// to bf16) and written as three bf16 pieces each (split_bf16x2: x0 + x1 +
+// x2 carries x to about 2^-25 of its size); each chunk runs the six piece
+// products with i + j <= 2, the small ones first, into the fp32
+// accumulator. What changes against bf16:
+//   - KC = 16 positions a chunk: the raw rows are fp32 (60 KB a stage at
+//     F(4,3)) and the operand stage holds three pieces of V_a^T and of the
+//     three dx-shifted dM_a copies (42 KB), so two stages of each fit in
+//     205 KB;
+//   - the dx shift stays in N (m64n192k16, one k step a product);
+//   - a block takes 128 output channels whatever CO % 128: where CO % 128
+//     == 64 the second warpgroup's dy box lies past the tensor (TMA fills
+//     zeros) and its products are not stored;
+//   - the tensor core's fp32 sum truncates to the accumulator's size, so
+//     the error grows with the chain of products a block sums: the wrapper
+//     picks splits so that no block sums more than 4096 positions
+//     (ops/conv3x3.py `_wgrad_splits`; the split attention backward's error
+//     at L = 4096 was ~2e-4 of the RMS), and the fold adds the partials in
+//     fp32.
 //
 // Bound on the H100: compute, on the direct-conv yardstick (2 * 9 * B * H *
 // W * C * CO flops; the Winograd form does P * 3 / (9 * M) of them). What
 // holds the bf16 kernel back is forming the operands, not the products: it
 // reads z from L2 (M + 2) / M times per (point, co tile) and dy once per
 // (point, c tile), about 2.9 GB at 16x128x128x256->128, and recomputes the
-// activation once per (point, co tile).
+// activation once per (point, co tile). The fp32 kernel reads fp32 rows
+// (about 6 GB from L2 at that site, by the same model with 16-position
+// chunks) and runs six times the products: 6 x 77.3 GFLOP there, 0.469 ms
+// at the bf16 peak.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,182 +89,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int TC = 64;   // input channels per block
-constexpr int TN = 64;   // output channels per block (fp32)
-constexpr int KP = 32;   // columns per chunk
-
-__constant__ float kBT2[4][4] = {{1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
-__constant__ float kAT2[2][4] = {{1, 1, 1, 0}, {0, 1, -1, -1}};
-__constant__ float kBT4[6][6] = {
-    {4, 0, -5, 0, 1, 0}, {0, -4, -4, 1, 1, 0}, {0, 4, -4, -1, 1, 0},
-    {0, -2, -1, 2, 1, 0}, {0, 2, -1, -2, 1, 0}, {0, 4, 0, -5, 0, 1}};
-__constant__ float kAT4[4][6] = {
-    {1, 1, 1, 1, 1, 0}, {0, 1, -1, 2, -2, 0}, {0, 1, 1, 4, 4, 0}, {0, 1, -1, 8, -8, 1}};
-
-template <int M>
-__device__ __forceinline__ float bt(int a, int u) {
-  return M == 2 ? kBT2[a][u] : kBT4[a][u];
-}
-template <int M>
-__device__ __forceinline__ float at(int i, int a) {
-  return M == 2 ? kAT2[i][a] : kAT4[i][a];
-}
-
-template <typename T> struct Ty;
-template <> struct Ty<float> { static constexpr int VEC = 4, PITCH = 68; };
-
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  float4 u = *reinterpret_cast<const float4*>(p);
-  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
-}
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+constexpr int TC = 64;  // input channels per block
 
 struct Geom {
   int B, H, W, C, CO;
   int HT;        // t-rows per image: H / M
-  int n_xc;      // column chunks per t-row: ceil(W / KP)
+  int n_xc;      // column chunks per t-row: ceil(W / chunk)
   int n_chunks;  // B * HT * n_xc
   int splits;
 };
 
-// Stage one chunk (image b, t-row t, columns x0 .. x0 + KP - 1) for point a:
-// Vs[slot][c] = V_a at column x0 + slot - 1 (slots 0 .. KP + 1) and
-// Ds[p][co] = dM_a at column x0 + p, zero outside the image.
-template <typename T, int M, bool GN>
-__device__ __forceinline__ void stage_chunk(T* Vs, T* Ds, const T* __restrict__ z,
-                                            const T* __restrict__ dy,
-                                            const float* __restrict__ ga,
-                                            const float* __restrict__ gb, const Geom& g,
-                                            int a, int b, int t, int x0, int c0, int co0) {
-  constexpr int P = M + 2, VEC = Ty<T>::VEC, PITCH = Ty<T>::PITCH;
-  constexpr int NV = TC / VEC;
-  for (int it = threadIdx.x; it < (KP + 2) * NV; it += kThreads) {
-    const int s = it / NV, cv = (it % NV) * VEC;
-    const int xx = x0 + s - 1;
-    const int c = c0 + cv;
-    float gav[VEC], gbv[VEC];
-    if (GN) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        gav[j] = ga[(size_t)b * g.C + c + j];
-        gbv[j] = gb[(size_t)b * g.C + c + j];
-      }
-    }
-    float v[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = 0.f;
-    if (xx >= 0 && xx < g.W) {
-#pragma unroll
-      for (int u = 0; u < P; ++u) {
-        const int y = M * t + u - 1;
-        if (y < 0 || y >= g.H) continue;  // zero row: adds nothing
-        float r[VEC];
-        load_vec(z + (((size_t)b * g.H + y) * g.W + xx) * g.C + c, r);
-        const float cf = bt<M>(a, u);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          float zv = r[j];
-          if (GN) {
-            const float w = zv * gav[j] + gbv[j];
-            zv = round_to(w / (1.f + expf(-w)), z);
-          }
-          v[j] = fmaf(cf, zv, v[j]);
-        }
-      }
-    }
-    store_vec(Vs + s * PITCH + cv, v);  // rounds to T
-  }
-  constexpr int NN = TN / VEC;
-  for (int it = threadIdx.x; it < KP * NN; it += kThreads) {
-    const int p = it / NN, nv = (it % NN) * VEC;
-    const int xx = x0 + p;
-    float d[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) d[j] = 0.f;
-    if (xx < g.W) {
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-        float r[VEC];
-        load_vec(dy + (((size_t)b * g.H + M * t + i) * g.W + xx) * g.CO + co0 + nv, r);
-        const float cf = at<M>(i, a);
-        // in T, one rounding per add: the TPU kernel sums the dy phases in
-        // dy's dtype (the products by powers of two are exact)
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) d[j] = round_to(d[j] + cf * r[j], z);
-      }
-    }
-    store_vec(Ds + p * PITCH + nv, d);
-  }
-}
-
+// Chunk k of KC columns: image b, t-row t, columns x0 .. x0 + KC - 1.
+template <int KC>
 __device__ __forceinline__ void chunk_coords(const Geom& g, int k, int* b, int* t, int* x0) {
   const int xc = k % g.n_xc;
   const int row = k / g.n_xc;  // image * HT + t
   *t = row % g.HT;
   *b = row / g.HT;
-  *x0 = xc * KP;
-}
-
-// grid: (C/TC * CO/TN, P, splits); part: (splits, P*3, C, CO) fp32
-template <int M, bool GN>
-__global__ void __launch_bounds__(kThreads)
-wgrad_f32_kernel(const float* __restrict__ z, const float* __restrict__ dy,
-                 const float* __restrict__ ga, const float* __restrict__ gb,
-                 float* __restrict__ part, Geom g) {
-  using T = float;
-  constexpr int P = M + 2, PITCH = Ty<T>::PITCH;
-  __shared__ __align__(16) T Vs[(KP + 2) * PITCH];
-  __shared__ __align__(16) T Ds[KP * PITCH];
-  const int n_tiles = g.CO / TN;
-  const int c0 = (blockIdx.x / n_tiles) * TC, co0 = (blockIdx.x % n_tiles) * TN;
-  const int a = blockIdx.y, s = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;  // 4 c x 4 co each
-
-  float acc[3][4][4];
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dx][r][e] = 0.f;
-
-  const int k0 = (int)((long long)s * g.n_chunks / g.splits);
-  const int k1 = (int)((long long)(s + 1) * g.n_chunks / g.splits);
-  for (int k = k0; k < k1; ++k) {
-    int b, t, x0;
-    chunk_coords(g, k, &b, &t, &x0);
-    __syncthreads();
-    stage_chunk<T, M, GN>(Vs, Ds, z, dy, ga, gb, g, a, b, t, x0, c0, co0);
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < KP; ++p) {
-      const float4 d = *reinterpret_cast<const float4*>(Ds + p * PITCH + tx * 4);
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float4 v = *reinterpret_cast<const float4*>(Vs + (p + dx) * PITCH + ty * 4);
-        const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[dx][r][0] = fmaf(vv[r], d.x, acc[dx][r][0]);
-          acc[dx][r][1] = fmaf(vv[r], d.y, acc[dx][r][1]);
-          acc[dx][r][2] = fmaf(vv[r], d.z, acc[dx][r][2]);
-          acc[dx][r][3] = fmaf(vv[r], d.w, acc[dx][r][3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int dx = 0; dx < 3; ++dx) {
-    float* dst = part + (((size_t)s * P + a) * 3 + dx) * g.C * g.CO;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      store_vec(dst + (size_t)(c0 + ty * 4 + r) * g.CO + co0 + tx * 4, acc[dx][r]);
-  }
+  *x0 = xc * KC;
 }
 
 // out[i] = sum_s part[s][i], s in order
@@ -263,7 +125,7 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
 
 namespace wg {
 
-constexpr int KC = KP;         // positions (columns of one t-row) per chunk
+constexpr int KC = 32;         // positions (columns of one t-row) per chunk
 constexpr int TNW = 128;       // output channels per block, 64 per consumer warpgroup
 constexpr int RS = 2, OS = 2;  // stages of the raw and the operand ring
 
@@ -436,7 +298,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_z,
 
   auto load_chunk = [&](int i) {  // thread 0: the raw rows of chunk i
     int b, t, x0;
-    chunk_coords(g, k0 + i, &b, &t, &x0);
+    chunk_coords<KC>(g, k0 + i, &b, &t, &x0);
     unsigned char* dst = raws + (i % RS) * K::RAW_BYTES;
     uint64_t* bar = &raw_full[i % RS];
     mbar_expect_tx(bar, K::RAW_BYTES);
@@ -464,7 +326,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_z,
     // products of chunk i - 2 read the stage last, and the consumers waited
     // for them before the previous barrier
     int b, t, x0;
-    chunk_coords(g, k0 + i, &b, &t, &x0);
+    chunk_coords<KC>(g, k0 + i, &b, &t, &x0);
     mbar_wait(&raw_full[i % RS], (i / RS) & 1);
     form_chunk_at<M, GN>(a, ops + (i % OS) * K::OP_BYTES, raws + (i % RS) * K::RAW_BYTES, ga,
                          gb, g, b, t, x0, c0, tid);
@@ -526,22 +388,283 @@ int launch(const void* z, const void* dy, const void* ga, const void* gb, void* 
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// fp32: split-precision wgmma (see the top of the file)
+// ---------------------------------------------------------------------------
+
+namespace sp {
+
+constexpr int NP = 3;          // bf16 pieces of every fp32 operand
+constexpr int KC = 16;         // positions per chunk: one k step a piece product
+constexpr int TNW = 128;       // output channels per block, 64 per consumer warpgroup
+constexpr int RS = 2, OS = 2;  // stages of the raw and the operand ring
+constexpr uint32_t ROW = 64 * 4;    // a raw row: 64 fp32 channels
+constexpr uint32_t TILE = KC * 128;  // a bf16 operand tile: KC rows of 64 channels
+
+template <int M>
+struct Cfg {
+  static constexpr int P = M + 2;
+  static constexpr uint32_t Z_BYTES = ROW * KC * P;         // z box: 64 C x KC x P rows
+  static constexpr uint32_t DY_BOX = ROW * (KC + 2) * M;    // dy box: 64 CO x (KC + 2) x M
+  static constexpr uint32_t RAW_BYTES = Z_BYTES + 2 * DY_BOX;
+  static constexpr uint32_t A_BYTES = NP * TILE;            // [piece]: V_a^T
+  static constexpr uint32_t B_WG = NP * 3 * TILE;           // [piece][dx]: one warpgroup's B
+  static constexpr uint32_t OP_BYTES = A_BYTES + 2 * B_WG;  // A | B of warpgroup 1 | of 2
+  static constexpr size_t SMEM = 1024 + OS * OP_BYTES + RS * RAW_BYTES + 8 * RS;
+  static_assert(OP_BYTES % 1024 == 0 && RAW_BYTES % 128 == 0 && DY_BOX % 128 == 0, "align");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// v += BT[A, R] act(z row R) on the 4 channels at byte `off` of column k, in
+// fp32 (x a + b rounded twice, as the plain version's product and sum); z
+// row R outside the image adds nothing.
+template <int M, bool GN, int A, int R>
+__device__ __forceinline__ void add_z_row(float (&v)[4], const unsigned char* rz, int k, int off,
+                                          bool first, bool last, const float4& ga4,
+                                          const float4& gb4) {
+  constexpr float cf = bt_c(M, A, R);
+  if constexpr (cf != 0.f) {
+    if ((R == 0 && first) || (R == M + 1 && last)) return;
+    const float4 r = *reinterpret_cast<const float4*>(rz + (R * KC + k) * ROW + off);
+    float zr[4] = {r.x, r.y, r.z, r.w};
+    if constexpr (GN) {
+      const float gav[4] = {ga4.x, ga4.y, ga4.z, ga4.w}, gbv[4] = {gb4.x, gb4.y, gb4.z, gb4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float w = __fadd_rn(__fmul_rn(zr[j], gav[j]), gbv[j]);
+        zr[j] = __fdividef(w, 1.f + __expf(-w));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = cf == 1.f ? v[j] + zr[j] : fmaf(cf, zr[j], v[j]);
+  }
+}
+
+// d += AT[R, A] dy row R on 8 output channels, in fp32 (the products by
+// powers of two are exact: one rounding an add, as the plain version's)
+template <int M, int A, int R>
+__device__ __forceinline__ void add_dy_row(float (&d)[8], const unsigned char* row) {
+  constexpr float cf = at_c(M, R, A);
+  if constexpr (cf != 0.f) {
+    const float4* r = reinterpret_cast<const float4*>(row + R * ((KC + 2) * ROW));
+    const float4 lo = r[0], hi = r[1];
+    const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) d[j] = fmaf(cf, x[j], d[j]);
+  }
+}
+
+template <int M, bool GN, int A, int... R>
+__device__ __forceinline__ void add_z_rows(std::integer_sequence<int, R...>, float (&v)[4],
+                                           const unsigned char* rz, int k, int off, bool first,
+                                           bool last, const float4& ga4, const float4& gb4) {
+  (add_z_row<M, GN, A, R>(v, rz, k, off, first, last, ga4, gb4), ...);
+}
+
+template <int M, int A, int... R>
+__device__ __forceinline__ void add_dy_rows(std::integer_sequence<int, R...>, float (&d)[8],
+                                            const unsigned char* row) {
+  (add_dy_row<M, A, R>(d, row), ...);
+}
+
+// One chunk's operand pieces for point A, formed by thread `tid` of 384 in
+// one loop over NV + ND items (NV a multiple of 32: every warp takes one
+// kind of item a round):
+// - item it < NV = KC * 16: V_a^T at column x0 + k, channels c0 + 4 q ..
+//   + 3 (zero past the image's last column), its pieces into A piece p;
+// - else dM_a at column x0 - 1 + jr, channels co0 + 64 cc + 8 u .. + 7,
+//   written to B (warpgroup cc, piece p, dx) at row k = jr - 2 + dx, so
+//   that B_dx[k] = dM_a[x0 + k + 1 - dx].
+template <int M, bool GN, int A>
+__device__ __forceinline__ void form_chunk(unsigned char* op, const unsigned char* rz,
+                                           const float* __restrict__ ga,
+                                           const float* __restrict__ gb, const Geom& g, int b,
+                                           int t, int x0, int c0, int tid) {
+  using K = Cfg<M>;
+  constexpr int NV = KC * 16, ND = (KC + 2) * 16;
+  const bool first = t == 0, last = t == g.HT - 1;
+  for (int it = tid; it < NV + ND; it += 384) {
+    if (it < NV) {
+      const int k = it >> 4, q = it & 15;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (!GN || x0 + k < g.W) {
+        float4 ga4, gb4;
+        if constexpr (GN) {
+          ga4 = *reinterpret_cast<const float4*>(ga + (size_t)b * g.C + c0 + 4 * q);
+          gb4 = *reinterpret_cast<const float4*>(gb + (size_t)b * g.C + c0 + 4 * q);
+        }
+        add_z_rows<M, GN, A>(std::make_integer_sequence<int, M + 2>{}, v, rz, k, q * 16, first,
+                             last, ga4, gb4);
+      }
+      uint32_t lo[NP], hi[NP];
+      hopper::split_bf16x2(v[0], v[1], lo);
+      hopper::split_bf16x2(v[2], v[3], hi);
+      const uint32_t off = wg::swz(k, q >> 1) + (q & 1) * 8;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        *reinterpret_cast<uint2*>(op + p * TILE + off) = make_uint2(lo[p], hi[p]);
+    } else {
+      const int jr = (it - NV) >> 4, cc = (it >> 3) & 1, u = it & 7;
+      float d[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) d[j] = 0.f;
+      add_dy_rows<M, A>(std::make_integer_sequence<int, M>{}, d,
+                        rz + K::Z_BYTES + cc * K::DY_BOX + jr * ROW + u * 32);
+      uint32_t w[4][NP];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hopper::split_bf16x2(d[2 * e], d[2 * e + 1], w[e]);
+      unsigned char* ob = op + K::A_BYTES + cc * K::B_WG;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int k = jr - 2 + dx;
+        if (k >= 0 && k < KC) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            *reinterpret_cast<uint4*>(ob + (p * 3 + dx) * TILE + wg::swz(k, u)) =
+                make_uint4(w[0][p], w[1][p], w[2][p], w[3][p]);
+        }
+      }
+    }
+  }
+}
+
+template <int M, bool GN, int A = 0>
+__device__ __forceinline__ void form_chunk_at(int a, unsigned char* op, const unsigned char* rz,
+                                              const float* ga, const float* gb, const Geom& g,
+                                              int b, int t, int x0, int c0, int tid) {
+  if constexpr (A < M + 2) {
+    if (a == A)
+      form_chunk<M, GN, A>(op, rz, ga, gb, g, b, t, x0, c0, tid);
+    else
+      form_chunk_at<M, GN, A + 1>(a, op, rz, ga, gb, g, b, t, x0, c0, tid);
+  }
+}
+
+// grid: ((C / 64) * ceil(CO / 128) * P, splits); part: (splits, P*3, C, CO)
+// fp32. The pipeline of wgrad_wgmma_kernel; each chunk's products are the
+// six piece products, one m64n192k16 wgmma each.
 template <int M, bool GN>
-int launch_f32(const void* z, const void* dy, const void* ga, const void* gb, void* part,
-               const Geom& g, cudaStream_t stream) {
-  dim3 grid((g.C / TC) * (g.CO / TN), M + 2, g.splits);
-  wgrad_f32_kernel<M, GN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(z), static_cast<const float*>(dy),
-      static_cast<const float*>(ga), static_cast<const float*>(gb), static_cast<float*>(part),
-      g);
+__global__ void __launch_bounds__(384, 1)
+wgrad_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_z,
+                         const __grid_constant__ CUtensorMap tm_dy,
+                         const float* __restrict__ ga, const float* __restrict__ gb,
+                         float* __restrict__ part, Geom g) {
+  using namespace hopper;
+  using K = Cfg<M>;
+  constexpr int P = K::P;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ops = align_1024(smem_raw);    // [OS][A | B]
+  unsigned char* raws = ops + OS * K::OP_BYTES;  // [RS][z | dy chunk 0 | dy chunk 1]
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(raws + RS * K::RAW_BYTES);
+
+  int bx = blockIdx.x;
+  const int a = bx % P;
+  bx /= P;
+  const int n_cot = (g.CO + TNW - 1) / TNW;
+  const int co0 = (bx % n_cot) * TNW, c0 = (bx / n_cot) * TC;
+  const int s = blockIdx.y;
+  const int k0 = (int)((long long)s * g.n_chunks / g.splits);
+  const int nk = (int)((long long)(s + 1) * g.n_chunks / g.splits) - k0;
+  const int tid = threadIdx.x;
+
+  auto load_chunk = [&](int i) {  // thread 0: the raw rows of chunk i
+    int b, t, x0;
+    chunk_coords<KC>(g, k0 + i, &b, &t, &x0);
+    unsigned char* dst = raws + (i % RS) * K::RAW_BYTES;
+    uint64_t* bar = &raw_full[i % RS];
+    mbar_expect_tx(bar, K::RAW_BYTES);
+    tma_load_4d(dst, &tm_z, bar, c0, x0, M * t - 1, b);
+    tma_load_4d(dst + K::Z_BYTES, &tm_dy, bar, co0, x0 - 1, M * t, b);
+    tma_load_4d(dst + K::Z_BYTES + K::DY_BOX, &tm_dy, bar, co0 + 64, x0 - 1, M * t, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < RS; ++i) mbar_init(&raw_full[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < RS && i < nk; ++i) load_chunk(i);
+  }
+  __syncthreads();
+
+  // warpgroup 0 (threads 0..127) only forms operands; warpgroups 1 and 2 also
+  // multiply, w taking output channels co0 + 64 w .. + 63
+  const int w = __shfl_sync(0xffffffffu, tid / 128, 0) - 1;  // warp-uniform for ptxas
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  const uint32_t b_off = K::A_BYTES + (w < 0 ? 0 : w) * K::B_WG;
+  for (int i = 0; i < nk; ++i) {
+    // chunk i's operand pieces into stage i % OS, formed by every thread;
+    // the products of chunk i - 2 read the stage last, and the consumers
+    // waited for them before the previous barrier
+    int b, t, x0;
+    chunk_coords<KC>(g, k0 + i, &b, &t, &x0);
+    mbar_wait(&raw_full[i % RS], (i / RS) & 1);
+    form_chunk_at<M, GN>(a, ops + (i % OS) * K::OP_BYTES, raws + (i % RS) * K::RAW_BYTES, ga,
+                         gb, g, b, t, x0, c0, tid);
+    fence_proxy_async();
+    if (w >= 0) {
+      wgmma_wait<0>();  // chunk i - 1's products: stage (i + 1) % OS is free after the barrier
+      fence_regs(acc);
+    }
+    __syncthreads();
+    if (tid == 0 && i + RS < nk) load_chunk(i + RS);  // raw stage i % RS has been read
+    if (w >= 0) {
+      const uint32_t st = smem_u32(ops + (i % OS) * K::OP_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int o = 0; o < kSplitProducts; ++o)
+        wgmma_ss_n192_tt(acc, desc_mnmajor(st + split_piece_a(o) * TILE, TILE),
+                         desc_mnmajor(st + b_off + split_piece_b(o) * 3 * TILE, TILE));
+      wgmma_commit();
+    }
+  }
+  if (w < 0) return;
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (co0 + 64 * w >= g.CO) return;  // CO % 128 == 64: this warpgroup's channels lie past CO
+  // rows c0 + 16 warp + g (+ 8), columns n = 8 j + 2 tq (+ 1): dx = n / 64
+  const int g8 = lane >> 2, tq = lane & 3;
+  const size_t plane = (size_t)g.C * g.CO;
+  float* base = part + ((size_t)s * P + a) * 3 * plane + (size_t)(c0 + 16 * warp + g8) * g.CO +
+                co0 + 64 * w + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    float* dst = base + (j / 8) * plane + 8 * (j % 8);
+    *reinterpret_cast<float2*>(dst) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(dst + 8 * g.CO) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+template <int M, bool GN>
+int launch(const void* z, const void* dy, const void* ga, const void* gb, void* part,
+           const Geom& g, cudaStream_t stream) {
+  using K = Cfg<M>;
+  CUtensorMap tz, tdy;
+  const uint64_t dz[4] = {(uint64_t)g.C, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
+  const uint64_t ddy[4] = {(uint64_t)g.CO, (uint64_t)g.W, (uint64_t)g.H, (uint64_t)g.B};
+  const uint32_t bz[4] = {64, KC, M + 2, 1};
+  const uint32_t bdy[4] = {64, KC + 2, M, 1};
+  int err = hopper::make_map_f32_nd(&tz, z, dz, bz);
+  if (!err) err = hopper::make_map_f32_nd(&tdy, dy, ddy, bdy);
+  if (err) return err;
+  auto kernel = wgrad_split_wgmma_kernel<M, GN>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((g.C / TC) * ((g.CO + TNW - 1) / TNW) * K::P, g.splits);
+  kernel<<<grid, 384, K::SMEM, stream>>>(tz, tdy, static_cast<const float*>(ga),
+                                         static_cast<const float*>(gb),
+                                         static_cast<float*>(part), g);
   return (int)cudaGetLastError();
 }
+
+}  // namespace sp
 
 template <int M, bool GN>
 int launch(const void* z, const void* dy, const void* ga, const void* gb, void* part,
            void* out, const Geom& g, int dtype, cudaStream_t stream) {
   const int err = dtype == 1 ? wg::launch<M, GN>(z, dy, ga, gb, part, g, stream)
-                             : launch_f32<M, GN>(z, dy, ga, gb, part, g, stream);
+                             : sp::launch<M, GN>(z, dy, ga, gb, part, g, stream);
   if (err) return err;
   const size_t n = (size_t)(M + 2) * 3 * g.C * g.CO;
   fold_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
@@ -557,11 +680,13 @@ extern "C" {
 // 1 bf16); ga, gb: (B, C) fp32 when gn, else unused; part: (splits, P*3, C,
 // CO) fp32 scratch; out: (P*3, C, CO) fp32 with P = m + 2. The Python wrapper
 // checks: contiguous, 16-byte aligned, C % 64 == 0, H % m == 0, and CO % 128
-// == 0 (bf16) or CO % 64 == 0 (fp32). Returns cudaGetLastError().
+// == 0 (bf16) or CO % 64 == 0 (fp32); it picks `splits` (fp32: no block sums
+// more than 4096 positions). Returns cudaGetLastError().
 int gdt_conv3x3_wgrad(const void* z, const void* dy, const void* ga, const void* gb,
                       void* part, void* out, int B, int H, int W, int C, int CO, int m,
                       int gn, int splits, int dtype, void* stream) {
-  const int ht = H / m, n_xc = (W + KP - 1) / KP;
+  const int kc = dtype == 1 ? wg::KC : sp::KC;  // positions per chunk
+  const int ht = H / m, n_xc = (W + kc - 1) / kc;
   Geom g{B, H, W, C, CO, ht, n_xc, B * ht * n_xc, splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-// 3x3 stride-1 SAME convolution over NHWC in bf16 for Hopper (sm_90a), in
-// two row forms that share one pipeline:
+// 3x3 stride-1 SAME convolution over NHWC for Hopper (sm_90a), in two row
+// forms that share one pipeline, bf16 and (the direct form) fp32 on split
+// precision:
 //
 //   row-Winograd F(2,3) (M = 2) and F(4,3) (M = 4), P = M + 2 points, with
 //   U[a, dx] = sum_ky G[a, ky] K[ky, dx] computed outside (a torch op):
@@ -11,17 +12,18 @@
 //   direct, a tile's raw rows as the points:
 //     out[y] = sum_{dy, dx} shift_dx(z[y + dy - 1]) @ K[dy, dx] + bias
 //
-// With `gn`, z = silu(x a + b) from the (B, C) fp32 affine, in fp32 and
-// rounded to bf16; rows and columns outside the image are zero AFTER the
-// activation. The direct form always takes the prologue and may also write
-// z (`emit_z`, the training variant's saved activation).
+// With `gn`, z = silu(x a + b) from the (B, C) fp32 affine, in fp32 (and
+// rounded to bf16 in bf16); rows and columns outside the image are zero
+// AFTER the activation. The direct form always takes the prologue and may
+// also write z (`emit_z`, the training variant's saved activation).
 //
-// Replaces, in bf16 (fp32 keeps the FMA kernel of conv3x3.cu):
+// Replaces:
 //   - generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
-//     (kernel `_wino_rows_kernel`): wino_rows_wgmma_kernel<M, GN>;
+//     (kernel `_wino_rows_kernel`), in bf16: wino_rows_wgmma_kernel<M, GN>
+//     (fp32 keeps the FMA kernel of conv3x3.cu);
 //   - generative_detection_tpu/ops/fused_conv.py `_fused_pallas` (kernel
-//     `_fused_kernel`): fused_conv_wgmma_kernel<TT, PK, EMIT_Z>, the direct
-//     form.
+//     `_fused_kernel`), the direct form: fused_conv_wgmma_kernel<TT, PK,
+//     EMIT_Z> in bf16, fused_conv_split_wgmma_kernel<PK, EMIT_Z> in fp32.
 //
 // Design (conv_rows<Form, GN, EMIT_Z>). A tile is ROWS image rows of TW
 // columns by TN = 128 output channels, so the points and the prologue are
@@ -68,9 +70,23 @@
 // past the image (any H and W). Every output element is written by one
 // block: no atomics, and a repeat is bit-equal.
 //
+// fp32 (Direct<TT, PK, 3>, NP = 3 pieces): the tensor cores take bf16, so,
+// as the fp32 attention does, every fp32 operand is three bf16 pieces
+// (split_bf16x2: to about 2^-25 of its size) and every product the six
+// piece products with i + j <= 2, small first. split_weights_kernel writes
+// the weights' pieces once a call (3 x 9 x C x CO bf16, at most 14 MB); the
+// raw rows arrive as fp32 by TMA and each activated element is split into
+// the three point tiles, so no pieces copy of the activation reaches HBM.
+// Three weight pieces of 128 output channels would take 108 KB a stage, so
+// a tile has 64 (one m64n64k16 product a piece pair); the raw rows have one
+// stage (a chunk's 108 products a warpgroup cover the next TMA), the points
+// two (one where packed: three pieces of three shifted copies), and the
+// output goes from the accumulators to HBM with masked float2 stores (an
+// fp32 tile staged beside the weight pieces would not fit): 213-226 KB.
+//
 // Bound on the H100: the products, 2 * P * 3 * B * (H / M) * W * C * CO
 // flops for Winograd (half the direct conv's at F(4,3)), 2 * 9 * B * H * W
-// * C * CO for the direct form. What holds them back (inferred from
+// * C * CO for the direct form, six times that in fp32 on split precision. What holds them back (inferred from
 // ablations timed on the card, not read from a counter: ncu does not run on
 // the card's machine): with the prologue, forming the points (two MUFU
 // operations per activated raw element) beside the products rather than
@@ -82,6 +98,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
 #include <utility>
 
 #include "hopper.cuh"
@@ -91,7 +108,6 @@ namespace {
 
 constexpr int KC = 16;          // input channels per chunk
 constexpr int TP = 64;          // output positions per accumulator (wgmma's M)
-constexpr int TN = 128;         // output channels per tile
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kDirectRows = 4;  // accumulators a tile of the direct form
 
@@ -110,6 +126,8 @@ constexpr int kDirectRows = 4;  // accumulators a tile of the direct form
 // products shift_dx(V_a) U[a, dx]; out[i] = sum_a AT[i, a] G_a.
 template <int M>
 struct Wino {
+  using T = __nv_bfloat16;
+  static constexpr int NP = 1, TN = 128, RS = 2, VS = 2;
   static constexpr int ROWS = M, P = M + 2, SLABS = 3 * P, TAPS = 1;
   static constexpr int PK = 1, TW = TP, COLS = TW + 2;
   static constexpr int IN_ROWS = P - 1;  // H % M == 0: only points 0 and P - 1 can fall outside
@@ -124,17 +142,24 @@ struct Wino {
 // The direct form, TT accumulators of PK image rows each: point u is the
 // activated raw row u; the accumulator of a warpgroup's row n takes the
 // products shift_dx(z_{n PK + dy}) K[dy, dx] (points counted from the
-// warpgroup's first row) over all 128 output channels, so each operand read
-// from shared memory feeds twice the columns of a 64-channel split. PK > 1
-// (W = 64 / PK: 32 or 16) packs PK image rows into an accumulator's 64
-// positions, where a 64-column tile would leave 1 - 1 / PK of them empty.
-template <int TT, int PK_>
+// warpgroup's first row) over all TN output channels, so each operand read
+// from shared memory feeds twice the columns of a 64-channel split (bf16).
+// PK > 1 (W = 64 / PK: 32 or 16) packs PK image rows into an accumulator's
+// 64 positions, where a 64-column tile would leave 1 - 1 / PK of them empty.
+// NP = 3 is the fp32 split-precision form: x and out fp32, every point and
+// weight slab three bf16 pieces, 64 output channels a tile (three weight
+// pieces of 128 would not fit twice), one raw stage, and one point stage
+// where packed (PK > 1: three pieces of three shifted copies).
+template <int TT, int PK_, int NP_ = 1>
 struct Direct {
+  using T = std::conditional_t<NP_ == 1, __nv_bfloat16, float>;
+  static constexpr int NP = NP_, TN = NP == 1 ? 128 : 64, RS = NP == 1 ? 2 : 1;
+  static constexpr int VS = NP == 1 || PK_ == 1 ? 2 : 1;
   static constexpr int PK = PK_, TW = TP / PK, COLS = TW + 2;
   static constexpr int ROWS = TT * PK, P = ROWS + 2, SLABS = 9, TAPS = 3;
   static constexpr int IN_ROWS = 2;  // any H: points from 2 on can fall past the image
   static constexpr bool IDENTITY = true, SPLIT_CO = false;
-  static constexpr int WG_N = 128, WG_ROWS = TT / 2, NACC = TT / 2;
+  static constexpr int WG_N = TN, WG_ROWS = TT / 2, NACC = TT / 2;
   static_assert(TT % 2 == 0, "the two warpgroups take half of the rows each");
   __device__ static constexpr float at(int i, int n) { return i == n ? 1.f : 0.f; }
   __device__ static constexpr int point(int n, int dy) { return n * PK + dy; }
@@ -143,11 +168,11 @@ struct Direct {
 
 template <class F>
 struct Cfg {
-  static constexpr int P = F::P;
+  static constexpr int P = F::P, ESZ = sizeof(typename F::T);
   static constexpr uint32_t U_SLAB = KC * 128;            // a weight slab: 16 rows of 64 CO
-  static constexpr uint32_t U_HALF = F::SLABS * U_SLAB;   // every slab for 64 CO
-  static constexpr uint32_t U_BYTES = 2 * U_HALF;
-  static constexpr uint32_t RAW_BYTES = P * F::COLS * KC * 2;  // [u][column][16 channels]
+  static constexpr uint32_t U_HALF = F::NP * F::SLABS * U_SLAB;  // every slab (piece) for 64 CO
+  static constexpr uint32_t U_BYTES = F::TN / 64 * U_HALF;
+  static constexpr uint32_t RAW_BYTES = P * F::COLS * KC * ESZ;  // [u][column][16 channels]
   // The point tile: [point][channel half][column][8 channels], so A shifted
   // by dx is the tile at 16 dx bytes on; or, packed (PK > 1), three copies
   // shifted by dx, each [channel half][point][column][8 channels], so an
@@ -158,14 +183,18 @@ struct Cfg {
   static constexpr uint32_t V_PLANE = PACKED ? P * F::TW * 16 : F::COLS * 16;
   static constexpr uint32_t V_ROW = PACKED ? F::TW * 16 : 2 * V_PLANE;
   static constexpr uint32_t V_DX = PACKED ? 2 * V_PLANE : 16;
-  static constexpr uint32_t V_BYTES = PACKED ? 3 * 2 * V_PLANE : P * V_ROW;
+  static constexpr uint32_t V_BYTES = PACKED ? 3 * 2 * V_PLANE : P * V_ROW;  // one piece
+  static constexpr uint32_t V_STAGE = F::NP * V_BYTES;
   static constexpr uint32_t OUT_HALF = F::ROWS * F::TW * 128;  // [row][column][64 CO]
-  // the output tile is staged in the weight stage the last chunk read, or in
-  // a buffer of its own where it does not fit there
-  static constexpr bool OUT_OWN = OUT_HALF > U_HALF;
+  // bf16: the output tile is staged in the weight stage the last chunk
+  // read, or in a buffer of its own where it does not fit there, and
+  // written by TMA; fp32 (NP = 3) writes it from the accumulators
+  static constexpr bool TMA_OUT = F::NP == 1;
+  static constexpr bool OUT_OWN = TMA_OUT && OUT_HALF > U_HALF;
   static constexpr uint32_t OUT_PITCH = OUT_OWN ? OUT_HALF : U_HALF;
   static constexpr uint32_t OUT_BYTES = OUT_OWN ? 2 * OUT_HALF : 0;
-  static constexpr size_t SMEM = 1024 + 2 * (U_BYTES + RAW_BYTES + V_BYTES) + OUT_BYTES + 4 * 8;
+  static constexpr size_t SMEM =
+      1024 + 2 * U_BYTES + F::RS * RAW_BYTES + F::VS * V_STAGE + OUT_BYTES + 4 * 8;
   static_assert(U_HALF % 1024 == 0 && RAW_BYTES % 128 == 0 && V_BYTES % 128 == 0, "align");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -174,7 +203,7 @@ struct Geom {
   int B, H, W, C, CO;
   int HT;       // row tiles per image: ceil(H / ROWS)
   int n_xt;     // column tiles per row tile: ceil(W / TW)
-  int n_cot;    // output-channel tiles: CO / TN
+  int n_cot;    // output-channel tiles: CO / F::TN
   int n_tiles;  // B * HT * n_xt * n_cot
 };
 
@@ -204,6 +233,59 @@ __device__ __forceinline__ void store_bf16(unsigned char* p, const float (&v)[NC
   }
 }
 
+// NCH values of type T at p, as floats
+template <typename T, int NCH>
+__device__ __forceinline__ void load_x(const unsigned char* p, float (&z)[NCH]) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (NCH == 4) {
+      const float4 r = *reinterpret_cast<const float4*>(p);
+      z[0] = r.x; z[1] = r.y; z[2] = r.z; z[3] = r.w;
+    } else {
+      z[0] = *reinterpret_cast<const float*>(p);
+    }
+  } else {
+    load_bf16<NCH>(p, z);
+  }
+}
+
+// NCH floats at p as type T
+template <typename T, int NCH>
+__device__ __forceinline__ void store_x(T* p, const float (&v)[NCH]) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (NCH == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      p[0] = v[0];
+    }
+  } else {
+    store_bf16<NCH>(reinterpret_cast<unsigned char*>(p), v);
+  }
+}
+
+// NCH floats at p as NP bf16 pieces (split_bf16x2), piece i at p + i *
+// stride; with NP = 1 the one piece is the bf16 rounding (store_bf16)
+template <int NP, int NCH>
+__device__ __forceinline__ void store_pieces(unsigned char* p, const float (&v)[NCH],
+                                             uint32_t stride) {
+  if constexpr (NP == 1) {
+    store_bf16<NCH>(p, v);
+  } else if constexpr (NCH == 4) {
+    uint32_t lo[NP], hi[NP];
+    hopper::split_bf16x2(v[0], v[1], lo);
+    hopper::split_bf16x2(v[2], v[3], hi);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) *reinterpret_cast<uint2*>(p + i * stride) = make_uint2(lo[i], hi[i]);
+  } else {
+    float x = v[0];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(x);
+      *reinterpret_cast<__nv_bfloat16*>(p + i * stride) = h;
+      x -= __bfloat162float(h);
+    }
+  }
+}
+
 // The GroupNorm affine of NCH channels from offset off of the (B, C) arrays
 template <int NCH>
 __device__ __forceinline__ void load_affine(const float* __restrict__ ga,
@@ -220,9 +302,9 @@ __device__ __forceinline__ void load_affine(const float* __restrict__ ga,
   }
 }
 
-// z = silu(z a + b) in fp32, rounded to bf16 (z a + b rounded twice, as the
-// plain version's product and sum)
-template <int NCH>
+// z = silu(z a + b) in fp32 (z a + b rounded twice, as the plain version's
+// product and sum), rounded to bf16 where T is
+template <typename T, int NCH>
 __device__ __forceinline__ void activate(float (&z)[NCH], const float (&a)[NCH],
                                          const float (&b)[NCH]) {
 #pragma unroll
@@ -230,7 +312,9 @@ __device__ __forceinline__ void activate(float (&z)[NCH], const float (&a)[NCH],
     const float w = __fadd_rn(__fmul_rn(z[j], a[j]), b[j]);
     z[j] = __fdividef(w, 1.f + __expf(-w));
   }
-  if constexpr (NCH == 4) {  // rounded to bf16 two at a time
+  if constexpr (std::is_same_v<T, float>) {
+    return;
+  } else if constexpr (NCH == 4) {  // rounded to bf16 two at a time
 #pragma unroll
     for (int j = 0; j < NCH; j += 2) {
       const float2 r = __bfloat1622float2(__floats2bfloat162_rn(z[j], z[j + 1]));
@@ -257,8 +341,9 @@ template <class F, int NCH, int A, int... U>
 __device__ __forceinline__ void store_point(std::integer_sequence<int, U...>,
                                             const float (&z)[F::P][NCH], unsigned char* dst) {
   if constexpr (F::IDENTITY) {
-    store_bf16<NCH>(dst + A * Cfg<F>::V_ROW, z[A]);
+    store_pieces<F::NP, NCH>(dst + A * Cfg<F>::V_ROW, z[A], Cfg<F>::V_BYTES);
   } else {
+    static_assert(F::NP == 1, "the Winograd points are bf16");
     float v[NCH];
 #pragma unroll
     for (int j = 0; j < NCH; ++j) v[j] = 0.f;
@@ -282,9 +367,10 @@ template <class F, bool GN, bool EMIT_Z, int NCH>
 __device__ __forceinline__ void form_item(unsigned char* vt, const unsigned char* raw,
                                           const float* __restrict__ ga,
                                           const float* __restrict__ gb,
-                                          __nv_bfloat16* __restrict__ zout, const Geom& g, int b,
+                                          typename F::T* __restrict__ zout, const Geom& g, int b,
                                           int x0, int y0, int c0, int col, int ch) {
-  constexpr int P = F::P;
+  using T = typename F::T;
+  constexpr int P = F::P, ESZ = Cfg<F>::ESZ;
   const int xx = x0 - 1 + col;
   float z[P][NCH];
   if (xx >= 0 && xx < g.W) {
@@ -299,17 +385,15 @@ __device__ __forceinline__ void form_item(unsigned char* vt, const unsigned char
         for (int j = 0; j < NCH; ++j) z[u][j] = 0.f;
         continue;
       }
-      load_bf16<NCH>(raw + (u * F::COLS + col) * (KC * 2) + ch * 2, z[u]);
-      if constexpr (GN) activate<NCH>(z[u], gav, gbv);
+      load_x<T, NCH>(raw + (u * F::COLS + col) * (KC * ESZ) + ch * ESZ, z[u]);
+      if constexpr (GN) activate<T, NCH>(z[u], gav, gbv);
     }
     if constexpr (EMIT_Z && NCH == 4) {  // NCH == 4: the body columns
       if (zout != nullptr) {
 #pragma unroll
         for (int u = 1; u <= F::ROWS; ++u)
           if (y0 + u < g.H)
-            store_bf16<NCH>(reinterpret_cast<unsigned char*>(
-                                zout + (((size_t)b * g.H + y0 + u) * g.W + xx) * g.C + c0 + ch),
-                            z[u]);
+            store_x<T, NCH>(zout + (((size_t)b * g.H + y0 + u) * g.W + xx) * g.C + c0 + ch, z[u]);
       }
     }
   } else {
@@ -332,9 +416,10 @@ template <class F, bool GN, bool EMIT_Z>
 __device__ __forceinline__ void form_chunk(unsigned char* vt, const unsigned char* raw,
                                            const float* __restrict__ ga,
                                            const float* __restrict__ gb,
-                                           __nv_bfloat16* __restrict__ zout, const Geom& g, int b,
+                                           typename F::T* __restrict__ zout, const Geom& g, int b,
                                            int x0, int y0, int c0, int tid) {
   using K = Cfg<F>;
+  using T = typename F::T;
   if constexpr (!K::PACKED) {
     static_assert(F::TW * 4 == kThreads, "one 4-channel item a thread");
     form_item<F, GN, EMIT_Z, 4>(vt, raw, ga, gb, zout, g, b, x0, y0, c0, 1 + (tid >> 2),
@@ -353,20 +438,18 @@ __device__ __forceinline__ void form_chunk(unsigned char* vt, const unsigned cha
       if (y >= 0 && y < g.H && xx >= 0 && xx < g.W) {
         float a[4], bb[4];
         load_affine<4>(ga, gb, (size_t)b * g.C + c0 + ch, a, bb);
-        load_bf16<4>(raw + (u * F::COLS + xr) * (KC * 2) + ch * 2, z);
-        activate<4>(z, a, bb);
+        load_x<T, 4>(raw + (u * F::COLS + xr) * (KC * K::ESZ) + ch * K::ESZ, z);
+        activate<T, 4>(z, a, bb);
         if constexpr (EMIT_Z) {
           if (zout != nullptr && u >= 1 && u <= F::ROWS)
-            store_bf16<4>(reinterpret_cast<unsigned char*>(
-                              zout + (((size_t)b * g.H + y) * g.W + xx) * g.C + c0 + ch),
-                          z);
+            store_x<T, 4>(zout + (((size_t)b * g.H + y) * g.W + xx) * g.C + c0 + ch, z);
         }
       }
       unsigned char* dst = vt + (ch >> 3) * K::V_PLANE + u * K::V_ROW + (ch & 7) * 2;
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const int c = xr - dx;
-        if (c >= 0 && c < F::TW) store_bf16<4>(dst + dx * K::V_DX + c * 16, z);
+        if (c >= 0 && c < F::TW) store_pieces<F::NP, 4>(dst + dx * K::V_DX + c * 16, z, K::V_BYTES);
       }
     }
   }
@@ -381,7 +464,7 @@ struct Tile {
 template <class F>
 __device__ __forceinline__ Tile tile_at(const Geom& g, int tl) {
   Tile r;
-  r.co0 = (tl % g.n_cot) * TN;
+  r.co0 = (tl % g.n_cot) * F::TN;
   tl /= g.n_cot;
   r.x0 = (tl % g.n_xt) * F::TW;
   tl /= g.n_xt;
@@ -390,26 +473,31 @@ __device__ __forceinline__ Tile tile_at(const Geom& g, int tl) {
   return r;
 }
 
-// The body of both kernels. grid: min(n_tiles, SMs) persistent blocks of 256
+// The body of the kernels. grid: min(n_tiles, SMs) persistent blocks of 256
 // threads; block k takes tiles k, k + gridDim.x, ... and runs their chunks as
 // one sequence q, so the loads of the next tile's first chunks fly during
-// this tile's last ones and its epilogue.
+// this tile's last ones and its epilogue. bf16 writes the output by TMA
+// store (tm_out), fp32 from the accumulators (out).
 template <class F, bool GN, bool EMIT_Z>
 __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtensorMap* tm_u,
                                           const CUtensorMap* tm_out,
+                                          typename F::T* __restrict__ out,
                                           const float* __restrict__ bias,
                                           const float* __restrict__ ga,
                                           const float* __restrict__ gb,
-                                          __nv_bfloat16* __restrict__ zout, const Geom& g) {
+                                          typename F::T* __restrict__ zout, const Geom& g) {
   using namespace hopper;
   using K = Cfg<F>;
-  constexpr int ROWS = F::ROWS;
+  constexpr int ROWS = F::ROWS, NP = F::NP;
+  constexpr int NPROD = NP == 1 ? 1 : kSplitProducts;  // piece products a tap
+  static_assert((F::RS == 1 || F::RS == 2) && (F::VS == 1 || F::VS == 2), "stages");
+  constexpr int RSH = F::RS == 2 ? 1 : 0;  // log2 of the raw stages
   extern __shared__ unsigned char smem_raw[];
   unsigned char* us = align_1024(smem_raw);        // [2][weights half 0 | half 1]
   unsigned char* outs = us + 2 * K::U_BYTES;       // the output tile's own buffer, if any
-  unsigned char* raws = outs + K::OUT_BYTES;       // [2][raw rows]
-  unsigned char* vs = raws + 2 * K::RAW_BYTES;     // [2][point tile]
-  uint64_t* raw_full = reinterpret_cast<uint64_t*>(vs + 2 * K::V_BYTES);
+  unsigned char* raws = outs + K::OUT_BYTES;       // [RS][raw rows]
+  unsigned char* vs = raws + F::RS * K::RAW_BYTES;  // [VS][piece][point tile]
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(vs + F::VS * K::V_STAGE);
   uint64_t* u_full = raw_full + 2;
 
   const int tid = threadIdx.x, nk = g.C / KC;
@@ -418,25 +506,26 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
 
   auto load_raw = [&](int q) {  // thread 0: chunk q's raw rows
     const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
-    uint64_t* bar = &raw_full[q & 1];
+    uint64_t* bar = &raw_full[q & (F::RS - 1)];
     mbar_expect_tx(bar, K::RAW_BYTES);
-    tma_load_4d(raws + (q & 1) * K::RAW_BYTES, tm_x, bar, (q % nk) * KC, tt.x0 - 1,
+    tma_load_4d(raws + (q & (F::RS - 1)) * K::RAW_BYTES, tm_x, bar, (q % nk) * KC, tt.x0 - 1,
                 ROWS * tt.t - 1, tt.b);
   };
-  auto load_u = [&](int q) {  // thread 0: chunk q's weights for both warpgroups
+  auto load_u = [&](int q) {  // thread 0: chunk q's weights (every piece) for both warpgroups
     const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
     uint64_t* bar = &u_full[q & 1];
     unsigned char* dst = us + (q & 1) * K::U_BYTES;
-    if constexpr (!K::OUT_OWN) bulk_wait_read();  // the previous tile's output has left the stage
+    if constexpr (K::TMA_OUT && !K::OUT_OWN) bulk_wait_read();  // the previous tile's output has left the stage
     mbar_expect_tx(bar, K::U_BYTES);
-    tma_load_3d(dst, tm_u, bar, tt.co0, (q % nk) * KC, 0);
-    tma_load_3d(dst + K::U_HALF, tm_u, bar, tt.co0 + 64, (q % nk) * KC, 0);
+#pragma unroll
+    for (int h = 0; h < F::TN / 64; ++h)
+      tma_load_3d(dst + h * K::U_HALF, tm_u, bar, tt.co0 + 64 * h, (q % nk) * KC, 0);
   };
   if (tid == 0) {
     for (int s = 0; s < 4; ++s) mbar_init(&raw_full[s], 1);
     mbar_fence_init();
     for (int q = 0; q < 2 && q < nq; ++q) {
-      load_raw(q);
+      if (q < F::RS) load_raw(q);
       load_u(q);
     }
   }
@@ -456,15 +545,26 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
     for (int e = 0; e < F::WG_N / 2; ++e) acc[n][e] = 0.f;
   for (int k = 0; k < n_mine; ++k) {
     const Tile tt = tile_at<F>(g, blockIdx.x + k * gridDim.x);
-    __nv_bfloat16* zt = EMIT_Z && tt.co0 == 0 ? zout : nullptr;  // z from co tile 0 only
+    typename F::T* zt = EMIT_Z && tt.co0 == 0 ? zout : nullptr;  // z from co tile 0 only
     for (int i = 0; i < nk; ++i) {
       const int q = k * nk + i, s = q & 1;
       const uint32_t phase = (q >> 1) & 1;
-      // chunk q's points into stage s: the products of chunk q - 2 read it
-      // last, and every thread waited for them before the previous barrier
-      mbar_wait(&raw_full[s], phase);
-      form_chunk<F, GN, EMIT_Z>(vs + s * K::V_BYTES, raws + s * K::RAW_BYTES, ga, gb, zt, g,
-                                tt.b, tt.x0, ROWS * tt.t - 1, i * KC, tid);
+      if constexpr (F::VS == 1) {
+        // one point stage: chunk q - 1's products read it, so every thread
+        // waits for them before any overwrites it
+        if (q > 0) {
+          wgmma_wait<0>();
+          fence_regs(acc);
+          __syncthreads();
+        }
+      }
+      // chunk q's points into stage q % VS: with two stages the products of
+      // chunk q - 2 read it last, and every thread waited for them before
+      // the previous barrier
+      mbar_wait(&raw_full[q & (F::RS - 1)], (q >> RSH) & 1);
+      form_chunk<F, GN, EMIT_Z>(vs + (q & (F::VS - 1)) * K::V_STAGE,
+                                raws + (q & (F::RS - 1)) * K::RAW_BYTES, ga, gb, zt, g, tt.b,
+                                tt.x0, ROWS * tt.t - 1, i * KC, tid);
       fence_proxy_async();
       wgmma_wait<0>();  // chunk q - 1's products: its weight stage is free after the barrier
       fence_regs(acc);
@@ -472,11 +572,11 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
       if (K::OUT_OWN && tid == 0 && i == nk - 1) bulk_wait_read();
       __syncthreads();
       if (tid == 0) {
-        if (q + 2 < nq) load_raw(q + 2);          // raw stage s has been read
+        if (q + F::RS < nq) load_raw(q + F::RS);  // raw stage q % RS has been read
         if (q >= 1 && q + 1 < nq) load_u(q + 1);  // weight stage (q + 1) % 2 has been read
       }
       mbar_wait(&u_full[s], phase);
-      const uint32_t va = v_addr + s * K::V_BYTES, ua = u_addr + s * K::U_BYTES;
+      const uint32_t va = v_addr + (q & (F::VS - 1)) * K::V_STAGE, ua = u_addr + s * K::U_BYTES;
       wgmma_fence();
 #pragma unroll
       for (int n = 0; n < F::NACC; ++n)
@@ -484,62 +584,96 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
         for (int dy = 0; dy < F::TAPS; ++dy)
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx)
-            wgmma_ss_mn<F::WG_N>(
-                acc[n],
-                desc_kmajor_plain(va + F::point(n, dy) * K::V_ROW + dx * K::V_DX, K::V_PLANE),
-                desc_mnmajor(ua + F::slab(n, dy, dx) * K::U_SLAB, K::U_HALF),  // 64-col chunks
-                i > 0 || dy > 0 || dx > 0);  // the tile's first product starts the sum
+#pragma unroll
+            for (int o = 0; o < NPROD; ++o) {  // fp32: the six piece products, small first
+              const int pa = NP == 1 ? 0 : split_piece_a(o), pb = NP == 1 ? 0 : split_piece_b(o);
+              wgmma_ss_mn<F::WG_N>(
+                  acc[n],
+                  desc_kmajor_plain(
+                      va + pa * K::V_BYTES + F::point(n, dy) * K::V_ROW + dx * K::V_DX,
+                      K::V_PLANE),
+                  desc_mnmajor(ua + (pb * F::SLABS + F::slab(n, dy, dx)) * K::U_SLAB,
+                               K::U_HALF),  // 64-col chunks
+                  i > 0 || dy > 0 || dx > 0 || o > 0);  // the tile's first product starts the sum
+            }
       wgmma_commit();
     }
     wgmma_wait<0>();
     fence_regs(acc);
 
-    // out[ROWS t + row_wg + i, x0 + r, co] = sum_n at(i, n) acc_n + bias
-    // for the accumulator's rows r = 16 warp + g8 (+ 8) and columns co = co0
-    // + co_wg + 8 j + 2 tq (+ 1), staged per 64 output channels as
-    // [row][r][64 co] (128-byte swizzle: unit j of row R at j ^ (R mod 8))
-    // in the output's buffer or in the weight stage the last chunk read (its
-    // next load waits for the store), then written by TMA, which clips rows
-    // and columns past the image
-    unsigned char* obase = K::OUT_OWN ? outs : us + ((k * nk + nk - 1) & 1) * K::U_BYTES;
-    unsigned char* owg = obase + (F::SPLIT_CO ? wg * K::OUT_PITCH : 0);
+    if constexpr (K::TMA_OUT) {
+      // out[ROWS t + row_wg + i, x0 + r, co] = sum_n at(i, n) acc_n + bias
+      // for the accumulator's rows r = 16 warp + g8 (+ 8) and columns co =
+      // co0 + co_wg + 8 j + 2 tq (+ 1), staged per 64 output channels as
+      // [row][r][64 co] (128-byte swizzle: unit j of row R at j ^ (R mod 8))
+      // in the output's buffer or in the weight stage the last chunk read
+      // (its next load waits for the store), then written by TMA, which
+      // clips rows and columns past the image
+      unsigned char* obase = K::OUT_OWN ? outs : us + ((k * nk + nk - 1) & 1) * K::U_BYTES;
+      unsigned char* owg = obase + (F::SPLIT_CO ? wg * K::OUT_PITCH : 0);
 #pragma unroll
-    for (int j = 0; j < F::WG_N / 8; ++j) {
-      const float2 bj =
-          *reinterpret_cast<const float2*>(bias + tt.co0 + co_wg + 8 * j + 2 * tq);
-      unsigned char* ot = owg + (F::SPLIT_CO ? 0 : (j >> 3) * K::OUT_PITCH);
+      for (int j = 0; j < F::WG_N / 8; ++j) {
+        const float2 bj =
+            *reinterpret_cast<const float2*>(bias + tt.co0 + co_wg + 8 * j + 2 * tq);
+        unsigned char* ot = owg + (F::SPLIT_CO ? 0 : (j >> 3) * K::OUT_PITCH);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * warp + g8 + 8 * h;
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + g8 + 8 * h;
 #pragma unroll
-        for (int i = 0; i < F::WG_ROWS; ++i) {
-          float v0 = 0.f, v1 = 0.f;
+          for (int i = 0; i < F::WG_ROWS; ++i) {
+            float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-          for (int n = 0; n < F::NACC; ++n) {
-            const float cf = F::at(i, n);
-            if (cf == 1.f) {
-              v0 += acc[n][4 * j + 2 * h];
-              v1 += acc[n][4 * j + 2 * h + 1];
-            } else if (cf != 0.f) {
-              v0 = fmaf(cf, acc[n][4 * j + 2 * h], v0);
-              v1 = fmaf(cf, acc[n][4 * j + 2 * h + 1], v1);
+            for (int n = 0; n < F::NACC; ++n) {
+              const float cf = F::at(i, n);
+              if (cf == 1.f) {
+                v0 += acc[n][4 * j + 2 * h];
+                v1 += acc[n][4 * j + 2 * h + 1];
+              } else if (cf != 0.f) {
+                v0 = fmaf(cf, acc[n][4 * j + 2 * h], v0);
+                v1 = fmaf(cf, acc[n][4 * j + 2 * h + 1], v1);
+              }
             }
+            const int R = (row_wg + i) * TP + r;
+            *reinterpret_cast<uint32_t*>(ot + R * 128 + (((j & 7) ^ (R & 7)) << 4) + tq * 4) =
+                pack_bf16(v0 + bj.x, v1 + bj.y);
           }
-          const int R = (row_wg + i) * TP + r;
-          *reinterpret_cast<uint32_t*>(ot + R * 128 + (((j & 7) ^ (R & 7)) << 4) + tq * 4) =
-              pack_bf16(v0 + bj.x, v1 + bj.y);
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) {
+        for (int w = 0; w < F::TN / 64; ++w)
+          tma_store_4d(tm_out, obase + w * K::OUT_PITCH, tt.co0 + 64 * w, tt.x0, ROWS * tt.t,
+                       tt.b);
+        bulk_commit();
+      }
+    } else {
+      // fp32 (the direct form): out = acc + bias at image row ROWS t + (row_wg
+      // + i) PK + r / TW, column x0 + r % TW, written from the accumulators
+      // (an fp32 tile staged beside three weight pieces would not fit);
+      // rows and columns past the image are not written
+      static_assert(F::IDENTITY, "fp32 runs the direct form");
+#pragma unroll
+      for (int j = 0; j < F::WG_N / 8; ++j) {
+        const int co = tt.co0 + 8 * j + 2 * tq;
+        const float2 bj = *reinterpret_cast<const float2*>(bias + co);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * warp + g8 + 8 * h, x = tt.x0 + r % F::TW;
+#pragma unroll
+          for (int i = 0; i < F::WG_ROWS; ++i) {
+            const int y = ROWS * tt.t + (row_wg + i) * F::PK + r / F::TW;
+            if (y < g.H && x < g.W)
+              *reinterpret_cast<float2*>(out + (((size_t)tt.b * g.H + y) * g.W + x) * g.CO + co) =
+                  make_float2(acc[i][4 * j + 2 * h] + bj.x, acc[i][4 * j + 2 * h + 1] + bj.y);
+          }
         }
       }
     }
-    fence_proxy_async();
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 0; w < 2; ++w)
-        tma_store_4d(tm_out, obase + w * K::OUT_PITCH, tt.co0 + 64 * w, tt.x0, ROWS * tt.t, tt.b);
-      bulk_commit();
-    }
   }
-  if (tid == 0) bulk_wait_read();  // the last tile's output has left shared memory
+  if constexpr (K::TMA_OUT) {
+    if (tid == 0) bulk_wait_read();  // the last tile's output has left shared memory
+  }
 }
 
 // B7: the row-Winograd forward (and, on dy, the dgrad)
@@ -550,7 +684,7 @@ wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ bias,
                        const float* __restrict__ ga, const float* __restrict__ gb,
                        __nv_bfloat16* __restrict__, Geom g) {
-  conv_rows<Wino<M>, GN, false>(&tm_x, &tm_u, &tm_out, bias, ga, gb, nullptr, g);
+  conv_rows<Wino<M>, GN, false>(&tm_x, &tm_u, &tm_out, nullptr, bias, ga, gb, nullptr, g);
 }
 
 // B6: the direct conv with the GroupNorm+SiLU prologue
@@ -561,7 +695,27 @@ fused_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                         const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ bias,
                         const float* __restrict__ ga, const float* __restrict__ gb,
                         __nv_bfloat16* __restrict__ zout, Geom g) {
-  conv_rows<Direct<TT, PK>, true, EMIT_Z>(&tm_x, &tm_u, &tm_out, bias, ga, gb, zout, g);
+  conv_rows<Direct<TT, PK>, true, EMIT_Z>(&tm_x, &tm_u, &tm_out, nullptr, bias, ga, gb, zout,
+                                          g);
+}
+
+// B6 in fp32: the direct form on split precision (tm_u over the weight
+// pieces of split_weights_kernel)
+template <int PK, bool EMIT_Z>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_conv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                              const __grid_constant__ CUtensorMap tm_u, float* __restrict__ out,
+                              const float* __restrict__ bias, const float* __restrict__ ga,
+                              const float* __restrict__ gb, float* __restrict__ zout, Geom g) {
+  conv_rows<Direct<kDirectRows, PK, 3>, true, EMIT_Z>(&tm_x, &tm_u, nullptr, out, bias, ga, gb,
+                                                      zout, g);
+}
+
+// The fp32 weights K (n = 9 C CO values) as three bf16 pieces, piece p of
+// element i at pieces[p n + i]: the (3 * 9, C, CO) slabs tm_u reads.
+__global__ void __launch_bounds__(256)
+split_weights_kernel(const float* __restrict__ w, __nv_bfloat16* __restrict__ pieces, size_t n) {
+  hopper::split_to_pieces<3>(w, pieces, n);
 }
 
 int sm_count() {
@@ -575,32 +729,43 @@ int sm_count() {
   return n;
 }
 
+// u: the bf16 weight slabs (S, C, CO), or for fp32 (NP = 3) their pieces
+// (3 S, C, CO)
 template <class F, typename Kernel>
 int launch(Kernel kernel, const void* x, const void* u, const void* bias, const void* ga,
            const void* gb, void* out, void* zout, int B, int H, int W, int C, int CO,
            cudaStream_t stream) {
   using K = Cfg<F>;
+  using T = typename F::T;
   const int ht = (H + F::ROWS - 1) / F::ROWS, n_xt = (W + F::TW - 1) / F::TW;
-  const Geom g{B, H, W, C, CO, ht, n_xt, CO / TN, B * ht * n_xt * (CO / TN)};
+  const int n_cot = CO / F::TN;
+  const Geom g{B, H, W, C, CO, ht, n_xt, n_cot, B * ht * n_xt * n_cot};
   CUtensorMap tx, tu, to;
   const uint64_t dx[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint32_t bx[4] = {KC, F::COLS, F::P, 1};
-  const uint64_t du[3] = {(uint64_t)CO, (uint64_t)C, (uint64_t)F::SLABS};
-  const uint32_t bu[3] = {64, KC, F::SLABS};
-  const uint64_t dout[4] = {(uint64_t)CO, (uint64_t)W, (uint64_t)H, (uint64_t)B};
-  const uint32_t bout[4] = {64, F::TW, F::ROWS, 1};
-  int err = hopper::make_map_bf16_nd(&tx, x, dx, bx);
+  const uint64_t du[3] = {(uint64_t)CO, (uint64_t)C, (uint64_t)(F::NP * F::SLABS)};
+  const uint32_t bu[3] = {64, KC, F::NP * F::SLABS};
+  int err = F::NP == 1 ? hopper::make_map_bf16_nd(&tx, x, dx, bx)
+                       : hopper::make_map_f32_nd(&tx, x, dx, bx);
   if (!err) err = hopper::make_map_bf16_nd(&tu, u, du, bu, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!err) err = hopper::make_map_bf16_nd(&to, out, dout, bout, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err && K::TMA_OUT) {
+    const uint64_t dout[4] = {(uint64_t)CO, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint32_t bout[4] = {64, F::TW, F::ROWS, 1};
+    err = hopper::make_map_bf16_nd(&to, out, dout, bout, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
   if (err) return err;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int grid = g.n_tiles < sm_count() ? g.n_tiles : sm_count();
-  kernel<<<grid, kThreads, K::SMEM, stream>>>(tx, tu, to, static_cast<const float*>(bias),
-                                              static_cast<const float*>(ga),
-                                              static_cast<const float*>(gb),
-                                              static_cast<__nv_bfloat16*>(zout), g);
+  const float* fb = static_cast<const float*>(bias);
+  const float* fa = static_cast<const float*>(ga);
+  const float* fg = static_cast<const float*>(gb);
+  if constexpr (K::TMA_OUT)
+    kernel<<<grid, kThreads, K::SMEM, stream>>>(tx, tu, to, fb, fa, fg, static_cast<T*>(zout), g);
+  else
+    kernel<<<grid, kThreads, K::SMEM, stream>>>(tx, tu, static_cast<T*>(out), fb, fa, fg,
+                                                static_cast<T*>(zout), g);
   return (int)cudaGetLastError();
 }
 
@@ -608,38 +773,58 @@ int launch(Kernel kernel, const void* x, const void* u, const void* bias, const 
 
 extern "C" {
 
-// x: (B, H, W, C) bf16; u: (S, C, CO) bf16, the weight slabs: mode 1 (the
-// direct form, gn required) K[dy, dx] at dy * 3 + dx, S = 9; mode 2 or 4 the
-// row-Winograd U[a, dx] at a * 3 + dx, S = (mode + 2) * 3; bias: (CO,) fp32;
-// ga, gb: (B, C) fp32 GroupNorm affine when gn, else unused; out: (B, H, W,
-// CO) bf16; zout: (B, H, W, C) bf16 when emit_z (mode 1 only). The Python
-// wrapper checks the rest: contiguous, 16-byte aligned, C % 16 == 0, CO % 128
-// == 0, H % mode == 0. Returns cudaGetLastError().
+// x: (B, H, W, C) in dtype (1 bf16, 0 fp32); u: (S, C, CO) in dtype, the
+// weight slabs: mode 1 (the direct form, gn required) K[dy, dx] at dy * 3 +
+// dx, S = 9; mode 2 or 4 (bf16 only) the row-Winograd U[a, dx] at a * 3 +
+// dx, S = (mode + 2) * 3; bias: (CO,) fp32; ga, gb: (B, C) fp32 GroupNorm
+// affine when gn, else unused; out: (B, H, W, CO) in dtype; zout: (B, H, W,
+// C) in dtype when emit_z (mode 1 only); pieces: fp32 only, (3, S, C, CO)
+// bf16 scratch for the weight pieces. The Python wrapper checks the rest:
+// contiguous, 16-byte aligned, C % 16 == 0, CO % 128 == 0 (bf16) or CO % 64
+// == 0 (fp32), H % mode == 0. Returns cudaGetLastError().
 int gdt_conv3x3_wino(const void* x, const void* u, const void* bias, const void* ga,
-                     const void* gb, void* out, void* zout, int B, int H, int W, int C, int CO,
-                     int m, int gn, int emit_z, void* stream) {
-  auto run = [&](auto form, auto kernel) {
-    return launch<decltype(form)>(kernel, x, u, bias, ga, gb, out, zout, B, H, W, C, CO,
-                                  static_cast<cudaStream_t>(stream));
+                     const void* gb, void* out, void* zout, void* pieces, int B, int H, int W,
+                     int C, int CO, int m, int gn, int emit_z, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto form, auto kernel, const void* w) {
+    return launch<decltype(form)>(kernel, x, w, bias, ga, gb, out, zout, B, H, W, C, CO, st);
   };
   constexpr int TT = kDirectRows;
+  if (dtype == 0) {  // fp32: the direct form on split precision
+    if (m != 1 || !gn || pieces == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t n = (size_t)9 * C * CO;
+    const int blocks = (int)((n / 8 + 255) / 256 < 1056 ? (n / 8 + 255) / 256 : 1056);
+    split_weights_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(u),
+                                                 static_cast<__nv_bfloat16*>(pieces), n);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    if (W == TP / 2)
+      return emit_z ? run(Direct<TT, 2, 3>{}, fused_conv_split_wgmma_kernel<2, true>, pieces)
+                    : run(Direct<TT, 2, 3>{}, fused_conv_split_wgmma_kernel<2, false>, pieces);
+    if (W == TP / 4)
+      return emit_z ? run(Direct<TT, 4, 3>{}, fused_conv_split_wgmma_kernel<4, true>, pieces)
+                    : run(Direct<TT, 4, 3>{}, fused_conv_split_wgmma_kernel<4, false>, pieces);
+    return emit_z ? run(Direct<TT, 1, 3>{}, fused_conv_split_wgmma_kernel<1, true>, pieces)
+                  : run(Direct<TT, 1, 3>{}, fused_conv_split_wgmma_kernel<1, false>, pieces);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (m == 1 && gn) {  // PK image rows an accumulator where W = 64 / PK (32 or 16)
     if (W == TP / 2)
-      return emit_z ? run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, true>)
-                    : run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, false>);
+      return emit_z ? run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, true>, u)
+                    : run(Direct<TT, 2>{}, fused_conv_wgmma_kernel<TT, 2, false>, u);
     if (W == TP / 4)
-      return emit_z ? run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, true>)
-                    : run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, false>);
-    return emit_z ? run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, true>)
-                  : run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, false>);
+      return emit_z ? run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, true>, u)
+                    : run(Direct<TT, 4>{}, fused_conv_wgmma_kernel<TT, 4, false>, u);
+    return emit_z ? run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, true>, u)
+                  : run(Direct<TT, 1>{}, fused_conv_wgmma_kernel<TT, 1, false>, u);
   }
   if (emit_z) return (int)cudaErrorInvalidValue;
   if (m == 2)
-    return gn ? run(Wino<2>{}, wino_rows_wgmma_kernel<2, true>)
-              : run(Wino<2>{}, wino_rows_wgmma_kernel<2, false>);
+    return gn ? run(Wino<2>{}, wino_rows_wgmma_kernel<2, true>, u)
+              : run(Wino<2>{}, wino_rows_wgmma_kernel<2, false>, u);
   if (m == 4)
-    return gn ? run(Wino<4>{}, wino_rows_wgmma_kernel<4, true>)
-              : run(Wino<4>{}, wino_rows_wgmma_kernel<4, false>);
+    return gn ? run(Wino<4>{}, wino_rows_wgmma_kernel<4, true>, u)
+              : run(Wino<4>{}, wino_rows_wgmma_kernel<4, false>, u);
   return (int)cudaErrorInvalidValue;
 }
 

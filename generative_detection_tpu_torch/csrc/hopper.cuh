@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by the attention and weight-gradient
+// Hopper (sm_90a) building blocks shared by the attention and convolution
 // kernels: mbarriers, TMA copies, wgmma descriptors and instructions,
 // register rebalancing, and the host-side tensor maps.
 //
@@ -325,6 +325,21 @@ __device__ __forceinline__ void split_to_pieces(const float* __restrict__ x,
   }
 }
 
+// The six piece products (i, j), i + j <= 2, of two operands split into
+// three pieces each (split_bf16x2), the small ones first: (2, 0), (0, 2),
+// (1, 1), (1, 0), (0, 1), (0, 0). Product o multiplies piece
+// split_piece_a(o) of the first operand by piece split_piece_b(o) of the
+// second.
+constexpr int kSplitProducts = 6;
+__host__ __device__ constexpr int split_piece_a(int o) {
+  constexpr int a[kSplitProducts] = {2, 0, 1, 1, 0, 0};
+  return a[o];
+}
+__host__ __device__ constexpr int split_piece_b(int o) {
+  constexpr int b[kSplitProducts] = {0, 2, 1, 0, 1, 0};
+  return b[o];
+}
+
 template <int N, int M, int P>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M][P]) {
 #pragma unroll
@@ -615,29 +630,45 @@ inline int make_map_bf16(CUtensorMap* map, const void* ptr, uint64_t rows, uint6
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A tensor map over an R-D bf16 tensor with dims[0] innermost (contiguous),
-// read or written in boxes of box[0..R-1] elements; elements outside the
-// tensor read as zero (and are not written). With the 128-byte swizzle
-// box[0] must be 64 (128 bytes). Returns a CUDA error code (0 on success).
+// A tensor map over an R-D tensor of `elem_bytes`-byte elements of `type`
+// with dims[0] innermost (contiguous), read or written in boxes of
+// box[0..R-1] elements; elements outside the tensor read as zero (and are
+// not written). With the 128-byte swizzle box[0] spans 128 bytes. Returns a
+// CUDA error code (0 on success).
 template <int R>
-inline int make_map_bf16_nd(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[R],
-                            const uint32_t (&box)[R],
-                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+inline int make_map_nd(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[R],
+                       const uint32_t (&box)[R], CUtensorMapDataType type, uint64_t elem_bytes,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t d[R], strides[R - 1];
   cuuint32_t bx[R], elem_strides[R];
-  uint64_t pitch = 2;
+  uint64_t pitch = elem_bytes;
   for (int i = 0; i < R; ++i) {
     d[i] = dims[i];
     bx[i] = box[i];
     elem_strides[i] = 1;
     if (i + 1 < R) strides[i] = pitch *= dims[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), d,
-                        strides, bx, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUresult r = fn(map, type, R, const_cast<void*>(ptr), d, strides, bx, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// make_map_nd over bf16 (with the 128-byte swizzle box[0] must be 64).
+template <int R>
+inline int make_map_bf16_nd(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[R],
+                            const uint32_t (&box)[R],
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  return make_map_nd(map, ptr, dims, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, swizzle);
+}
+
+// make_map_nd over fp32, without swizzle.
+template <int R>
+inline int make_map_f32_nd(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[R],
+                           const uint32_t (&box)[R]) {
+  return make_map_nd(map, ptr, dims, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4);
 }
 
 }  // namespace hopper

@@ -1,8 +1,9 @@
 """ctypes bindings of the 3x3 convolution kernels: ``csrc/conv3x3_wino.cu``
-(bf16, TMA + ``wgmma``: the direct forward with the GroupNorm+SiLU prologue,
-B6, and the row-Winograd forward and dgrad, B7), ``csrc/conv3x3.cu`` (the
-same three forms in fp32, FMA) and ``csrc/conv3x3_wgrad.cu`` (the
-row-Winograd weight gradient).
+(TMA + ``wgmma``: the direct forward with the GroupNorm+SiLU prologue, B6, in
+bf16 and in fp32 on split precision, and the row-Winograd forward and dgrad,
+B7, in bf16), ``csrc/conv3x3.cu`` (B7 in fp32, FMA) and
+``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient, B8: bf16
+``wgmma``, fp32 split-precision ``wgmma``).
 
 These launch and check; they count nothing. The wrappers that own the
 launch counts are in ``ops.fused_conv`` and ``ops.winograd_rows``.
@@ -19,23 +20,28 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BM = 64  # output positions per block of the fp32 forward kernel
-BN = 64  # output channels per block of the fp32 kernels
+BM = 64  # output positions per block of the fp32 row-Winograd forward kernel
+BN = 64  # output channels per block (tile) of the fp32 forward kernels
 KC = 16  # input-channel chunk of the forward kernels
 TN_WINO = 128  # output channels per tile of the bf16 forward kernels
 TC = 64  # input channels per block of the weight-gradient kernels
-TN_BF16 = 128  # output channels per block of the bf16 weight-gradient kernel
-KP = 32  # columns per chunk of the weight-gradient kernels
-# weight-gradient blocks to aim for: a few per SM of the H100's 132 (fp32),
-# two waves of one block per SM (bf16: 177 KB of shared memory a block)
-_TARGET_BLOCKS = {torch.float32: 528, torch.bfloat16: 264}
+TN_WGRAD = 128  # output channels per block of the weight-gradient kernels
+KP = {torch.bfloat16: 32, torch.float32: 16}  # columns per chunk of the weight-gradient kernels
+# weight-gradient blocks to aim for: two waves of one block per SM of the
+# H100's 132 (177 KB of shared memory a block in bf16, 205 KB in fp32)
+_TARGET_BLOCKS = 264
+# fp32 weight gradient: the most positions one block sums. The tensor core
+# truncates its fp32 sum to the accumulator's size, so the error grows with
+# a block's chain of products; the split attention backward measured ~2e-4
+# of the RMS at a chain of 4096 keys (gate 1e-3).
+SPLIT_CHAIN = 4096
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3")
     if lib.gdt_conv3x3_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_conv3x3_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
+        lib.gdt_conv3x3_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
         lib.gdt_conv3x3_fwd.restype = i
     return lib
 
@@ -44,7 +50,7 @@ def _wino_lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_wino")
     if lib.gdt_conv3x3_wino.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_conv3x3_wino.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.gdt_conv3x3_wino.argtypes = [p] * 8 + [i] * 9 + [p]
         lib.gdt_conv3x3_wino.restype = i
     return lib
 
@@ -78,8 +84,8 @@ def _affine_args(gn_ab, b, c, device):
 
 
 def _tile(w: int) -> tuple[int, int]:
-    """The fp32 forward kernel's block tile: ``tt`` t-rows of ``tw`` columns
-    (the last column tile may run past the image)."""
+    """The fp32 row-Winograd forward kernel's block tile: ``tt`` t-rows of
+    ``tw`` columns (the last column tile may run past the image)."""
     tw = min(w, BM)
     return tw, BM // tw
 
@@ -90,8 +96,10 @@ def forward_shape_error(shape, co: int, dtype, mode: int, gn: bool = False,
     ``co`` output channels, or None when a kernel takes it. bf16 runs
     ``csrc/conv3x3_wino.cu`` (mode 1, the direct form, is B6; mode 2 or 4,
     the row-Winograd forward and dgrad, B7): C % 16, CO % 128, H % mode.
-    fp32 runs ``csrc/conv3x3.cu``: C % 16, CO % 64, H % mode. Both take any
-    W. Mode 1 runs only with the GroupNorm prologue."""
+    fp32: C % 16, CO % 64, H % mode; mode 1 runs the split-precision direct
+    form of ``csrc/conv3x3_wino.cu`` (tiles of 64 output channels), modes 2
+    and 4 ``csrc/conv3x3.cu``. Both take any W. Mode 1 runs only with the
+    GroupNorm prologue."""
     _, h, w, c = shape
     if mode not in (1, 2, 4):
         return f"mode {mode} is not 1, 2 or 4"
@@ -117,9 +125,10 @@ def conv3x3_forward(
     """Launch the forward kernel: x (B, H, W, C), u (P*3, C, CO) in x's dtype
     (P = 3 for ``mode`` 1, the direct kernel; mode + 2 for F(mode,3)), bias
     (CO,) fp32, ``gn_ab`` the (B, C) fp32 GroupNorm affine of the prologue.
-    bf16 takes ``csrc/conv3x3_wino.cu``, fp32 ``csrc/conv3x3.cu``
-    (``forward_shape_error`` gives the shapes each takes). Returns out (B, H,
-    W, CO), and z (B, H, W, C) with ``emit_z``."""
+    bf16 and fp32 mode 1 take ``csrc/conv3x3_wino.cu`` (fp32: a pre-pass
+    splits u into three bf16 pieces, in scratch allocated here), fp32 modes 2
+    and 4 ``csrc/conv3x3.cu`` (``forward_shape_error`` gives the shapes each
+    takes). Returns out (B, H, W, CO), and z (B, H, W, C) with ``emit_z``."""
     b, h, w, c = x.shape
     co = u.shape[-1]
     pts = 3 if mode == 1 else mode + 2
@@ -136,50 +145,62 @@ def conv3x3_forward(
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (x.data_ptr(), u.data_ptr(), bias.data_ptr(),
             ga.data_ptr() if ga is not None else None, gb.data_ptr() if gb is not None else None,
-            out.data_ptr(), z.data_ptr() if z is not None else None)
-    flags = (b, h, w, c, co, mode, int(gn_ab is not None), int(emit_z))
-    if x.dtype == torch.bfloat16:
+            out.data_ptr())
+    shape = (b, h, w, c, co, mode, int(gn_ab is not None))
+    if x.dtype == torch.bfloat16 or mode == 1:
+        pieces = (torch.empty(3 * u.numel(), dtype=torch.bfloat16, device=x.device)
+                  if x.dtype == torch.float32 else None)
         lib = _wino_lib()
-        rc = lib.gdt_conv3x3_wino(*ptrs, *flags, stream)
+        rc = lib.gdt_conv3x3_wino(*ptrs, z.data_ptr() if z is not None else None,
+                                  pieces.data_ptr() if pieces is not None else None, *shape,
+                                  int(emit_z), _DTYPES[x.dtype], stream)
     else:
         lib = _lib()
-        rc = lib.gdt_conv3x3_fwd(*ptrs, *flags, *_tile(w), stream)
+        rc = lib.gdt_conv3x3_fwd(*ptrs, *shape, *_tile(w), stream)
     _build.check(lib, rc, "conv3x3 kernel launch")
     return (out, z) if emit_z else out
 
 
+def wgrad_shape_error(shape, co: int, dtype, m: int) -> Optional[str]:
+    """Why ``conv3x3_wgrad`` refuses z of ``shape`` (B, H, W, C) with ``co``
+    output channels, or None when its kernel takes it: C % 64, H % m, and CO
+    % 128 (bf16) or CO % 64 (fp32, whose blocks of 128 output channels store
+    only the first 64 past CO); any W."""
+    _, h, _, c = shape
+    tn = TN_WGRAD if dtype == torch.bfloat16 else BN
+    if m not in (2, 4) or c % TC or co % tn or h % m:
+        return (f"conv3x3 wgrad kernel takes C % {TC} == 0, CO % {tn} == 0 ({dtype}) and "
+                f"H % m == 0, got z {tuple(shape)}, CO {co}, m {m}")
+    return None
+
+
 def _wgrad_splits(b: int, h: int, w: int, c: int, co: int, m: int, dtype) -> int:
     """Split-K factor of the weight-gradient kernel: enough blocks to fill
-    the card, at most one per position chunk."""
-    chunks = b * (h // m) * math.ceil(w / KP)
-    tn = TN_BF16 if dtype == torch.bfloat16 else BN
-    blocks = (c // TC) * (co // tn) * (m + 2)
-    return max(1, min(math.ceil(_TARGET_BLOCKS[dtype] / blocks), chunks))
+    the card, at most one per position chunk; in fp32 also enough that no
+    block sums more than ``SPLIT_CHAIN`` positions."""
+    chunks = b * (h // m) * math.ceil(w / KP[dtype])
+    blocks = (c // TC) * math.ceil(co / TN_WGRAD) * (m + 2)
+    splits = math.ceil(_TARGET_BLOCKS / blocks)
+    if dtype == torch.float32:
+        splits = max(splits, math.ceil(chunks * KP[dtype] / SPLIT_CHAIN))
+    return max(1, min(splits, chunks))
 
 
 def conv3x3_wgrad(
     z: torch.Tensor, dy: torch.Tensor, m: int, gn_ab: Optional[tuple] = None
 ) -> torch.Tensor:
     """Launch ``csrc/conv3x3_wgrad.cu``: z (B, H, W, C) (raw x with
-    ``gn_ab``), dy (B, H, W, CO) in z's dtype (bf16: TMA + ``wgmma``, any W;
-    fp32: FMA). Returns dU ((m+2)*3, C, CO) float32."""
+    ``gn_ab``), dy (B, H, W, CO) in z's dtype (bf16: TMA + ``wgmma``; fp32:
+    split-precision ``wgmma``; any W). Returns dU ((m+2)*3, C, CO) float32."""
     b, h, w, c = z.shape
     co = dy.shape[-1]
     ga, gb = _affine_args(gn_ab, b, c, z.device)
     _check(z, dy, ga, gb, dtype=z.dtype)
-    tn = TN_BF16 if z.dtype == torch.bfloat16 else BN
-    if (
-        m not in (2, 4)
-        or dy.shape != (b, h, w, co)
-        or dy.dtype != z.dtype
-        or c % TC
-        or co % tn
-        or h % m
-    ):
-        raise ValueError(
-            f"conv3x3 wgrad kernel takes C % {TC} == 0, CO % {tn} == 0 ({z.dtype}) and "
-            f"H % m == 0, got z {tuple(z.shape)}, dy {tuple(dy.shape)} {dy.dtype}, m {m}"
-        )
+    err = wgrad_shape_error(z.shape, co, z.dtype, m)
+    if err is None and (dy.shape != (b, h, w, co) or dy.dtype != z.dtype):
+        err = f"dy must be {(b, h, w, co)} {z.dtype}, got {tuple(dy.shape)} {dy.dtype}"
+    if err is not None:
+        raise ValueError(err)
     splits = _wgrad_splits(b, h, w, c, co, m, z.dtype)
     pts = m + 2
     part = torch.empty((splits, pts * 3, c, co), dtype=torch.float32, device=z.device)

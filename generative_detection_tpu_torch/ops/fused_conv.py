@@ -5,8 +5,8 @@ package), over NHWC activations and HWIO (3, 3, C, CO) kernels.
 GroupNorm (``norm.group_norm_affine``: the stats kernel on the card), then
 conv(silu(x a + b)) + bias with the activation made inside the convolution:
 on the card ``fused_conv_wgmma_kernel`` of ``csrc/conv3x3_wino.cu`` in bf16
-(the direct mode of ``csrc/conv3x3.cu`` in fp32), on the CPU the plain
-``gn_silu_conv_reference``. Two backward variants, one
+(``fused_conv_split_wgmma_kernel``, the same pipeline on split precision, in
+fp32), on the CPU the plain ``gn_silu_conv_reference``. Two backward variants, one
 ``torch.autograd.Function`` each, as the JAX package's two custom VJPs:
 
 - inference (``save_activation=False``, ``_make_fused_vjp``): the forward
@@ -24,9 +24,10 @@ DMAs row tiles plus halos into VMEM, activates them there and runs nine
 tile-wide MXU products with masked rolls for the column shifts. The Hopper
 kernel, ``fused_conv_wgmma_kernel`` (``csrc/conv3x3_wino.cu``, the direct
 form of B7's pipeline: raw rows by TMA, activated once per 128 output
-channels, nine SS ``wgmma`` taps per output row, TMA-store epilogue), tiles
-its own way and takes any W, so ``_pick_tile`` below only decides which
-sites are routed to it, exactly as on the TPU.
+channels, nine SS ``wgmma`` taps per output row, TMA-store epilogue; in
+fp32 every point and weight slab three bf16 pieces and six piece products a
+tap), tiles its own way and takes any W, so ``_pick_tile`` below only
+decides which sites are routed to it, exactly as on the TPU.
 """
 
 from __future__ import annotations
@@ -188,4 +189,4 @@ def gn_silu_conv(
         return gn_silu_conv_reference(x, gamma, beta, w, bias, num_groups, eps)
 
 
-gn_silu_conv.launches = 0  # calls that launched the fused kernel (B6)
+gn_silu_conv.launches = 0  # calls that launched the fused kernel (B6, either dtype)

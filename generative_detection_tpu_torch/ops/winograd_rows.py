@@ -23,8 +23,8 @@ A CPU tensor takes the plain versions (``_wino_rows_reference``,
 ``_wino_wgrad_reference``: the same V/U/G/AT algorithm and rounding in torch
 ops); a CUDA tensor takes ``csrc/conv3x3_wino.cu`` (bf16) or
 ``csrc/conv3x3.cu`` (fp32) for the forward and dgrad, replacing
-``_wino_rows_pallas``, and ``csrc/conv3x3_wgrad.cu`` (replacing
-``_wino_wgrad_pallas``), or raises. The TPU's tile pickers stay as routing
+``_wino_rows_pallas``, and ``csrc/conv3x3_wgrad.cu`` (bf16 ``wgmma``, fp32
+split-precision ``wgmma``; replacing ``_wino_wgrad_pallas``), or raises. The TPU's tile pickers stay as routing
 rules, so the same sites take these kernels as on the TPU.
 """
 
@@ -261,7 +261,7 @@ def wino_wgrad(z, dy, dtype, m_out: int = 2, gn_ab=None):
                         du.reshape(m_out + 2, 3, c, co))
 
 
-wino_wgrad.launches = 0  # calls that launched csrc/conv3x3_wgrad.cu
+wino_wgrad.launches = 0  # calls that launched csrc/conv3x3_wgrad.cu (either dtype)
 
 
 def _u3n(kernel, dtype, m_out):

@@ -596,14 +596,19 @@ def test_fused_conv_kernel_matches_plain(cuda, shape, co, dtype):
     _rel_close(z, want_z, CONV_REL_TOL[dtype])
 
 
-@pytest.mark.parametrize("shape, co", [((2, 256, 256, 128), 128), ((2, 16, 16, 512), 512),
-                                       ((2, 8, 96, 128), 256)])
-def test_fused_conv_kernel_repeats_bit_equal(cuda, shape, co):
-    """The bf16 B6 kernel gives the same bits on a repeat, z too: every
-    output element is written by one block."""
+_REPEAT_SITES = [((2, 256, 256, 128), 128), ((2, 16, 16, 512), 512), ((2, 8, 96, 128), 256)]
+
+
+@pytest.mark.parametrize("shape, co, dtype",
+                         [(s, co, torch.bfloat16) for s, co in _REPEAT_SITES]
+                         + [(s, co, torch.float32) for s, co in _REPEAT_SITES]
+                         + [((2, 12, 32, 128), 64, torch.float32)])
+def test_fused_conv_kernel_repeats_bit_equal(cuda, shape, co, dtype):
+    """The B6 kernels (bf16, and fp32 on split precision) give the same bits
+    on a repeat, z too: every output element is written by one block."""
     from generative_detection_tpu_torch.ops import fused_conv
 
-    x, _, _, k, bias, a, b = _conv_inputs(cuda, shape, co, torch.bfloat16)
+    x, _, _, k, bias, a, b = _conv_inputs(cuda, shape, co, dtype)
     runs = [fused_conv._fused_forward(x, a, b, k, bias, emit_z=True) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0], runs[1][0])
@@ -676,6 +681,30 @@ def test_wino_wgrad_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, again)  # split-K partials folded in a fixed order
     _rel_close(got, want, CONV_REL_TOL[dtype])
+
+
+@pytest.mark.parametrize("b, hw, c, co", [(16, 128, 256, 128), (2, 40, 64, 192),
+                                          (2, 16, 128, 64)])
+def test_wino_wgrad_split_kernel_matches_plain(cuda, b, hw, c, co):
+    """The fp32 weight gradient on split precision (wgrad_split_wgmma_kernel)
+    at the fused step's largest site at its batch (65 536 positions a point,
+    split so that no block sums more than 4096), at W = 40 (a chunk of 16
+    positions past the image) with CO % 128 == 64 (the second warpgroup's
+    channels past CO), and at CO = 64; a repeat gives the same bits."""
+    from generative_detection_tpu_torch.ops import conv3x3
+    from generative_detection_tpu_torch.ops import winograd_rows as wr
+
+    x, _, _, _, _, a, b_ = _conv_inputs(cuda, (b, hw, hw, c), co, torch.float32)
+    dy = torch.randn(b, hw, hw, co, device="cuda", generator=cuda)
+    before = wr.wino_wgrad.launches
+    got = wr.wino_wgrad(x, dy, torch.float32, 4, (a, b_))
+    du = conv3x3.conv3x3_wgrad(x, dy, 4, (a, b_))
+    again = conv3x3.conv3x3_wgrad(x, dy, 4, (a, b_))
+    want = wr._wino_wgrad_reference(x, dy, a, b_, 4)
+    torch.cuda.synchronize()
+    assert wr.wino_wgrad.launches == before + 1 and got.shape == (3, 3, c, co)
+    assert torch.equal(du, again)
+    _rel_close(du, want, CONV_REL_TOL[torch.float32])
 
 
 def test_conv_autograd_runs_the_kernels(cuda):

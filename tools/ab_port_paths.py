@@ -5,7 +5,9 @@ GDT_FUSE_INFERENCE=1, and the flagship bf16 train step (p50 at batch 16),
 default and with GDT_WINOGRAD=fused, each tree in its own process, in the
 order given. With ``--fp32`` also the flagship's fp32 path as its config
 ships it (TF32 off for products and convolutions): the detector at batch 8
-and 32 and the train step at batch 16 (5 timed steps after 3 warm-up).
+and 32 and the train step at batch 16 (5 timed steps after 3 warm-up), and
+its two opt-in paths: the detector at batch 32 with GDT_FUSE_INFERENCE=1
+and the step with GDT_WINOGRAD=fused, each with p50 and peak memory.
 
     python3 tools/ab_port_paths.py [--fp32] PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
 
@@ -94,10 +96,14 @@ def run_one(tree: str, fp32: bool) -> dict:
         net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
         out["detector_fp32"] = _detector(make_detector_fn, model, net, "float32",
                                          ((8, 20), (32, 10)))
+        os.environ["GDT_FUSE_INFERENCE"] = "1"
+        out["detector_fused_fp32"] = _detector(make_detector_fn, model, net, "float32",
+                                               ((32, 10),))
+        del os.environ["GDT_FUSE_INFERENCE"]
         del net
         torch.cuda.empty_cache()
         out.update(_train(model, create_train_state, make_train_step, None, 5,
-                          {"train_fp32": None}))
+                          {"train_fp32": None, "train_winograd_fused_fp32": "fused"}))
     return out
 
 

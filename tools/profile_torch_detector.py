@@ -57,10 +57,13 @@ from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E40
 CLASSES = (
     ("wino_rows_kernel", ("wino_rows_wgmma_kernel",)),  # B7 bf16, forward and dgrad
     # B6 bf16; conv3x3_bf16 is its earlier mma.sync kernel, for profiling an
-    # older checkout with this tool
-    ("fused_conv_kernel", ("fused_conv_wgmma_kernel", "conv3x3_bf16")),
-    ("conv3x3_kernel", ("conv3x3_f32",)),  # B6 and B7 in fp32
-    ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_f32_kernel", "::fold_kernel")),  # B8
+    # older checkout with this tool; in fp32 the split-precision kernel and
+    # its weight pre-pass
+    ("fused_conv_kernel", ("fused_conv_wgmma_kernel", "conv3x3_bf16",
+                           "fused_conv_split_wgmma_kernel", "split_weights_kernel")),
+    ("conv3x3_kernel", ("conv3x3_f32",)),  # B7 in fp32 (and B6 in fp32 before its split kernel)
+    ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_split_wgmma_kernel", "wgrad_f32_kernel",
+                              "::fold_kernel")),  # B8
     ("group_norm_kernel", ("gn_fwd_resident", "gn_stats", "gn_apply", "gn_affine")),
     ("group_norm_bwd_kernel", ("gn_bwd",)),
     ("attention_kernel", ("attn_fwd",)),
