@@ -12,25 +12,24 @@ Phases (any failure raises and exits non-zero, before the result line):
    kernels (B1 and the flash variant B5, and the backward B2 at every width),
    the fp32 split-precision attention
    forward (B1 and B5 in fp32 at C <= 256 and at C = 512), the fused
-   GroupNorm+SiLU+conv (B6, bf16 and fp32 on split precision), the bf16
-   row-Winograd forward (B7), the weight gradient (B8, bf16 and fp32 on
-   split precision) and the fp32 split-precision attention backward (B2 in
-   fp32 at C <= 256 and at C = 512) must hold wgmma (HGMMA) and TMA
-   (UTMALDG) instructions in their SASS (cuobjdump), B6-B8, the
-   split-precision kernels, every kernel of attention_bwd.cu and the fp32
-   conv kernels of conv3x3.cu no mma.sync (HMMA), none of the wgmma kernels
-   may spill, ptxas may not serialize the wgmma of the split-precision
-   kernels and of the bf16 C = 512 backward, and the FMA fp32 kernels they
-   replaced (attn_fwd_f32_kernel, wgrad_f32_kernel, conv3x3.cu's direct
-   form conv3x3_f32_kernel<1>) are gone;
+   GroupNorm+SiLU+conv (B6), the row-Winograd forward (B7) and the weight
+   gradient (B8), each in bf16 and in fp32 on split precision, and the fp32
+   split-precision attention backward (B2 in fp32 at C <= 256 and at C =
+   512) must hold wgmma (HGMMA) and TMA (UTMALDG) instructions in their
+   SASS (cuobjdump), B6-B8, the split-precision kernels and every kernel of
+   attention_bwd.cu no mma.sync (HMMA), none of the wgmma kernels may
+   spill, ptxas may not serialize the wgmma of the split-precision kernels
+   and of the bf16 C = 512 backward, and no built library may hold an FMA
+   fp32 kernel that split precision replaced (attn_fwd_f32_kernel,
+   wgrad_f32_kernel, conv3x3_f32_kernel);
 3. sites: forward hooks count the GroupNorm, attention and fused-conv sites
    of the train step (default and GDT_WINOGRAD=fused) and of the detector
    (default and GDT_FUSE_INFERENCE=1);
 4. kernels, each against its plain PyTorch version on the card, with its
    time, the plain version's, one library call's (a yardstick the port never
    calls) and the card's bound (for B7 and B8 the products the Winograd
-   form does, half the direct conv's at F(4,3); the fp32 B6 and B8 count
-   the split route's six bf16 piece products, beside the CUDA cores'
+   form does, half the direct conv's at F(4,3); the fp32 B6, B7 and B8
+   count the split route's six bf16 piece products, beside the CUDA cores'
    bound): the forward kernels at the flagship
    detector's shapes (batch 8), the backward kernels at every shape of the
    flagship train step (batch 16; the GroupNorm backward with a bit-equal
@@ -71,13 +70,16 @@ Phases (any failure raises and exits non-zero, before the result line):
    network parameter a finite nonzero gradient, LPIPS and logvar unchanged
    and the discriminator moved; then the config's own fp32 step (3 warm-up
    and 5 timed steps), whose seven attention sites all run the
-   split-precision forward and backward (two at C = 512);
+   split-precision forward and backward (two at C = 512), as it is and with
+   GDT_WINOGRAD=fused (the fp32 B7 forward at every fused site, its dgrad
+   and B8 where the tile rules take them at 4-byte items);
 7. train, card against CPU: one step of tiny_cpu.yaml at ch 128 in fp32 with
    the same weights and draws on both, as it is and with GDT_WINOGRAD=fused,
    then at the config's own ch 32 (attention at (2, 256, 64), GroupNorm at
    C = 32 and 64) with GDT_WINOGRAD unset; losses, d_weight and both
-   optimizers' Adam first moments must agree. The fp32 fused detector and
-   the fused tiny step are where the fp32 B6 and B8 kernels launch;
+   optimizers' Adam first moments must agree. The fp32 fused detector
+   (B6) and the fused fp32 step (B7, B8) give the fp32 kernels' launches
+   in the kernels line;
 8. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -187,9 +189,9 @@ LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
 # at C = 512) and in fp32 on split precision; the split kernels at
 # C <= 256 and at C = 512), the fused GroupNorm+SiLU+conv (B6: four accumulators of 1, 2
 # or 4 image rows, with and without emit_z), the row-Winograd forward (B7)
-# and weight gradient (B8), each at M = 2, 4 x GN off, on; in fp32 B6 and B8
-# on split precision (B6: 1, 2 or 4 image rows an accumulator, with and
-# without emit_z; B8: M = 2, 4 x GN off, on). B6-B8, the split-precision
+# and weight gradient (B8), each at M = 2, 4 x GN off, on; in fp32 B6, B7 and
+# B8 on split precision (B6: 1, 2 or 4 image rows an accumulator, with and
+# without emit_z; B7, B8: M = 2, 4 x GN off, on). B6-B8, the split-precision
 # kernels and attention_bwd.cu have no mma.sync (HMMA).
 WGMMA_TAG = "_wgmma_kernel"
 SPLIT_KERNEL = "attn_fwd_split_wgmma_kernel"
@@ -204,9 +206,11 @@ _WINO = tuple(f"{k}ILi{m}ELb{gn}" for k in ("wino_rows_wgmma_kernel", "wgrad_wgm
               for m in (2, 4) for gn in (0, 1))
 _B6 = tuple(f"fused_conv_wgmma_kernelILi4ELi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1))
 B6_SPLIT_KERNEL = "fused_conv_split_wgmma_kernel"
+B7_SPLIT_KERNEL = "wino_rows_split_wgmma_kernel"
 B8_SPLIT_KERNEL = "wgrad_split_wgmma_kernel"
 _CONV_SPLIT = tuple(f"{B6_SPLIT_KERNEL}ILi{pk}ELb{z}" for pk in (1, 2, 4) for z in (0, 1)) + tuple(
-    f"{B8_SPLIT_KERNEL}ILi{m}ELb{gn}" for m in (2, 4) for gn in (0, 1))
+    f"{k}ILi{m}ELb{gn}" for k in (B7_SPLIT_KERNEL, B8_SPLIT_KERNEL) for m in (2, 4)
+    for gn in (0, 1))
 _ATTN_FWD = tuple(f"attn_fwd_wgmma_kernelILi{c}ELb{flash}" for c in (64, 128, 256, 512)
                   for flash in (0, 1))
 SPLIT_NARROW = (64, 128, 256)  # the widths of the split kernels' C template
@@ -214,22 +218,22 @@ _SPLIT = tuple(f"{SPLIT_KERNEL}ILi{c}ELb{lse}" for c in SPLIT_NARROW for lse in 
     f"{SPLIT_512_KERNEL}ILb{lse}" for lse in (0, 1))
 _SPLIT_BWD = tuple(f"{SPLIT_BWD_KERNEL}ILi{c}E" for c in SPLIT_NARROW) + (SPLIT_BWD_512_KERNEL,)
 SPLIT_KERNELS = (SPLIT_KERNEL, SPLIT_512_KERNEL, SPLIT_BWD_KERNEL, SPLIT_BWD_512_KERNEL,
-                 B6_SPLIT_KERNEL, B8_SPLIT_KERNEL)
+                 B6_SPLIT_KERNEL, B7_SPLIT_KERNEL, B8_SPLIT_KERNEL)
 WGMMA_KERNELS = _ATTN_FWD + _SPLIT + _BWD + _SPLIT_BWD + _B6 + _WINO + _CONV_SPLIT
-# the FMA fp32 kernels that the split-precision ones replaced: none may be built
-FMA_GONE = {"attention": "attn_fwd_f32_kernel", "conv3x3_wgrad": "wgrad_f32_kernel",
-            "conv3x3": "conv3x3_f32_kernelILi1E"}
+# the FMA fp32 kernels that the split-precision ones replaced: no built
+# library may hold one
+FMA_GONE = ("attn_fwd_f32_kernel", "wgrad_f32_kernel", "conv3x3_f32_kernel")
 # kernels whose wgmma chains ptxas may not serialize (C7520, C7512)
 NO_SERIAL = SPLIT_KERNELS + (BWD_512_KERNEL,)
 NO_HMMA = ("fused_conv", "wino", "wgrad", "split")  # wgmma kernels with no mma.sync
 # The device kernel behind each conv entry of the kernels line, by dtype
-# (fp32 B7 stays on conv3x3.cu's FMA template)
 CONV_KERNELS = {
     "fused_conv": {torch.bfloat16: "fused_conv_wgmma_kernel",
                    torch.float32: f"split_weights_kernel + {B6_SPLIT_KERNEL}"},
-    "wino_rows": {torch.bfloat16: "wino_rows_wgmma_kernel", torch.float32: "conv3x3_f32_kernel"},
+    "wino_rows": {torch.bfloat16: "wino_rows_wgmma_kernel",
+                  torch.float32: f"split_weights_kernel + {B7_SPLIT_KERNEL}"},
     "wino_rows_dgrad": {torch.bfloat16: "wino_rows_wgmma_kernel",
-                        torch.float32: "conv3x3_f32_kernel"},
+                        torch.float32: f"split_weights_kernel + {B7_SPLIT_KERNEL}"},
     "wino_wgrad": {torch.bfloat16: "wgrad_wgmma_kernel + fold_kernel",
                    torch.float32: f"{B8_SPLIT_KERNEL} + fold_kernel"},
 }
@@ -352,21 +356,19 @@ def phase_build() -> None:
                 warnings.append(ln.strip())
     # the bf16 attention kernels (B1 at C = 64, 128, 256, 512; B2 at C = 64,
     # 128, 256 and 512), the fp32 split-precision attention forward and backward
-    # (C = 64, 128, 256 and 512), B6, B7 and B8 (and B6, B8 in fp32) must run
+    # (C = 64, 128, 256 and 512), B6, B7 and B8 (in bf16 and in fp32) must run
     # on wgmma and TMA, and must not spill; B6-B8 and every kernel of
-    # attention_bwd.cu have no mma.sync left, nor has the fp32 conv3x3.cu
+    # attention_bwd.cu have no mma.sync left; no library holds a replaced
+    # FMA kernel
     sass, fma, bwd_hmma = {}, [], {}
-    for n in ("attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad"):
+    for n in _build.SOURCES:
         counts = _sass_counts(n)
         sass.update({k: v for k, v in counts.items() if WGMMA_TAG in k})
-        fma += [k for k in counts if FMA_GONE.get(n, "!") in k]
+        fma += [f"{n}: {k}" for k in counts if any(f in k for f in FMA_GONE)]
         if n == "attention_bwd":
             bwd_hmma = {k: v["HMMA"] for k, v in counts.items()}
-    fp32_conv = _sass_counts("conv3x3")
-    fma += [k for k in fp32_conv if FMA_GONE["conv3x3"] in k]
     emit({"phase": "build", "wall_s": wall, "per_source_s": times, "spills": spills,
           "wgmma_kernels_sass": sass, "wgmma_kernels_ptxas": ptxas, "ptxas_warnings": warnings,
-          "conv3x3_hmma": sum(ops["HMMA"] for ops in fp32_conv.values()),
           "attention_bwd_hmma": sum(bwd_hmma.values())})
     require(len(sass) == len(WGMMA_KERNELS) and all(
         any(name in k for k in sass) for name in WGMMA_KERNELS),
@@ -375,8 +377,6 @@ def phase_build() -> None:
         require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{k}: no HGMMA or UTMALDG ({ops})")
         require(not any(w in k for w in NO_HMMA) or ops["HMMA"] == 0,
                 f"{k}: mma.sync left ({ops})")
-    require(fp32_conv and not any(ops["HMMA"] for ops in fp32_conv.values()),
-            f"conv3x3.cu holds mma.sync: {fp32_conv}")
     require(bwd_hmma and not any(bwd_hmma.values()), f"attention_bwd.cu holds mma.sync: {bwd_hmma}")
     require(not [sp for sp in spills if WGMMA_TAG in (sp[1] or "")],
             f"wgmma kernels spill: {spills}")
@@ -768,8 +768,9 @@ def _cudnn_grads(dy, z, k, dtype, mask):
 
 def wino_cases(g, hw, c, co, dtype) -> list:
     """B7 forward (GroupNorm prologue, F(4,3)), B7 dgrad and B8 (GroupNorm
-    recompute) at batch 16, as GDT_WINOGRAD=fused runs them (fp32: B8 on
-    split precision, B7 on conv3x3.cu's FMA template)."""
+    recompute) at batch 16, as GDT_WINOGRAD=fused runs them (fp32: each on
+    split precision, its bound the six piece products with the CUDA cores'
+    beside it)."""
     b, m = TRAIN_BATCH, 4
     x, gamma, beta, k, bias = _conv_inputs(g, b, hw, c, co, dtype)
     dy = torch.randn(b, hw, hw, co, device="cuda", generator=g).to(dtype)
@@ -819,14 +820,16 @@ def wino_cases(g, hw, c, co, dtype) -> list:
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(x, u, bias, m, gn_ab=ab)),
          "plain_ms": time_ms(lambda: wr._wino_rows_reference(x, u, bias, a, shift, m), 3),
          "library_ms": time_ms(lambda: F.conv2d(z.permute(0, 3, 1, 2), w_lib, b_lib, padding=1)),
-         **_bound(flops, act_in + act_out + u.numel() * isz + (2 * b * c + co) * 4, dtype)},
+         **_conv_bound(flops, act_in + act_out + u.numel() * isz + (2 * b * c + co) * 4, dtype,
+                       dtype == torch.float32)},
         {"name": "wino_rows_dgrad", **common, "max_err": errs[1], "repeat_equal": True,
          "kernel": CONV_KERNELS["wino_rows_dgrad"][dtype],
          "kernel_ms": time_ms(lambda: conv3x3.conv3x3_forward(dy, u_rot, zero, m)),
          "plain_ms": time_ms(
              lambda: wr._wino_rows_reference(dy, u_rot, zero, None, None, m), 3),
          "library_ms": time_ms(lambda: _cudnn_grads(dy, z, k, dtype, [True, False, False])),
-         **_bound(flops, act_in + act_out + u_rot.numel() * isz, dtype)},
+         **_conv_bound(flops, act_in + act_out + u_rot.numel() * isz, dtype,
+                       dtype == torch.float32)},
         wgrad,
     ]
     for r in cases:
@@ -1275,7 +1278,8 @@ def phase_train_card_vs_cpu(winograd, ch=128) -> dict:
             out[device] = ({k: float(metrics[k]) for k in ("aeloss", "discloss", "train/d_weight")},
                            moments)
     if winograd == "fused":
-        require(launches["wino_rows"] > 0 and launches["wino_wgrad"] > 0,
+        require(launches["wino_rows"] > 0 and launches["wino_rows_dgrad"] > 0
+                and launches["wino_wgrad"] > 0,
                 f"tiny fused step ran no Winograd kernel: {launches}")
     for name in ("attention", "attention_bwd", "group_norm", "group_norm_bwd"):
         require(launches[name] > 0, f"tiny step ran no {name} kernel: {launches}")
@@ -1349,7 +1353,7 @@ def wino_step_sums(cases: dict, wino: Counter, dtype=torch.bfloat16) -> dict:
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
-                 train_fp32: dict, tiny_fused: dict, step_sums: dict):
+                 train_fp32: dict, train_fused_fp32: dict, step_sums: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -1361,14 +1365,15 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     step; the bf16 backward's C = 512 kernel at (16, 256, 512) with its
     launches in the bf16 step (B2's bf16 entry counts every width); last the
     fp32 split-precision B6 (at 8x256x256x128->128, launches in the fused
-    detector's fp32 request on the card) and B8 (at 16x128x128x256->128,
-    launches in the fused tiny fp32 step ``tiny_fused``). B5 is on
+    detector's fp32 request on the card), B8, and B7's forward and dgrad
+    (at 16x128x128x256->128 and its dgrad, launches in the config's own
+    fp32 step with GDT_WINOGRAD=fused, ``train_fused_fp32``). B5 is on
     no path of the port (the JAX package reaches it only from its
     availability probe, whose role the kernel check here plays): its bf16
     and fp32 entries. ``kernels_per_call`` device kernels
-    run per counted call. B6-B8 also give their share of the bound and B6,
-    B8 (and bf16 B7) their times summed over a fused detector request's or a
-    fused step's sites (``step_sums``, by (name, dtype))."""
+    run per counted call. B6-B8 also give their share of the bound and
+    their times summed over a fused detector request's or a fused step's
+    sites (``step_sums``, by (name, dtype))."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -1409,7 +1414,11 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
         (_largest(cases, "fused_conv", fp32), "conv3x3_wino.cu", "fused_conv.py:196", 2,
          det_fused["fp32_launches"]["fused_conv"]),
         (_largest(cases, "wino_wgrad", fp32), "conv3x3_wgrad.cu", "winograd_pallas.py:430", 2,
-         tiny_fused["wino_wgrad"]),
+         train_fused_fp32["wino_wgrad"]),
+        (_largest(cases, "wino_rows", fp32), "conv3x3_wino.cu", "winograd_pallas.py:252", 2,
+         train_fused_fp32["wino_rows"]),
+        (_largest(cases, "wino_rows_dgrad", fp32), "conv3x3_wino.cu", "winograd_pallas.py:252", 2,
+         train_fused_fp32["wino_rows_dgrad"]),
     )
     entries = []
     for r, source, replaces, per_call, n in rows:
@@ -1500,11 +1509,22 @@ def main() -> int:
         {**per_step, "attention_split": n_split, "attention_split_512": n_split_512,
          "attention_split_bwd": n_split, "attention_split_bwd_512": n_split_512}, "0",
         fp32=True)
+    # the same fp32 step with GDT_WINOGRAD=fused: fp32 B7 forward at every
+    # fused site, its dgrad and B8 where the tile rules take them at 4-byte items
+    routed_fp32 = wino_routed(wino, torch.float32)
+    train_fused_fp32 = phase_train(
+        {**per_step, "attention_split": n_split, "attention_split_512": n_split_512,
+         "attention_split_bwd": n_split, "attention_split_bwd_512": n_split_512,
+         "group_norm": n_gn - n_wino, "group_norm_affine": n_wino, "wino_rows": n_wino,
+         "wino_rows_dgrad": sum(routed_fp32["wino_rows_dgrad"].values()),
+         "wino_wgrad": sum(routed_fp32["wino_wgrad"].values())}, "fused", fp32=True)
+    require(all(train_fused_fp32[k] > 0 for k in ("wino_rows", "wino_rows_dgrad", "wino_wgrad")),
+            "the fused fp32 step launched no fp32 B7 or B8 kernel")
     phase_train_card_vs_cpu("0")
-    tiny_fused = phase_train_card_vs_cpu("fused")
+    phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
-    emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32, tiny_fused,
-                      step_sums))
+    emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
+                      train_fused_fp32, step_sums))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

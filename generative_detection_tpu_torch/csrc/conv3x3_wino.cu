@@ -1,12 +1,11 @@
 // 3x3 stride-1 SAME convolution over NHWC for Hopper (sm_90a), in two row
-// forms that share one pipeline, bf16 and (the direct form) fp32 on split
-// precision:
+// forms that share one pipeline, in bf16 and in fp32 on split precision:
 //
 //   row-Winograd F(2,3) (M = 2) and F(4,3) (M = 4), P = M + 2 points, with
 //   U[a, dx] = sum_ky G[a, ky] K[ky, dx] computed outside (a torch op):
-//     V_a[t]  = sum_u BT[a, u] z[M t + u - 1]      (fp32 sum, cast to bf16)
+//     V_a[t]  = sum_u BT[a, u] z[M t + u - 1]      (fp32 sum; bf16: cast to bf16)
 //     G_a     = sum_dx shift_dx(V_a) @ U[a, dx]    (fp32 accumulate)
-//     out[M t + i] = sum_a AT[i, a] G_a + bias     (fp32, one rounding to bf16)
+//     out[M t + i] = sum_a AT[i, a] G_a + bias     (fp32; bf16: one rounding)
 //   The same launch on dy with the rotated, io-swapped kernel is the dgrad.
 //
 //   direct, a tile's raw rows as the points:
@@ -19,8 +18,8 @@
 //
 // Replaces:
 //   - generative_detection_tpu/ops/winograd_pallas.py `_wino_rows_pallas`
-//     (kernel `_wino_rows_kernel`), in bf16: wino_rows_wgmma_kernel<M, GN>
-//     (fp32 keeps the FMA kernel of conv3x3.cu);
+//     (kernel `_wino_rows_kernel`): wino_rows_wgmma_kernel<M, GN> in bf16,
+//     wino_rows_split_wgmma_kernel<M, GN> in fp32;
 //   - generative_detection_tpu/ops/fused_conv.py `_fused_pallas` (kernel
 //     `_fused_kernel`), the direct form: fused_conv_wgmma_kernel<TT, PK,
 //     EMIT_Z> in bf16, fused_conv_split_wgmma_kernel<PK, EMIT_Z> in fp32.
@@ -61,7 +60,8 @@
 //     read from shared memory feeds 128 columns (at N = 64, the products
 //     alone would take all of shared memory's 128 bytes a clock at the
 //     tensor cores' peak).
-// One barrier a chunk orders it. A tile's first products start the sums
+// One barrier a chunk (a step, where the weights stream: fp32 Winograd
+// below) orders it. A tile's first products start the sums
 // (scale-d 0), so no instruction but wgmma writes the accumulators inside
 // the pipeline. The epilogue applies AT (Winograd) and the bias in fp32 from
 // the accumulators, stages the bf16 tile (128-byte swizzle) in the weight
@@ -70,23 +70,43 @@
 // past the image (any H and W). Every output element is written by one
 // block: no atomics, and a repeat is bit-equal.
 //
-// fp32 (Direct<TT, PK, 3>, NP = 3 pieces): the tensor cores take bf16, so,
-// as the fp32 attention does, every fp32 operand is three bf16 pieces
-// (split_bf16x2: to about 2^-25 of its size) and every product the six
-// piece products with i + j <= 2, small first. split_weights_kernel writes
-// the weights' pieces once a call (3 x 9 x C x CO bf16, at most 14 MB); the
-// raw rows arrive as fp32 by TMA and each activated element is split into
-// the three point tiles, so no pieces copy of the activation reaches HBM.
-// Three weight pieces of 128 output channels would take 108 KB a stage, so
-// a tile has 64 (one m64n64k16 product a piece pair); the raw rows have one
-// stage (a chunk's 108 products a warpgroup cover the next TMA), the points
-// two (one where packed: three pieces of three shifted copies), and the
-// output goes from the accumulators to HBM with masked float2 stores (an
-// fp32 tile staged beside the weight pieces would not fit): 213-226 KB.
+// fp32 (Direct<TT, PK, 3> and Wino<M, 3>, NP = 3 pieces): the tensor cores
+// take bf16, so, as the fp32 attention does, every fp32 operand is three
+// bf16 pieces (split_bf16x2: to about 2^-25 of its size) and every product
+// the six piece products with i + j <= 2. split_weights_kernel writes the
+// weights' pieces once a call (3 x S x C x CO bf16, S = 9 direct or 3 P
+// Winograd: at most 14.2 MB, 32x32x512->256 at F(4,3)); the raw rows arrive
+// as fp32 by TMA, V_a (Winograd) is summed in fp32 and each point is split
+// into the three point tiles, so no pieces copy of the activation reaches
+// HBM. A tile has 64 output channels (one m64n64k16 product a piece pair),
+// the raw rows one stage (a chunk's products cover the next TMA), the
+// points two (direct packed: one, three pieces of three shifted copies), and
+// the output goes from the accumulators to HBM with masked float2 stores (an
+// fp32 tile staged beside the weight pieces would not fit).
+//   - Direct: a weight stage holds a chunk's three pieces (54 KB), two
+//     stages, the six products small first; 213-226 KB.
+//   - Winograd: a chunk's three pieces of 3 P slabs would take 108 KB at
+//     F(4,3), too much for two stages beside the points, so the weights
+//     stream one piece a stage through a ring of three (36 KB each at
+//     F(4,3)): a chunk is three steps, weight piece 2, 1, 0, each with the
+//     point pieces that pair with it. The weight piece a step streams sets
+//     the order, (0,2); (1,1), (0,1); (2,0), (1,0), (0,0): small products
+//     first within a step, not overall ((0,1) comes before (2,0)). A step's
+//     load is issued two steps ahead.
+//     The two warpgroups split the points (P / 2 accumulators of m64n64
+//     each: 96 registers at F(4,3), where bf16's P of them take 192), so
+//     out[i] = sum_a AT[i, a] G_a needs both: each warpgroup writes its
+//     partial sums of the other's output rows to shared memory (the free
+//     weight slot and point stage of the tile's last chunk), and each adds
+//     them to its own; 139 / 208 KB (M = 2 / 4).
 //
 // Bound on the H100: the products, 2 * P * 3 * B * (H / M) * W * C * CO
 // flops for Winograd (half the direct conv's at F(4,3)), 2 * 9 * B * H * W
-// * C * CO for the direct form, six times that in fp32 on split precision. What holds them back (inferred from
+// * C * CO for the direct form, six times that in fp32 on split precision.
+// The Winograd form reads its weights from L2 once a chunk for each tile of
+// 64 positions and 64 output channels: 32 bytes a clock an SM at the
+// products' peak in fp32 (bf16, 128 output channels a tile: 64). What holds
+// them back (inferred from
 // ablations timed on the card, not read from a counter: ncu does not run on
 // the card's machine): with the prologue, forming the points (two MUFU
 // operations per activated raw element) beside the products rather than
@@ -113,9 +133,11 @@ constexpr int kDirectRows = 4;  // accumulators a tile of the direct form
 
 // A form says what the points are, how a tile is laid out (ROWS image rows of
 // TW columns, read with COLS raw columns; PK image rows of TW = 64 / PK
-// columns an accumulator), how the two warpgroups split it (SPLIT_CO: 64
-// output channels each, every row; else half of the accumulator rows each,
-// all 128 output channels), and which products feed each of a warpgroup's
+// columns an accumulator), how the weights stream (a chunk in WSUB steps,
+// each step's weight stage one of a ring of WSLOTS), how the two warpgroups
+// split it (SPLIT_CO: 64 output channels each, every row; SPLIT_POINTS: half
+// of the points each, every row and output channel; else half of the
+// accumulator rows each, all 128 output channels), and which products feed each of a warpgroup's
 // NACC accumulators of N = WG_N columns: accumulator n takes
 // shift_dx(point(n, dy)) times slab(n, dy, dx) for dy < TAPS, dx < 3, and its
 // accumulator row i (64 positions) is sum_n at(i, n) acc_n, for the
@@ -123,16 +145,22 @@ constexpr int kDirectRows = 4;  // accumulators a tile of the direct form
 // whenever their tile does, so formation tests only the others.
 //
 // F(M,3): point a is V_a = sum_u BT[a, u] z_u; its accumulator G_a takes the
-// products shift_dx(V_a) U[a, dx]; out[i] = sum_a AT[i, a] G_a.
-template <int M>
+// products shift_dx(V_a) U[a, dx]; out[i] = sum_a AT[i, a] G_a. NP = 3 is
+// the fp32 split-precision form: x and out fp32, every point and weight slab
+// three bf16 pieces, 64 output channels a tile, the weights one piece a step
+// (three steps a chunk, a ring of three stages), one raw stage, and the
+// warpgroups split the points (accumulator n of warpgroup w is point w P / 2
+// + n).
+template <int M, int NP_ = 1>
 struct Wino {
-  using T = __nv_bfloat16;
-  static constexpr int NP = 1, TN = 128, RS = 2, VS = 2;
+  using T = std::conditional_t<NP_ == 1, __nv_bfloat16, float>;
+  static constexpr int NP = NP_, TN = NP == 1 ? 128 : 64, RS = NP == 1 ? 2 : 1, VS = 2;
+  static constexpr int WSUB = NP, WSLOTS = NP == 1 ? 2 : 3;
   static constexpr int ROWS = M, P = M + 2, SLABS = 3 * P, TAPS = 1;
   static constexpr int PK = 1, TW = TP, COLS = TW + 2;
   static constexpr int IN_ROWS = P - 1;  // H % M == 0: only points 0 and P - 1 can fall outside
-  static constexpr bool IDENTITY = false, SPLIT_CO = true;
-  static constexpr int WG_N = 64, WG_ROWS = M, NACC = P;
+  static constexpr bool IDENTITY = false, SPLIT_CO = NP == 1, SPLIT_POINTS = NP != 1;
+  static constexpr int WG_N = 64, WG_ROWS = M, NACC = NP == 1 ? P : P / 2;
   __device__ static constexpr float bt(int a, int u) { return bt_c(M, a, u); }
   __device__ static constexpr float at(int i, int n) { return at_c(M, i, n); }
   __device__ static constexpr int point(int n, int) { return n; }
@@ -154,11 +182,11 @@ template <int TT, int PK_, int NP_ = 1>
 struct Direct {
   using T = std::conditional_t<NP_ == 1, __nv_bfloat16, float>;
   static constexpr int NP = NP_, TN = NP == 1 ? 128 : 64, RS = NP == 1 ? 2 : 1;
-  static constexpr int VS = NP == 1 || PK_ == 1 ? 2 : 1;
+  static constexpr int VS = NP == 1 || PK_ == 1 ? 2 : 1, WSUB = 1, WSLOTS = 2;
   static constexpr int PK = PK_, TW = TP / PK, COLS = TW + 2;
   static constexpr int ROWS = TT * PK, P = ROWS + 2, SLABS = 9, TAPS = 3;
   static constexpr int IN_ROWS = 2;  // any H: points from 2 on can fall past the image
-  static constexpr bool IDENTITY = true, SPLIT_CO = false;
+  static constexpr bool IDENTITY = true, SPLIT_CO = false, SPLIT_POINTS = false;
   static constexpr int WG_N = TN, WG_ROWS = TT / 2, NACC = TT / 2;
   static_assert(TT % 2 == 0, "the two warpgroups take half of the rows each");
   __device__ static constexpr float at(int i, int n) { return i == n ? 1.f : 0.f; }
@@ -170,8 +198,9 @@ template <class F>
 struct Cfg {
   static constexpr int P = F::P, ESZ = sizeof(typename F::T);
   static constexpr uint32_t U_SLAB = KC * 128;            // a weight slab: 16 rows of 64 CO
-  static constexpr uint32_t U_HALF = F::NP * F::SLABS * U_SLAB;  // every slab (piece) for 64 CO
-  static constexpr uint32_t U_BYTES = F::TN / 64 * U_HALF;
+  static constexpr int U_PIECES = F::NP / F::WSUB;         // weight pieces a stage
+  static constexpr uint32_t U_HALF = U_PIECES * F::SLABS * U_SLAB;  // every slab (piece) for 64 CO
+  static constexpr uint32_t U_BYTES = F::TN / 64 * U_HALF;  // a weight stage
   static constexpr uint32_t RAW_BYTES = P * F::COLS * KC * ESZ;  // [u][column][16 channels]
   // The point tile: [point][channel half][column][8 channels], so A shifted
   // by dx is the tile at 16 dx bytes on; or, packed (PK > 1), three copies
@@ -193,8 +222,8 @@ struct Cfg {
   static constexpr bool OUT_OWN = TMA_OUT && OUT_HALF > U_HALF;
   static constexpr uint32_t OUT_PITCH = OUT_OWN ? OUT_HALF : U_HALF;
   static constexpr uint32_t OUT_BYTES = OUT_OWN ? 2 * OUT_HALF : 0;
-  static constexpr size_t SMEM =
-      1024 + 2 * U_BYTES + F::RS * RAW_BYTES + F::VS * V_STAGE + OUT_BYTES + 4 * 8;
+  static constexpr size_t SMEM = 1024 + F::WSLOTS * U_BYTES + F::RS * RAW_BYTES +
+                                 F::VS * V_STAGE + OUT_BYTES + 8 * 8;
   static_assert(U_HALF % 1024 == 0 && RAW_BYTES % 128 == 0 && V_BYTES % 128 == 0, "align");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -336,19 +365,19 @@ __device__ __forceinline__ void add_term(float (&v)[NCH], const float (&z)[F::P]
   }
 }
 
-// Point A of the item's channels into the point tile (rounded to bf16 once)
+// Point A of the item's channels into the point tile: V_A summed in fp32,
+// then rounded to bf16 once, or split into NP pieces
 template <class F, int NCH, int A, int... U>
 __device__ __forceinline__ void store_point(std::integer_sequence<int, U...>,
                                             const float (&z)[F::P][NCH], unsigned char* dst) {
   if constexpr (F::IDENTITY) {
     store_pieces<F::NP, NCH>(dst + A * Cfg<F>::V_ROW, z[A], Cfg<F>::V_BYTES);
   } else {
-    static_assert(F::NP == 1, "the Winograd points are bf16");
     float v[NCH];
 #pragma unroll
     for (int j = 0; j < NCH; ++j) v[j] = 0.f;
     (add_term<F, NCH, A, U>(v, z), ...);
-    store_bf16<NCH>(dst + A * Cfg<F>::V_ROW, v);
+    store_pieces<F::NP, NCH>(dst + A * Cfg<F>::V_ROW, v, Cfg<F>::V_BYTES);
   }
 }
 
@@ -473,11 +502,31 @@ __device__ __forceinline__ Tile tile_at(const Geom& g, int tl) {
   return r;
 }
 
+// Row i of the output transform over the NACC points from PT, for
+// accumulator element e: sum_n AT[i, PT + n] acc[n][e] (zero coefficients
+// skipped at compile time)
+template <class F, int PT>
+__device__ __forceinline__ float at_partial(const float (&acc)[F::NACC][F::WG_N / 2], int i,
+                                            int e) {
+  float v = 0.f;
+#pragma unroll
+  for (int n = 0; n < F::NACC; ++n) {
+    const float cf = F::at(i, PT + n);
+    if (cf == 1.f) {
+      v += acc[n][e];
+    } else if (cf != 0.f) {
+      v = fmaf(cf, acc[n][e], v);
+    }
+  }
+  return v;
+}
+
 // The body of the kernels. grid: min(n_tiles, SMs) persistent blocks of 256
 // threads; block k takes tiles k, k + gridDim.x, ... and runs their chunks as
-// one sequence q, so the loads of the next tile's first chunks fly during
-// this tile's last ones and its epilogue. bf16 writes the output by TMA
-// store (tm_out), fp32 from the accumulators (out).
+// one sequence q, each chunk in WSUB steps s = q WSUB + j (one weight stage
+// each), so the loads of the next tile's first chunks fly during this tile's
+// last ones and its epilogue. bf16 writes the output by TMA store (tm_out),
+// fp32 from the accumulators (out).
 template <class F, bool GN, bool EMIT_Z>
 __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtensorMap* tm_u,
                                           const CUtensorMap* tm_out,
@@ -488,13 +537,17 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
                                           typename F::T* __restrict__ zout, const Geom& g) {
   using namespace hopper;
   using K = Cfg<F>;
-  constexpr int ROWS = F::ROWS, NP = F::NP;
-  constexpr int NPROD = NP == 1 ? 1 : kSplitProducts;  // piece products a tap
+  constexpr int ROWS = F::ROWS, NP = F::NP, WSUB = F::WSUB, WSLOTS = F::WSLOTS;
+  // piece products a tap and step: all six in one step, or at step j (weight
+  // piece NP - 1 - j) the j + 1 point pieces that pair with it
+  constexpr int NPROD = NP == 1 ? 1 : WSUB == 1 ? kSplitProducts : NP;
   static_assert((F::RS == 1 || F::RS == 2) && (F::VS == 1 || F::VS == 2), "stages");
+  static_assert(WSUB == 1 || WSUB == NP, "a chunk in one step, or one weight piece a step");
+  static_assert(WSLOTS == 2 || WSLOTS == 3, "weight stages");
   constexpr int RSH = F::RS == 2 ? 1 : 0;  // log2 of the raw stages
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* us = align_1024(smem_raw);        // [2][weights half 0 | half 1]
-  unsigned char* outs = us + 2 * K::U_BYTES;       // the output tile's own buffer, if any
+  unsigned char* us = align_1024(smem_raw);        // [WSLOTS][weights half 0 | half 1]
+  unsigned char* outs = us + WSLOTS * K::U_BYTES;  // the output tile's own buffer, if any
   unsigned char* raws = outs + K::OUT_BYTES;       // [RS][raw rows]
   unsigned char* vs = raws + F::RS * K::RAW_BYTES;  // [VS][piece][point tile]
   uint64_t* raw_full = reinterpret_cast<uint64_t*>(vs + F::VS * K::V_STAGE);
@@ -503,6 +556,10 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
   const int tid = threadIdx.x, nk = g.C / KC;
   const int n_mine = (g.n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int nq = n_mine * nk;  // chunk q: tile q / nk of this block, channels (q % nk) * KC
+  const int ns = nq * WSUB;    // steps
+  // step s's weight stage and the parity of its use
+  auto slot_of = [](int s) { return WSLOTS == 2 ? s & 1 : s % WSLOTS; };
+  auto phase_of = [](int s) { return (uint32_t)((WSLOTS == 2 ? s >> 1 : s / WSLOTS) & 1); };
 
   auto load_raw = [&](int q) {  // thread 0: chunk q's raw rows
     const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
@@ -511,33 +568,41 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
     tma_load_4d(raws + (q & (F::RS - 1)) * K::RAW_BYTES, tm_x, bar, (q % nk) * KC, tt.x0 - 1,
                 ROWS * tt.t - 1, tt.b);
   };
-  auto load_u = [&](int q) {  // thread 0: chunk q's weights (every piece) for both warpgroups
+  // thread 0: step s's weights for both warpgroups: chunk s / WSUB's every
+  // piece, or its piece NP - 1 - s % WSUB
+  auto load_u = [&](int s) {
+    const int q = s / WSUB, piece = WSUB == 1 ? 0 : NP - 1 - s % WSUB;
     const Tile tt = tile_at<F>(g, blockIdx.x + (q / nk) * gridDim.x);
-    uint64_t* bar = &u_full[q & 1];
-    unsigned char* dst = us + (q & 1) * K::U_BYTES;
+    uint64_t* bar = &u_full[slot_of(s)];
+    unsigned char* dst = us + slot_of(s) * K::U_BYTES;
     if constexpr (K::TMA_OUT && !K::OUT_OWN) bulk_wait_read();  // the previous tile's output has left the stage
     mbar_expect_tx(bar, K::U_BYTES);
 #pragma unroll
     for (int h = 0; h < F::TN / 64; ++h)
-      tma_load_3d(dst + h * K::U_HALF, tm_u, bar, tt.co0 + 64 * h, (q % nk) * KC, 0);
+      tma_load_3d(dst + h * K::U_HALF, tm_u, bar, tt.co0 + 64 * h, (q % nk) * KC,
+                  piece * F::SLABS);
   };
   if (tid == 0) {
-    for (int s = 0; s < 4; ++s) mbar_init(&raw_full[s], 1);
+    for (int s = 0; s < 2 + WSLOTS; ++s) mbar_init(&raw_full[s], 1);
     mbar_fence_init();
-    for (int q = 0; q < 2 && q < nq; ++q) {
-      if (q < F::RS) load_raw(q);
-      load_u(q);
+    for (int s = 0; s < WSLOTS && s < ns; ++s) {
+      if (s < F::RS) load_raw(s);
+      load_u(s);
     }
   }
   __syncthreads();
 
   // warpgroup wg: output channels co0 + 64 wg .. + 63 of every row
-  // (SPLIT_CO), or every output channel of rows WG_ROWS wg .. + WG_ROWS - 1
+  // (SPLIT_CO), points NACC wg .. + NACC - 1 (SPLIT_POINTS), or every output
+  // channel of rows WG_ROWS wg .. + WG_ROWS - 1
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g8 = lane >> 2, tq = lane & 3;
-  const int co_wg = F::SPLIT_CO ? 64 * wg : 0, row_wg = F::SPLIT_CO ? 0 : F::WG_ROWS * wg;
-  const uint32_t v_addr = smem_u32(vs) + row_wg * F::PK * K::V_ROW;
-  const uint32_t u_addr = smem_u32(us) + (F::SPLIT_CO ? wg * K::U_HALF : 0);
+  const int co_wg = F::SPLIT_CO ? 64 * wg : 0;
+  const int row_wg = F::SPLIT_CO || F::SPLIT_POINTS ? 0 : F::WG_ROWS * wg;
+  const int pt_wg = F::SPLIT_POINTS ? F::NACC * wg : 0;
+  const uint32_t v_addr = smem_u32(vs) + (row_wg * F::PK + pt_wg) * K::V_ROW;
+  const uint32_t u_addr = smem_u32(us) + (F::SPLIT_CO ? wg * K::U_HALF : 0) +
+                          (F::SPLIT_POINTS ? F::slab(pt_wg, 0, 0) * K::U_SLAB : 0);
   float acc[F::NACC][F::WG_N / 2];  // each tile's first products overwrite it (scale-d 0)
 #pragma unroll
   for (int n = 0; n < F::NACC; ++n)
@@ -547,56 +612,68 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
     const Tile tt = tile_at<F>(g, blockIdx.x + k * gridDim.x);
     typename F::T* zt = EMIT_Z && tt.co0 == 0 ? zout : nullptr;  // z from co tile 0 only
     for (int i = 0; i < nk; ++i) {
-      const int q = k * nk + i, s = q & 1;
-      const uint32_t phase = (q >> 1) & 1;
-      if constexpr (F::VS == 1) {
-        // one point stage: chunk q - 1's products read it, so every thread
-        // waits for them before any overwrites it
-        if (q > 0) {
-          wgmma_wait<0>();
-          fence_regs(acc);
-          __syncthreads();
-        }
-      }
-      // chunk q's points into stage q % VS: with two stages the products of
-      // chunk q - 2 read it last, and every thread waited for them before
-      // the previous barrier
-      mbar_wait(&raw_full[q & (F::RS - 1)], (q >> RSH) & 1);
-      form_chunk<F, GN, EMIT_Z>(vs + (q & (F::VS - 1)) * K::V_STAGE,
-                                raws + (q & (F::RS - 1)) * K::RAW_BYTES, ga, gb, zt, g, tt.b,
-                                tt.x0, ROWS * tt.t - 1, i * KC, tid);
-      fence_proxy_async();
-      wgmma_wait<0>();  // chunk q - 1's products: its weight stage is free after the barrier
-      fence_regs(acc);
-      // the previous tile's output has left its own buffer before the epilogue
-      if (K::OUT_OWN && tid == 0 && i == nk - 1) bulk_wait_read();
-      __syncthreads();
-      if (tid == 0) {
-        if (q + F::RS < nq) load_raw(q + F::RS);  // raw stage q % RS has been read
-        if (q >= 1 && q + 1 < nq) load_u(q + 1);  // weight stage (q + 1) % 2 has been read
-      }
-      mbar_wait(&u_full[s], phase);
-      const uint32_t va = v_addr + (q & (F::VS - 1)) * K::V_STAGE, ua = u_addr + s * K::U_BYTES;
-      wgmma_fence();
+      const int q = k * nk + i;
 #pragma unroll
-      for (int n = 0; n < F::NACC; ++n)
-#pragma unroll
-        for (int dy = 0; dy < F::TAPS; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-            for (int o = 0; o < NPROD; ++o) {  // fp32: the six piece products, small first
-              const int pa = NP == 1 ? 0 : split_piece_a(o), pb = NP == 1 ? 0 : split_piece_b(o);
-              wgmma_ss_mn<F::WG_N>(
-                  acc[n],
-                  desc_kmajor_plain(
-                      va + pa * K::V_BYTES + F::point(n, dy) * K::V_ROW + dx * K::V_DX,
-                      K::V_PLANE),
-                  desc_mnmajor(ua + (pb * F::SLABS + F::slab(n, dy, dx)) * K::U_SLAB,
-                               K::U_HALF),  // 64-col chunks
-                  i > 0 || dy > 0 || dx > 0 || o > 0);  // the tile's first product starts the sum
+      for (int j = 0; j < WSUB; ++j) {
+        const int s = q * WSUB + j;
+        if (j == 0) {
+          if constexpr (F::VS == 1) {
+            // one point stage: chunk q - 1's products read it, so every
+            // thread waits for them before any overwrites it
+            if (q > 0) {
+              wgmma_wait<0>();
+              fence_regs(acc);
+              __syncthreads();
             }
-      wgmma_commit();
+          }
+          // chunk q's points into stage q % VS: with two stages the products
+          // of chunk q - 2 read it last, and every thread waited for them
+          // before the previous barrier
+          mbar_wait(&raw_full[q & (F::RS - 1)], (q >> RSH) & 1);
+          form_chunk<F, GN, EMIT_Z>(vs + (q & (F::VS - 1)) * K::V_STAGE,
+                                    raws + (q & (F::RS - 1)) * K::RAW_BYTES, ga, gb, zt, g, tt.b,
+                                    tt.x0, ROWS * tt.t - 1, i * KC, tid);
+          fence_proxy_async();
+        }
+        wgmma_wait<0>();  // step s - 1's products: its weight stage is free after the barrier
+        fence_regs(acc);
+        // the previous tile's output has left its own buffer before the epilogue
+        if (K::OUT_OWN && tid == 0 && i == nk - 1) bulk_wait_read();
+        __syncthreads();
+        if (tid == 0) {
+          if (j == 0 && q + F::RS < nq) load_raw(q + F::RS);  // raw stage q % RS has been read
+          // weight stage (s - 1) % WSLOTS has been read
+          if (s >= 1 && s + WSLOTS - 1 < ns) load_u(s + WSLOTS - 1);
+        }
+        mbar_wait(&u_full[slot_of(s)], phase_of(s));
+        const uint32_t va = v_addr + (q & (F::VS - 1)) * K::V_STAGE;
+        const uint32_t ua = u_addr + slot_of(s) * K::U_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int n = 0; n < F::NACC; ++n)
+#pragma unroll
+          for (int dy = 0; dy < F::TAPS; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int o = 0; o < NPROD; ++o) {
+                // fp32 in one step: the six piece products, small first; in
+                // NP steps: point pieces j, j - 1, .. 0 by weight piece NP - 1 - j
+                if (WSUB > 1 && o > j) continue;
+                const int pa = NP == 1 ? 0 : WSUB == 1 ? split_piece_a(o) : j - o;
+                const int pb = NP == 1 || WSUB > 1 ? 0 : split_piece_b(o);  // in the stage
+                wgmma_ss_mn<F::WG_N>(
+                    acc[n],
+                    desc_kmajor_plain(
+                        va + pa * K::V_BYTES + F::point(n, dy) * K::V_ROW + dx * K::V_DX,
+                        K::V_PLANE),
+                    desc_mnmajor(ua + (pb * F::SLABS + F::slab(n, dy, dx)) * K::U_SLAB,
+                                 K::U_HALF),  // 64-col chunks
+                    // the tile's first product starts the sum
+                    i > 0 || j > 0 || dy > 0 || dx > 0 || o > 0);
+              }
+        wgmma_commit();
+      }
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -647,6 +724,64 @@ __device__ __forceinline__ void conv_rows(const CUtensorMap* tm_x, const CUtenso
                        tt.b);
         bulk_commit();
       }
+    } else if constexpr (F::SPLIT_POINTS) {
+      // fp32 Winograd: warpgroup w holds G_a of points pt .. pt + NACC - 1 (pt
+      // = NACC w) and writes output rows HALF w .. + HALF - 1 of its tile.
+      // Each sends its partial sums sum_a AT[i, a] G_a of the other's rows
+      // through shared memory, as [row][element][thread] floats: to warpgroup
+      // 0 in the weight stage the tile's last step read, to warpgroup 1 in
+      // the point stage its last chunk read. Both are free once both
+      // warpgroups' products are done, and nothing writes either before the
+      // next step's barrier. out = own partial + the other's + bias, at
+      // column x0 + r (rows and columns past the image are not written).
+      constexpr int HALF = ROWS / 2, XBYTES = HALF * 32 * 128 * 4;
+      static_assert(2 * F::NACC == F::P && F::WG_N == 64, "two halves of the points");
+      static_assert(XBYTES <= K::U_BYTES && XBYTES <= K::V_STAGE, "exchange buffers");
+      const int q_last = k * nk + nk - 1;
+      float* xch[2] = {
+          reinterpret_cast<float*>(us + slot_of(q_last * WSUB + WSUB - 1) * K::U_BYTES),
+          reinterpret_cast<float*>(vs + (q_last & (F::VS - 1)) * K::V_STAGE)};
+      const int t = tid & 127;
+      auto partial = [&](auto w, int i, int e) {
+        return at_partial<F, F::NACC * decltype(w)::value>(acc, i, e);
+      };
+      auto send = [&](auto w) {
+        constexpr int other = 1 - decltype(w)::value;
+        float* dst = xch[other] + t;
+#pragma unroll
+        for (int i = 0; i < HALF; ++i)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) dst[(i * 32 + e) * 128] = partial(w, other * HALF + i, e);
+      };
+      auto finish = [&](auto w) {
+        constexpr int wv = decltype(w)::value;
+        const float* src = xch[wv] + t;
+#pragma unroll
+        for (int i = 0; i < HALF; ++i) {
+          const int y = ROWS * tt.t + wv * HALF + i;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int co = tt.co0 + 8 * j + 2 * tq;
+            const float2 bj = *reinterpret_cast<const float2*>(bias + co);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int x = tt.x0 + 16 * warp + g8 + 8 * h, e = 4 * j + 2 * h;
+              const float v0 = partial(w, wv * HALF + i, e) + src[(i * 32 + e) * 128];
+              const float v1 = partial(w, wv * HALF + i, e + 1) + src[(i * 32 + e + 1) * 128];
+              if (y < g.H && x < g.W)
+                *reinterpret_cast<float2*>(out + (((size_t)tt.b * g.H + y) * g.W + x) * g.CO +
+                                           co) = make_float2(v0 + bj.x, v1 + bj.y);
+            }
+          }
+        }
+      };
+      using W0 = std::integral_constant<int, 0>;
+      using W1 = std::integral_constant<int, 1>;
+      __syncthreads();  // both warpgroups' products are done
+      if (wg == 0) send(W0{}); else send(W1{});
+      __syncthreads();
+      if (wg == 0) finish(W0{}); else finish(W1{});
+      fence_proxy_async();  // before the weight stage's next TMA load
     } else {
       // fp32 (the direct form): out = acc + bias at image row ROWS t + (row_wg
       // + i) PK + r / TW, column x0 + r % TW, written from the accumulators
@@ -687,6 +822,17 @@ wino_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   conv_rows<Wino<M>, GN, false>(&tm_x, &tm_u, &tm_out, nullptr, bias, ga, gb, nullptr, g);
 }
 
+// B7 in fp32: the row-Winograd forward (and, on dy, the dgrad) on split
+// precision (tm_u over the weight pieces of split_weights_kernel)
+template <int M, bool GN>
+__global__ void __launch_bounds__(kThreads, 1)
+wino_rows_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                             const __grid_constant__ CUtensorMap tm_u, float* __restrict__ out,
+                             const float* __restrict__ bias, const float* __restrict__ ga,
+                             const float* __restrict__ gb, float* __restrict__, Geom g) {
+  conv_rows<Wino<M, 3>, GN, false>(&tm_x, &tm_u, nullptr, out, bias, ga, gb, nullptr, g);
+}
+
 // B6: the direct conv with the GroupNorm+SiLU prologue
 template <int TT, int PK, bool EMIT_Z>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -711,8 +857,9 @@ fused_conv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                                                       zout, g);
 }
 
-// The fp32 weights K (n = 9 C CO values) as three bf16 pieces, piece p of
-// element i at pieces[p n + i]: the (3 * 9, C, CO) slabs tm_u reads.
+// The fp32 weight slabs (n = S C CO values: K, S = 9, or U, S = 3 P) as
+// three bf16 pieces, piece p of element i at pieces[p n + i]: the (3 S, C,
+// CO) slabs tm_u reads.
 __global__ void __launch_bounds__(256)
 split_weights_kernel(const float* __restrict__ w, __nv_bfloat16* __restrict__ pieces, size_t n) {
   hopper::split_to_pieces<3>(w, pieces, n);
@@ -744,7 +891,7 @@ int launch(Kernel kernel, const void* x, const void* u, const void* bias, const 
   const uint64_t dx[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)B};
   const uint32_t bx[4] = {KC, F::COLS, F::P, 1};
   const uint64_t du[3] = {(uint64_t)CO, (uint64_t)C, (uint64_t)(F::NP * F::SLABS)};
-  const uint32_t bu[3] = {64, KC, F::NP * F::SLABS};
+  const uint32_t bu[3] = {64, KC, K::U_PIECES * F::SLABS};  // a weight stage's slabs
   int err = F::NP == 1 ? hopper::make_map_bf16_nd(&tx, x, dx, bx)
                        : hopper::make_map_f32_nd(&tx, x, dx, bx);
   if (!err) err = hopper::make_map_bf16_nd(&tu, u, du, bu, CU_TENSOR_MAP_SWIZZLE_128B);
@@ -775,13 +922,13 @@ extern "C" {
 
 // x: (B, H, W, C) in dtype (1 bf16, 0 fp32); u: (S, C, CO) in dtype, the
 // weight slabs: mode 1 (the direct form, gn required) K[dy, dx] at dy * 3 +
-// dx, S = 9; mode 2 or 4 (bf16 only) the row-Winograd U[a, dx] at a * 3 +
-// dx, S = (mode + 2) * 3; bias: (CO,) fp32; ga, gb: (B, C) fp32 GroupNorm
-// affine when gn, else unused; out: (B, H, W, CO) in dtype; zout: (B, H, W,
-// C) in dtype when emit_z (mode 1 only); pieces: fp32 only, (3, S, C, CO)
-// bf16 scratch for the weight pieces. The Python wrapper checks the rest:
-// contiguous, 16-byte aligned, C % 16 == 0, CO % 128 == 0 (bf16) or CO % 64
-// == 0 (fp32), H % mode == 0. Returns cudaGetLastError().
+// dx, S = 9; mode 2 or 4 the row-Winograd U[a, dx] at a * 3 + dx, S = (mode
+// + 2) * 3; bias: (CO,) fp32; ga, gb: (B, C) fp32 GroupNorm affine when gn,
+// else unused; out: (B, H, W, CO) in dtype; zout: (B, H, W, C) in dtype when
+// emit_z (mode 1 only); pieces: fp32 only, (3, S, C, CO) bf16 scratch for
+// the weight pieces. The Python wrapper checks the rest: contiguous, 16-byte
+// aligned, C % 16 == 0, CO % 128 == 0 (bf16) or CO % 64 == 0 (fp32), H %
+// mode == 0. Returns cudaGetLastError().
 int gdt_conv3x3_wino(const void* x, const void* u, const void* bias, const void* ga,
                      const void* gb, void* out, void* zout, void* pieces, int B, int H, int W,
                      int C, int CO, int m, int gn, int emit_z, int dtype, void* stream) {
@@ -790,14 +937,21 @@ int gdt_conv3x3_wino(const void* x, const void* u, const void* bias, const void*
     return launch<decltype(form)>(kernel, x, w, bias, ga, gb, out, zout, B, H, W, C, CO, st);
   };
   constexpr int TT = kDirectRows;
-  if (dtype == 0) {  // fp32: the direct form on split precision
-    if (m != 1 || !gn || pieces == nullptr) return (int)cudaErrorInvalidValue;
-    const size_t n = (size_t)9 * C * CO;
+  if (dtype == 0) {  // fp32: split precision, after the weights' pieces
+    if (pieces == nullptr || (m == 1 && !gn) || (m != 1 && emit_z) || (m != 1 && m != 2 && m != 4))
+      return (int)cudaErrorInvalidValue;
+    const size_t n = (size_t)(m == 1 ? 9 : 3 * (m + 2)) * C * CO;
     const int blocks = (int)((n / 8 + 255) / 256 < 1056 ? (n / 8 + 255) / 256 : 1056);
     split_weights_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(u),
                                                  static_cast<__nv_bfloat16*>(pieces), n);
     const int err = (int)cudaGetLastError();
     if (err) return err;
+    if (m == 2)
+      return gn ? run(Wino<2, 3>{}, wino_rows_split_wgmma_kernel<2, true>, pieces)
+                : run(Wino<2, 3>{}, wino_rows_split_wgmma_kernel<2, false>, pieces);
+    if (m == 4)
+      return gn ? run(Wino<4, 3>{}, wino_rows_split_wgmma_kernel<4, true>, pieces)
+                : run(Wino<4, 3>{}, wino_rows_split_wgmma_kernel<4, false>, pieces);
     if (W == TP / 2)
       return emit_z ? run(Direct<TT, 2, 3>{}, fused_conv_split_wgmma_kernel<2, true>, pieces)
                     : run(Direct<TT, 2, 3>{}, fused_conv_split_wgmma_kernel<2, false>, pieces);

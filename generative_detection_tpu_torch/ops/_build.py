@@ -31,8 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = (
-    "group_norm", "group_norm_bwd", "attention", "attention_bwd", "conv3x3", "conv3x3_wino",
-    "conv3x3_wgrad",
+    "group_norm", "group_norm_bwd", "attention", "attention_bwd", "conv3x3_wino", "conv3x3_wgrad",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

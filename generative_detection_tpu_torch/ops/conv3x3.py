@@ -1,8 +1,7 @@
 """ctypes bindings of the 3x3 convolution kernels: ``csrc/conv3x3_wino.cu``
-(TMA + ``wgmma``: the direct forward with the GroupNorm+SiLU prologue, B6, in
-bf16 and in fp32 on split precision, and the row-Winograd forward and dgrad,
-B7, in bf16), ``csrc/conv3x3.cu`` (B7 in fp32, FMA) and
-``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient, B8: bf16
+(TMA + ``wgmma``, bf16 and fp32 on split precision: the direct forward with
+the GroupNorm+SiLU prologue, B6, and the row-Winograd forward and dgrad, B7)
+and ``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient, B8: bf16
 ``wgmma``, fp32 split-precision ``wgmma``).
 
 These launch and check; they count nothing. The wrappers that own the
@@ -20,8 +19,7 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BM = 64  # output positions per block of the fp32 row-Winograd forward kernel
-BN = 64  # output channels per block (tile) of the fp32 forward kernels
+BN = 64  # output channels per tile of the fp32 forward kernels
 KC = 16  # input-channel chunk of the forward kernels
 TN_WINO = 128  # output channels per tile of the bf16 forward kernels
 TC = 64  # input channels per block of the weight-gradient kernels
@@ -35,15 +33,6 @@ _TARGET_BLOCKS = 264
 # a block's chain of products; the split attention backward measured ~2e-4
 # of the RMS at a chain of 4096 keys (gate 1e-3).
 SPLIT_CHAIN = 4096
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("conv3x3")
-    if lib.gdt_conv3x3_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gdt_conv3x3_fwd.argtypes = [p] * 6 + [i] * 9 + [p]
-        lib.gdt_conv3x3_fwd.restype = i
-    return lib
 
 
 def _wino_lib() -> ctypes.CDLL:
@@ -83,23 +72,15 @@ def _affine_args(gn_ab, b, c, device):
     return ga, gb
 
 
-def _tile(w: int) -> tuple[int, int]:
-    """The fp32 row-Winograd forward kernel's block tile: ``tt`` t-rows of
-    ``tw`` columns (the last column tile may run past the image)."""
-    tw = min(w, BM)
-    return tw, BM // tw
-
-
 def forward_shape_error(shape, co: int, dtype, mode: int, gn: bool = False,
                         emit_z: bool = False) -> Optional[str]:
     """Why ``conv3x3_forward`` refuses an input of ``shape`` (B, H, W, C) with
-    ``co`` output channels, or None when a kernel takes it. bf16 runs
+    ``co`` output channels, or None when a kernel takes it. Every mode runs
     ``csrc/conv3x3_wino.cu`` (mode 1, the direct form, is B6; mode 2 or 4,
-    the row-Winograd forward and dgrad, B7): C % 16, CO % 128, H % mode.
-    fp32: C % 16, CO % 64, H % mode; mode 1 runs the split-precision direct
-    form of ``csrc/conv3x3_wino.cu`` (tiles of 64 output channels), modes 2
-    and 4 ``csrc/conv3x3.cu``. Both take any W. Mode 1 runs only with the
-    GroupNorm prologue."""
+    the row-Winograd forward and dgrad, B7): bf16 C % 16, CO % 128, H %
+    mode; fp32 on split precision (tiles of 64 output channels) C % 16, CO %
+    64, H % mode. Both take any W. Mode 1 runs only with the GroupNorm
+    prologue."""
     _, h, w, c = shape
     if mode not in (1, 2, 4):
         return f"mode {mode} is not 1, 2 or 4"
@@ -125,10 +106,10 @@ def conv3x3_forward(
     """Launch the forward kernel: x (B, H, W, C), u (P*3, C, CO) in x's dtype
     (P = 3 for ``mode`` 1, the direct kernel; mode + 2 for F(mode,3)), bias
     (CO,) fp32, ``gn_ab`` the (B, C) fp32 GroupNorm affine of the prologue.
-    bf16 and fp32 mode 1 take ``csrc/conv3x3_wino.cu`` (fp32: a pre-pass
-    splits u into three bf16 pieces, in scratch allocated here), fp32 modes 2
-    and 4 ``csrc/conv3x3.cu`` (``forward_shape_error`` gives the shapes each
-    takes). Returns out (B, H, W, CO), and z (B, H, W, C) with ``emit_z``."""
+    Every mode takes ``csrc/conv3x3_wino.cu``; in fp32 a pre-pass splits u
+    into three bf16 pieces, in scratch allocated here
+    (``forward_shape_error`` gives the shapes it takes). Returns out (B, H,
+    W, CO), and z (B, H, W, C) with ``emit_z``."""
     b, h, w, c = x.shape
     co = u.shape[-1]
     pts = 3 if mode == 1 else mode + 2
@@ -146,17 +127,12 @@ def conv3x3_forward(
     ptrs = (x.data_ptr(), u.data_ptr(), bias.data_ptr(),
             ga.data_ptr() if ga is not None else None, gb.data_ptr() if gb is not None else None,
             out.data_ptr())
-    shape = (b, h, w, c, co, mode, int(gn_ab is not None))
-    if x.dtype == torch.bfloat16 or mode == 1:
-        pieces = (torch.empty(3 * u.numel(), dtype=torch.bfloat16, device=x.device)
-                  if x.dtype == torch.float32 else None)
-        lib = _wino_lib()
-        rc = lib.gdt_conv3x3_wino(*ptrs, z.data_ptr() if z is not None else None,
-                                  pieces.data_ptr() if pieces is not None else None, *shape,
-                                  int(emit_z), _DTYPES[x.dtype], stream)
-    else:
-        lib = _lib()
-        rc = lib.gdt_conv3x3_fwd(*ptrs, *shape, *_tile(w), stream)
+    pieces = (torch.empty(3 * u.numel(), dtype=torch.bfloat16, device=x.device)
+              if x.dtype == torch.float32 else None)
+    lib = _wino_lib()
+    rc = lib.gdt_conv3x3_wino(*ptrs, z.data_ptr() if z is not None else None,
+                              pieces.data_ptr() if pieces is not None else None, b, h, w, c, co,
+                              mode, int(gn_ab is not None), int(emit_z), _DTYPES[x.dtype], stream)
     _build.check(lib, rc, "conv3x3 kernel launch")
     return (out, z) if emit_z else out
 

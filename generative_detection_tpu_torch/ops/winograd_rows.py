@@ -21,10 +21,10 @@ m - 1:
 
 A CPU tensor takes the plain versions (``_wino_rows_reference``,
 ``_wino_wgrad_reference``: the same V/U/G/AT algorithm and rounding in torch
-ops); a CUDA tensor takes ``csrc/conv3x3_wino.cu`` (bf16) or
-``csrc/conv3x3.cu`` (fp32) for the forward and dgrad, replacing
-``_wino_rows_pallas``, and ``csrc/conv3x3_wgrad.cu`` (bf16 ``wgmma``, fp32
-split-precision ``wgmma``; replacing ``_wino_wgrad_pallas``), or raises. The TPU's tile pickers stay as routing
+ops); a CUDA tensor takes ``csrc/conv3x3_wino.cu`` for the forward and
+dgrad (bf16 ``wgmma``, fp32 split-precision ``wgmma``; replacing
+``_wino_rows_pallas``) and ``csrc/conv3x3_wgrad.cu`` for the weight
+gradient (the same two routes; replacing ``_wino_wgrad_pallas``), or raises. The TPU's tile pickers stay as routing
 rules, so the same sites take these kernels as on the TPU.
 """
 

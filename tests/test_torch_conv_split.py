@@ -1,25 +1,29 @@
 """The split-precision design of the port's fp32 3x3 conv kernels, on the CPU.
 
 On the card the fp32 fused GroupNorm+SiLU+conv (B6,
-``fused_conv_split_wgmma_kernel``) and the fp32 row-Winograd weight gradient
-(B8, ``wgrad_split_wgmma_kernel``) run their products on the bf16 tensor
-cores: every fp32 operand becomes three bf16 pieces, each the
-round-to-nearest-even bf16 of what the earlier pieces leave, and each product
-sums the six piece products with i + j <= 2 in fp32. The emulation below
-does that arithmetic in plain PyTorch (the roundings with integer operations
-on the fp32 bits, as ``test_torch_port_attention_split.py`` does) and holds
-it to the kernels' card gate, max |err| <= 1e-3 of the RMS, against float64:
-the direct conv over a flagship contraction (9 x 128 channels) and the
-weight gradient over 65 536 positions (the largest flagship site's
-contraction, narrow channels). One bf16 pass misses that gate. The tensor
-core's own fp32 summation is not emulated: the card tests measure it.
+``fused_conv_split_wgmma_kernel``), the fp32 row-Winograd forward and dgrad
+(B7, ``wino_rows_split_wgmma_kernel``) and weight gradient (B8,
+``wgrad_split_wgmma_kernel``) run their products on the bf16 tensor cores:
+every fp32 operand becomes three bf16 pieces, each the round-to-nearest-even
+bf16 of what the earlier pieces leave, and each product sums the six piece
+products with i + j <= 2 in fp32. The emulation below does that arithmetic in
+plain PyTorch (the roundings with integer operations on the fp32 bits, as
+``test_torch_port_attention_split.py`` does) and holds it to the kernels'
+card gate, max |err| <= 1e-3 of the RMS, against float64: the direct conv
+over a flagship contraction (9 x 128 channels), the row-Winograd forward at
+F(2,3) and F(4,3), with and without the GroupNorm+SiLU prologue, over C =
+512 (the widest fused site; V_a summed in fp32 from the fp32 activation,
+then split; AT and the bias in fp32), and the weight gradient over 65 536
+positions (the largest flagship site's contraction, narrow channels). One
+bf16 pass misses that gate. The tensor core's own fp32 summation is not
+emulated: the card tests measure it.
 
 Then the pure shape and split-count rules of ``ops/conv3x3.py``: every
 shape the parent's fp32 rules admitted (forward: C % 16, CO % 64, H % mode;
 weight gradient: C % 64, CO % 64, H % m) is still admitted, at the flagship
-sites, at W = 72 and 96, and at the tiny configs' widths, and the fp32
-weight gradient's splits keep every block's chain of positions within
-``SPLIT_CHAIN``.
+sites, at W = 48, 72, 96, 100 and 200, and at the tiny configs' widths, and
+the fp32 weight gradient's splits keep every block's chain of positions
+within ``SPLIT_CHAIN``.
 """
 
 import math
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 
 from generative_detection_tpu_torch.ops import conv3x3
 from generative_detection_tpu_torch.ops import winograd_rows as wr
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 FP32_REL_TOL = 1e-3  # CONV_REL_TOL[float32] of the card tests and chip_smoke.py
 
@@ -92,6 +97,41 @@ def _points(z, m):
             for a in range(m + 2)]
 
 
+def _wino_forward(z, u, bias, m, matmul):
+    """out[m t + i] = sum_a AT[i, a] sum_dx shift_dx(V_a U[a, dx]) + bias over
+    z's t-rows, in z's dtype; every V_a U[a, dx] taken by ``matmul``."""
+    at = wr._MATS[m][2]
+    g = [sum(wr._shift(matmul(v, u[3 * a + dx]), dx) for dx in range(3))
+         for a, v in enumerate(_points(z, m))]
+    rows = [sum(float(at[i, a]) * g[a] for a in range(m + 2) if at[i, a]) + bias
+            for i in range(m)]
+    n, h, w, _ = z.shape
+    return torch.stack(rows, dim=2).reshape(n, h, w, u.shape[-1])
+
+
+@pytest.mark.parametrize("gn", [False, True])
+@pytest.mark.parametrize("m", [2, 4])
+def test_six_product_row_winograd_forward_meets_the_fp32_gate(m, gn):
+    """B7's products at C = 512: V_a summed in fp32 from the (activated)
+    fp32 rows, then split; U split; AT and the bias in fp32."""
+    g = torch.Generator().manual_seed(3 + m + 10 * gn)
+    c, co = 512, 32
+    x = torch.randn(1, 8, 16, c, generator=g) * 2 + 0.5
+    k = torch.randn(3, 3, c, co, generator=g) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn(co, generator=g)
+    u = wr.transform_kernel_rows(k, m).reshape(-1, c, co)  # fp32, as the kernel gets it
+    z, z64 = x, x.double()
+    if gn:  # silu(x a + b), rows outside the image zero after it (_points pads)
+        a, b = 1 + 0.1 * torch.randn(c, generator=g), 0.1 * torch.randn(c, generator=g)
+        z, z64 = F.silu(x * a + b), F.silu(z64 * a.double() + b.double())
+    want = _wino_forward(z64, u.double(), bias.double(), m, torch.matmul)
+    got = _wino_forward(z, u, bias, m, lambda v, w: _split(torch.matmul, v, w))
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= FP32_REL_TOL
+    one_pass = _wino_forward(z, u, bias, m, lambda v, w: _bf16_rn(v) @ _bf16_rn(w))
+    assert _rel(one_pass, want) > FP32_REL_TOL
+
+
 def _dm(dy, m):
     at = wr._MATS[m][2]
     return [sum(float(at[i, a]) * dy[:, i::m] for i in range(m) if at[i, a])
@@ -126,7 +166,8 @@ def test_six_product_weight_gradient_over_65536_positions_meets_the_fp32_gate():
 # ---- the shape and split-count rules ---------------------------------------
 
 def _parent_forward_admits(shape, co, mode, gn):
-    """The parent's fp32 forward rule (csrc/conv3x3.cu in every mode)."""
+    """The parent's fp32 forward rule (mode 1 its split-precision direct
+    form, modes 2 and 4 its FMA row-Winograd kernel)."""
     _, h, _, c = shape
     return mode in (1, 2, 4) and c % 16 == 0 and co % 64 == 0 and h % mode == 0 and (
         mode != 1 or gn)
@@ -153,6 +194,7 @@ SITES = [
     (2, 32, 32, 32, 32), (2, 16, 16, 32, 64), (2, 16, 16, 64, 64),
     (2, 32, 32, 128, 128), (2, 16, 16, 128, 256), (2, 16, 16, 256, 256),
     (2, 8, 8, 256, 256), (2, 8, 8, 48, 64),
+    (2, 8, 48, 128, 128), (1, 4, 200, 16, 64), (2, 12, 100, 32, 320),
 ]
 
 

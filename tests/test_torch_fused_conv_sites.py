@@ -21,6 +21,7 @@ from generative_detection_tpu_torch.config import merge_configs
 from generative_detection_tpu_torch.models.blocks import Encoder
 from generative_detection_tpu_torch.ops import conv3x3, fused_conv
 from generative_detection_tpu_torch.ops import winograd_rows as wr
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGSHIP = REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from generative_detection_tpu_torch.ops import norm
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 # (h=w, C): every GroupNorm row of the flagship detector and train step, and
 # the tiny configs' C = 32 and 64

@@ -20,6 +20,7 @@ from generative_detection_tpu.ops.attention import single_head_attention as jax_
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
 from generative_detection_tpu_torch.models.blocks import AttnBlock
 from generative_detection_tpu_torch.ops import attention
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPE = (2, 256, 64)

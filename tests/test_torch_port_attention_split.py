@@ -27,6 +27,7 @@ from generative_detection_tpu.ops.attention import (
     _attention_pallas, _make_attention_custom, _mha_fwd_call,
 )
 from generative_detection_tpu_torch.ops import attention
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 FP32_REL_TOL = 1e-3  # ATTN_REL_TOL[float32] of the card tests and chip_smoke.py
 

@@ -18,6 +18,7 @@ import torch
 
 from generative_detection_tpu.ops.attention import single_head_attention as jax_attention
 from generative_detection_tpu_torch.ops import attention
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 # a 384^2 pose config's mid block (24^2 at C = 512), a 320^2 plain
 # autoencoder's lowest level (20^2), and attention at ch 48 (C = 96)

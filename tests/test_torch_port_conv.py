@@ -33,6 +33,7 @@ from generative_detection_tpu_torch.ops.attention import flash_attention_forward
 from generative_detection_tpu_torch.ops.upsample import subpixel_upsample_conv
 from generative_detection_tpu_torch.ops.winograd import winograd_conv3x3
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGSHIP = str(REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml")

@@ -20,6 +20,7 @@ from generative_detection_tpu_torch.serving import _resolve_serve_dtype, make_de
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
 from tests.test_models import small_model
 from tests.test_torch_port_model import jax_net_params, port_small_model
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 HMIN = np.full((11,), 0.5, np.float32)
 HMAX = np.full((11,), 4.0, np.float32)

@@ -639,15 +639,17 @@ def test_wino_rows_kernel_matches_plain(cuda, hw, c, co, m, gn, dtype):
     _rel_close(got, want, CONV_REL_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [2, 4])
 @pytest.mark.parametrize("hw, c, co", [(128, 256, 128), (32, 512, 256)])
-def test_wino_rows_kernel_repeats_bit_equal(cuda, hw, c, co, m):
-    """The bf16 forward with the GroupNorm prologue and the dgrad (the same
-    kernel on dy with the rotated, io-swapped kernel) give the same bits on a
-    repeat: every output element is written by one block."""
+def test_wino_rows_kernel_repeats_bit_equal(cuda, hw, c, co, m, dtype):
+    """The forward with the GroupNorm prologue and the dgrad (the same kernel
+    on dy with the rotated, io-swapped kernel) give the same bits on a
+    repeat, in bf16 and in fp32 on split precision (where the two
+    warpgroups' partial sums meet in shared memory in a fixed order): every
+    output element is written by one block."""
     from generative_detection_tpu_torch.ops import winograd_rows as wr
 
-    dtype = torch.bfloat16
     x, _, _, k, bias, a, b = _conv_inputs(cuda, (2, hw, hw, c), co, dtype)
     dy = torch.randn(2, hw, hw, co, device="cuda", generator=cuda).to(dtype)
     u = wr._u3n(k, dtype, m)

@@ -41,6 +41,7 @@ from generative_detection_tpu_torch.utils.distributions import (
     DiagonalGaussianDistribution,
     kl_vs_prior_table,
 )
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -22,6 +22,7 @@ from generative_detection_tpu_torch.models.blocks import AttnBlock, ResnetBlock
 from generative_detection_tpu_torch.utils.distributions import DiagonalGaussianDistribution
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
 from tests.test_models import SMALL_DD, SMALL_LOSSCONFIG, small_model
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(got, want, rel=1e-4):

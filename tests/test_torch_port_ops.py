@@ -25,6 +25,7 @@ from generative_detection_tpu_torch.losses import PoseLoss
 from generative_detection_tpu_torch.models import PoseAutoencoder
 from generative_detection_tpu_torch.ops import attention, group_norm, single_head_attention
 from generative_detection_tpu_torch.ops.norm import _gn_reference
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -13,6 +13,7 @@ import torch
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
 from generative_detection_tpu_torch.ops.precision import compute_precision, ieee_fp32
 from generative_detection_tpu_torch.serving import make_detector_fn
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

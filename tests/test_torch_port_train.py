@@ -53,6 +53,7 @@ from generative_detection_tpu_torch.utils.jax_compat import (
     loss_state_dict_from_jax,
     state_dict_from_jax,
 )
+from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")

@@ -55,13 +55,17 @@ from generative_detection_tpu_torch.serving import make_detector_fn  # noqa: E40
 # first match wins: the port's kernels before the library classes, whose
 # keys ("wgrad", "conv") would also match them.
 CLASSES = (
-    ("wino_rows_kernel", ("wino_rows_wgmma_kernel",)),  # B7 bf16, forward and dgrad
+    # B7, forward and dgrad: bf16, and fp32 on split precision
+    ("wino_rows_kernel", ("wino_rows_wgmma_kernel", "wino_rows_split_wgmma_kernel")),
     # B6 bf16; conv3x3_bf16 is its earlier mma.sync kernel, for profiling an
-    # older checkout with this tool; in fp32 the split-precision kernel and
-    # its weight pre-pass
+    # older checkout with this tool; in fp32 the split-precision kernel
     ("fused_conv_kernel", ("fused_conv_wgmma_kernel", "conv3x3_bf16",
-                           "fused_conv_split_wgmma_kernel", "split_weights_kernel")),
-    ("conv3x3_kernel", ("conv3x3_f32",)),  # B7 in fp32 (and B6 in fp32 before its split kernel)
+                           "fused_conv_split_wgmma_kernel")),
+    # the weights' pieces before fp32 B6 and B7
+    ("split_weights_kernel", ("split_weights_kernel",)),
+    # the FMA fp32 kernels before the split-precision ones, for profiling an
+    # older checkout: B7 (and B6) in fp32
+    ("conv3x3_kernel", ("conv3x3_f32",)),
     ("conv3x3_wgrad_kernel", ("wgrad_wgmma_kernel", "wgrad_split_wgmma_kernel", "wgrad_f32_kernel",
                               "::fold_kernel")),  # B8
     ("group_norm_kernel", ("gn_fwd_resident", "gn_stats", "gn_apply", "gn_affine")),
