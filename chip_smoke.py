@@ -80,7 +80,27 @@ Phases (any failure raises and exits non-zero, before the result line):
    optimizers' Adam first moments must agree. The fp32 fused detector
    (B6) and the fused fp32 step (B7, B8) give the fp32 kernels' launches
    in the kernels line;
-8. one {"kernels": [...]} line, the nvidia-smi line, and last
+8. fit_synthetic_smoke: the port's training entry point,
+   generative_detection_tpu_torch.train_cli, driven in-process with
+   configs/autoencoder/pose/synthetic_smoke.yaml as shipped (the flagship at
+   full width on synthetic 256x256 patches, batch 4, the config's own fp32,
+   a -l logdir in a temporary directory): run 1 is -t with the config's 12
+   steps over two epochs (past encoder_pretrain_steps 4 and disc_start 4,
+   counted in optimizer steps; two validations of 2 batches, the image
+   logger, last and best checkpoints; no test split), run 2 is -r LOGDIR
+   -t --max_steps 16 and must resume at step 12 and end at 16. Over run 1 the
+   GroupNorm forward and backward and the split-precision attention forward
+   and backward (narrow and C = 512) must each have launched, with no pad
+   copy; every logged value is finite, the loss JSONL has one line per step,
+   the checkpoint directories hold the layout's files, the resumed state's
+   first parameter and its Adam first moment equal the saved ones bit for
+   bit, and no loader thread outlives either fit. The phase prints the
+   Trainer's step p50 over steps 5-12 beside the bare make_train_step's p50
+   on one prepared batch of the same size and dtype, the fit's wall time by
+   part (steps, validation, image logging, checkpoint saves), the
+   checkpoint bytes and save seconds, and the peak memory; it deletes its
+   directory at the end;
+9. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Every phase that sets a switch restores the environment after it.
@@ -97,8 +117,11 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -114,8 +137,11 @@ from generative_detection_tpu_torch.models.blocks import (
 )
 from generative_detection_tpu_torch.ops import _build, attention, conv3x3, fused_conv, norm
 from generative_detection_tpu_torch.ops import winograd_rows as wr
+from generative_detection_tpu_torch import train_cli
+from generative_detection_tpu_torch.data.datamodule import THREAD_NAME
 from generative_detection_tpu_torch.serving import make_detector_fn
 from generative_detection_tpu_torch.train import create_train_state, make_train_step
+from generative_detection_tpu_torch.train.callbacks import Callback
 
 REPO = Path(__file__).resolve().parent
 # The weight-gradient kernel's flop count and design bytes, from its A/B tool
@@ -124,6 +150,11 @@ ab_wgrad = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(ab_wgrad)
 FLAGSHIP = REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"
 TINY = REPO / "configs/autoencoder/pose/tiny_cpu.yaml"
+SMOKE = REPO / "configs/autoencoder/pose/synthetic_smoke.yaml"
+# synthetic_smoke.yaml's run: 12 steps of batch 4 over two epochs of 8
+# batches; the resume takes it to 16. Step p50 over steps 5-12 (all 'full').
+FIT_STEPS, FIT_RESUME_STEPS, FIT_TIMED = 12, 16, slice(4, 12)
+BARE_WARMUP, BARE_STEPS = 2, 8
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
@@ -1300,6 +1331,141 @@ def phase_train_card_vs_cpu(winograd, ch=128) -> dict:
     return launches
 
 
+class _ResumeProbe(Callback):
+    """The state as the fit starts (after any restore): its step, its first
+    network parameter and that parameter's Adam first moment, on the host."""
+
+    def on_fit_start(self, trainer) -> None:
+        st = trainer.state
+        self.name, p = next(st.net.named_parameters())
+        self.step = st.step
+        self.param = p.detach().cpu().clone()
+        self.moment = st.opt_ae.moments(p)[0].detach().cpu().clone()
+
+
+def _loader_threads() -> list:
+    return [t.name for t in threading.enumerate() if t.name.startswith(THREAD_NAME)]
+
+
+def _check_fit_run(label: str, run: Path, steps: int) -> dict:
+    """The run directory of a fit that ended at ``steps``: every logged value
+    finite, one loss line per step, the checkpoint layout."""
+    with open(run / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    bad = [(r["step"], k) for r in rows for k, v in r.items() if not math.isfinite(v)]
+    require(not bad, f"{label}: non-finite logged values {bad[:5]}")
+    loss_steps = [r["step"] for r in rows if "aeloss" in r]
+    require(loss_steps == list(range(loss_steps[0], steps + 1)),
+            f"{label}: loss lines at steps {loss_steps}")
+    ckpt = run / "checkpoints"
+    files = {"net.pt", "loss.pt", "optim.pt", "meta.json"}
+    last = sorted(os.listdir(ckpt / "last"))
+    require(last == [str(steps)], f"{label}: last/ holds {last}")
+    best = sorted(int(d) for d in os.listdir(ckpt / "best"))
+    require(best and all(files | {"metrics.json"} <= set(os.listdir(ckpt / "best" / str(b)))
+                         for b in best), f"{label}: best/ holds {best}")
+    require(files <= set(os.listdir(ckpt / "last" / str(steps))), f"{label}: last/ files")
+    images = sorted(os.listdir(run / "images" / "train"))
+    require(len(images) >= 3, f"{label}: image logger wrote {images}")
+    return {"loss_lines": len(loss_steps), "best_steps": best,
+            "images": len(images) + len(os.listdir(run / "images" / "val"))}
+
+
+def phase_fit_synthetic_smoke() -> dict:
+    """The training entry point on the card: train_cli with synthetic_smoke.yaml,
+    12 steps, then a resume to 16 (see the module docstring); returns the
+    launch counts of run 1."""
+    require_default_tf32("fit_synthetic_smoke")
+    tmp = Path(tempfile.mkdtemp(prefix="gdt_fit_smoke_"))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr1 = train_cli.main(["-b", str(SMOKE), "-t", "-l", str(tmp), "-n", "smoke"])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        counts = read_counts()
+        peak1 = torch.cuda.max_memory_allocated()
+        threads1 = _loader_threads()
+        require(tr1.state.step == FIT_STEPS, f"run 1 ended at step {tr1.state.step}")
+        require_no_copies("fit_synthetic_smoke", counts)
+        for name in ("group_norm", "group_norm_bwd", "attention_split", "attention_split_512",
+                     "attention_split_bwd", "attention_split_bwd_512"):
+            require(counts[name] > 0, f"fit_synthetic_smoke: no {name} launch: {counts}")
+        require(not threads1, f"loader threads alive after run 1: {threads1}")
+        run = Path(tr1.logdir)
+        run1 = _check_fit_run("run 1", run, FIT_STEPS)
+        saved = run / "checkpoints" / "last" / str(FIT_STEPS)
+        net_sd = torch.load(saved / "net.pt", map_location="cpu", weights_only=True)
+        optim = torch.load(saved / "optim.pt", map_location="cpu", weights_only=True)
+        t1 = tr1.timings
+        ckpt1 = {"bytes": tr1._ckpt_mgr.bytes_written, "save_s": tr1._ckpt_mgr.save_seconds}
+
+        # the bare step on one prepared batch of the fit's size and dtype
+        model = tr1.model
+        dm = instantiate_from_config(merge_configs([str(SMOKE)])["data"])
+        dm.setup()
+        host = next(iter(dm.train_dataloader()))
+        dm.teardown()
+        batch = model.prepare_batch(host, device=tr1.device)
+        step_fn = tr1._train_fns["full"]
+        state = tr1.state
+        for _ in range(BARE_WARMUP):
+            state, _ = step_fn(state, batch)
+        bare = []
+        for _ in range(BARE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            bare.append(time.perf_counter() - t)
+        del tr1, state, step_fn, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        probe = _ResumeProbe()
+        t0 = time.perf_counter()
+        tr2 = train_cli.main(["-r", str(run), "-t", "--max_steps", str(FIT_RESUME_STEPS)],
+                             extra_callbacks=[probe])
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        threads2 = _loader_threads()
+        require(probe.step == FIT_STEPS, f"run 2 resumed at step {probe.step}")
+        require(tr2.state.step == FIT_RESUME_STEPS, f"run 2 ended at step {tr2.state.step}")
+        require(not threads2, f"loader threads alive after run 2: {threads2}")
+        require(torch.equal(probe.param, net_sd[probe.name]),
+                "the resumed first parameter differs from the saved one")
+        require(torch.equal(probe.moment, optim["opt_ae"]["adam"]["state"][0]["exp_avg"]),
+                "the resumed Adam first moment differs from the saved one")
+        run2 = _check_fit_run("run 2", run, FIT_RESUME_STEPS)
+        peak = max(peak1, torch.cuda.max_memory_allocated())
+        del tr2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_p50 = statistics.median(t1["step_s"][FIT_TIMED])
+    bare_p50 = statistics.median(bare)
+    emit({
+        "phase": "fit_synthetic_smoke", "config": SMOKE.name, "batch": 4, "dtype": "float32",
+        "steps": FIT_STEPS, "resumed_to": FIT_RESUME_STEPS,
+        "trainer_step_p50_ms": step_p50 * 1e3, "bare_step_p50_ms": bare_p50 * 1e3,
+        "trainer_over_bare": step_p50 / bare_p50,
+        "fit_wall_s": wall1, "fit_steps_s": sum(t1["step_s"]),
+        "fit_validation_s": t1["validation_s"], "fit_image_log_s": t1["image_log_s"],
+        "fit_checkpoint_s": t1["checkpoint_s"],
+        "fit_other_s": wall1 - sum(t1["step_s"]) - t1["validation_s"] - t1["image_log_s"]
+        - t1["checkpoint_s"],
+        "checkpoint_bytes": ckpt1["bytes"], "checkpoint_save_s": ckpt1["save_s"],
+        "resume_wall_s": wall2, "max_memory_allocated_bytes": peak,
+        "launches_by_kind": {k: v for k, v in counts.items() if v},
+        "run1": run1, "run2": run2,
+    })
+    return counts
+
+
 def _largest(cases, name, dtype=torch.bfloat16):
     """The ``dtype`` case of ``name`` with the most work (shape product)."""
     keys = [k for k in cases if k[0] == name and k[-1] == dtype]
@@ -1353,7 +1519,7 @@ def wino_step_sums(cases: dict, wino: Counter, dtype=torch.bfloat16) -> dict:
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
-                 train_fp32: dict, train_fused_fp32: dict, step_sums: dict):
+                 train_fp32: dict, train_fused_fp32: dict, step_sums: dict, fit: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -1373,7 +1539,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     and fp32 entries. ``kernels_per_call`` device kernels
     run per counted call. B6-B8 also give their share of the bound and
     their times summed over a fused detector request's or a fused step's
-    sites (``step_sums``, by (name, dtype))."""
+    sites (``step_sums``, by (name, dtype)). ``fit_launches`` gives each
+    kernel's launches in the training entry point's fit (run 1 of
+    ``phase_fit_synthetic_smoke``, fp32), 0 for kernels it does not run."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -1430,6 +1598,11 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
             "shape": r["shape"], "dtype": r["dtype"], "kernels_per_call": per_call,
         })
     entries[4]["on_main_path"] = entries[6]["on_main_path"] = False
+    # the fit's counters, by row: the GroupNorm kernels serve both dtypes
+    fit_rows = {0: "group_norm", 2: "group_norm_bwd", 5: "attention_split",
+                7: "attention_split_bwd", 8: "attention_split_bwd_512", 9: "attention_split_512"}
+    for i, e in enumerate(entries):
+        e["fit_launches"] = fit[fit_rows[i]] if i in fit_rows else 0
     for e, r in zip(entries, (row[0] for row in rows)):
         if "kernel" in r:  # the attention, GroupNorm forward and conv kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
@@ -1523,8 +1696,9 @@ def main() -> int:
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
+    fit = phase_fit_synthetic_smoke()
     emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
-                      train_fused_fp32, step_sums))
+                      train_fused_fp32, step_sums, fit))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
 from .instantiate import TARGET_ALIASES, get_obj_from_str, instantiate_from_config
-from .merge import apply_dotlist, deep_merge, load_yaml, merge_configs
+from .merge import apply_dotlist, deep_merge, load_yaml, merge_configs, to_plain
 
 __all__ = [
     "instantiate_from_config",
@@ -9,4 +9,5 @@ __all__ = [
     "merge_configs",
     "deep_merge",
     "apply_dotlist",
+    "to_plain",
 ]

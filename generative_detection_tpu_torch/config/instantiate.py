@@ -33,6 +33,44 @@ for _prefix in (
 ):
     TARGET_ALIASES[f"{_prefix}.PoseLoss"] = f"{_PKG}.losses.contperceptual.PoseLoss"
 
+# data: the datamodule and the synthetic datasets
+for _target in ("generative_detection_tpu.data.datamodule.DataModuleFromConfig",
+                "src.data.preprocessing.data_modules.DataModuleFromConfig"):
+    TARGET_ALIASES[_target] = f"{_PKG}.data.datamodule.DataModuleFromConfig"
+for _cls in ("SyntheticPatchTrain", "SyntheticPatchValidation", "SyntheticPatchTest",
+             "SyntheticImageTrain", "SyntheticImageValidation"):
+    TARGET_ALIASES[f"generative_detection_tpu.data.synthetic.{_cls}"] = (
+        f"{_PKG}.data.synthetic.{_cls}"
+    )
+
+# the trainer's callbacks and loggers, under the JAX package's names, the
+# reference's and Lightning's
+_CALLBACKS = ("Callback", "SetupCallback", "ImageLogger", "DeviceStatsCallback",
+              "LearningRateCallback", "ProgressCallback", "CheckpointCallback")
+for _cls in _CALLBACKS:
+    TARGET_ALIASES[f"generative_detection_tpu.train.callbacks.{_cls}"] = (
+        f"{_PKG}.train.callbacks.{_cls}"
+    )
+for _target, _cls in (
+    ("src.util.callbacks.ImageLogger", "ImageLogger"),
+    ("src.util.callbacks.SetupCallback", "SetupCallback"),
+    ("src.util.callbacks.CUDACallback", "DeviceStatsCallback"),
+    ("src.util.callbacks.DeviceStatsMonitor", "DeviceStatsCallback"),
+    ("src.util.callbacks.TQDMProgressBar", "ProgressCallback"),
+    ("src.util.callbacks.LearningRateMonitor", "LearningRateCallback"),
+    ("pytorch_lightning.callbacks.ModelCheckpoint", "CheckpointCallback"),
+):
+    TARGET_ALIASES[_target] = f"{_PKG}.train.callbacks.{_cls}"
+for _target, _cls in (
+    ("generative_detection_tpu.train.metrics.MetricsLogger", "MetricsLogger"),
+    ("generative_detection_tpu.train.metrics.WandbLogger", "WandbLogger"),
+    ("pytorch_lightning.loggers.TensorBoardLogger", "MetricsLogger"),
+    ("pytorch_lightning.loggers.TestTubeLogger", "MetricsLogger"),
+    ("pytorch_lightning.loggers.WandbLogger", "WandbLogger"),
+):
+    TARGET_ALIASES[_target] = f"{_PKG}.train.metrics.{_cls}"
+TARGET_ALIASES["generative_detection_tpu.train.loop.Trainer"] = f"{_PKG}.train.loop.Trainer"
+
 # Target prefixes of the JAX package and the reference that later slices
 # port, with the slice that brings them.
 NOT_PORTED: dict[str, str] = {
@@ -40,11 +78,10 @@ NOT_PORTED: dict[str, str] = {
     "generative_detection_tpu.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
     "src.modules.losses": "the plain-autoencoder slice",
     "generative_detection_tpu.losses": "the plain-autoencoder slice",
-    "src.data": "the data slice",
-    "generative_detection_tpu.data": "the data slice",
-    "src.util.callbacks": "the trainer slice",
-    "generative_detection_tpu.train": "the trainer slice",
-    "pytorch_lightning": "the trainer slice",
+    "src.data": "the nuScenes slice",
+    "generative_detection_tpu.data.nuscenes": "the nuScenes slice",
+    "generative_detection_tpu.data.shapenet": "the nuScenes slice",
+    "generative_detection_tpu.data.waymo": "the nuScenes slice",
 }
 
 

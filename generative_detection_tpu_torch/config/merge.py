@@ -62,3 +62,12 @@ def merge_configs(base_paths: Iterable[str], dotlist: Iterable[str] = ()) -> dic
     for path in base_paths:
         config = deep_merge(config, load_yaml(path))
     return apply_dotlist(config, dotlist)
+
+
+def to_plain(obj: Any) -> Any:
+    """Deep-convert to plain dicts and lists (for YAML snapshots in run dirs)."""
+    if isinstance(obj, Mapping):
+        return {k: to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [to_plain(v) for v in obj]
+    return obj

@@ -8,6 +8,8 @@
   pass: posterior sample, the staged z-dropout schedule, z-noise, pose
   decode, and the phase-gated reconstruction. Its four random draws come
   from a ``torch.Generator`` or are handed in as tensors.
+  ``perturbed_pose_forward`` decodes with a given pose (the image logger's
+  pose-controllability probe).
 - ``PoseAutoencoder``: the config-facing wrapper with the keyword surface of
   the reference YAML ``model.params``. It holds the configuration, builds
   nets and the ``PoseLoss``, and prepares batches.
@@ -160,6 +162,7 @@ class PoseAutoencoderNet(nn.Module):
         phase: str = "auto",
         generator: Optional[torch.Generator] = None,
         draws: Optional[Mapping[str, torch.Tensor]] = None,
+        override_pose: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
         """The training pass (``autoencoder.py:186-244`` of the JAX package)
         on NHWC patches ``x``.
@@ -170,9 +173,10 @@ class PoseAutoencoderNet(nn.Module):
         order, are 'posterior' (normal, like the object posterior), 'dropout'
         (uniform), 'noise' (normal) and 'bbox' (normal, (B, 8)): each is taken
         from ``draws`` when given there, else drawn from ``generator``.
-        Returns dec_obj (B, H, W, 3) float32, dec_pose, posterior_obj,
-        bbox_posterior, pre_out (NHWC, the input of the decoder's
-        ``conv_out``) and dropout_prob."""
+        ``override_pose`` replaces ``dec_pose`` before the pose is re-encoded
+        for the decoder. Returns dec_obj (B, H, W, 3) float32, dec_pose,
+        posterior_obj, bbox_posterior, pre_out (NHWC, the input of the
+        decoder's ``conv_out``) and dropout_prob."""
         draws = dict(draws or {})
 
         def draw(name, shape, like, uniform=False):
@@ -198,12 +202,13 @@ class PoseAutoencoderNet(nn.Module):
             bbox_noise = draw("bbox", (x.shape[0], POSE_6D_DIM + LHW_DIM + FILL_FACTOR_DIM),
                               torch.empty((), dtype=torch.float32, device=x.device))
         dec_pose, bbox_posterior = self._decode_pose(pose_feat, sample_posterior, noise=bbox_noise)
+        pose_for_decode = dec_pose if override_pose is None else override_pose
 
         if phase == "pretrain":
             dec_obj = torch.zeros_like(x)
             pre_out = torch.zeros(x.shape[:3] + (self.ch,), dtype=x.dtype, device=x.device)
         else:
-            dec_obj, pre_out = self.decode(z_obj + self._encode_pose(dec_pose),
+            dec_obj, pre_out = self.decode(z_obj + self._encode_pose(pose_for_decode),
                                            return_pre_out=True)
             if phase == "auto" and global_step < self.encoder_pretrain_steps:
                 dec_obj = torch.zeros_like(dec_obj)
@@ -216,10 +221,30 @@ class PoseAutoencoderNet(nn.Module):
             "dropout_prob": p,
         }
 
+    def perturbed_pose_forward(
+        self,
+        x: torch.Tensor,
+        pose: torch.Tensor,
+        sample_posterior: bool = True,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Decode ``x`` with a given pose (``autoencoder.py:246-257`` of the
+        JAX package): a fresh posterior sample (its normal draw from
+        ``noise`` or ``generator``), no z-dropout or z-noise, the pose
+        re-encoded, then the decoder."""
+        posterior_obj, _ = self.encode(x)
+        z_obj = posterior_obj.sample(generator, noise) if sample_posterior else posterior_obj.mean
+        return self.decode(z_obj + self._encode_pose(pose))
+
 
 class PoseAutoencoder:
     """Config-facing wrapper with the reference constructor surface. It
-    keeps the configuration; ``build_net``/``init_net`` make networks."""
+    keeps the configuration; ``build_net``/``init_net`` make networks.
+    ``learning_rate`` is the base rate until the training entry point scales
+    it."""
+
+    learning_rate: float = 4.5e-6
 
     def __init__(
         self,
@@ -315,12 +340,21 @@ class PoseAutoencoder:
             fuse=fuse,
         )
 
-    def inference_net(self) -> PoseAutoencoderNet:
-        """The network of the forward-only paths (the detector), as
-        ``build_net``: ``GDT_FUSE_INFERENCE=1`` builds it with the fused
-        GroupNorm+SiLU+conv kernels (``inference_net()`` of the JAX package,
-        which clones its net with ``fuse=True``). Same parameter names."""
-        return self.build_net(fuse=os.environ.get("GDT_FUSE_INFERENCE", "0") == "1")
+    def inference_net(self, net: Optional[PoseAutoencoderNet] = None) -> PoseAutoencoderNet:
+        """The network of the forward-only paths (the detector, the image
+        logger), as ``build_net``: ``GDT_FUSE_INFERENCE=1`` builds it with the
+        fused GroupNorm+SiLU+conv kernels (``inference_net()`` of the JAX
+        package, which clones its net with ``fuse=True``). Same parameter
+        names. Given a live ``net``: ``net`` itself when the switch is off,
+        else a fused network holding ``net``'s weights on its device."""
+        fuse = os.environ.get("GDT_FUSE_INFERENCE", "0") == "1"
+        if net is not None and not fuse:
+            return net
+        inet = self.build_net(fuse=fuse)
+        if net is not None:
+            inet.load_state_dict(net.state_dict())
+            inet = inet.to(next(net.parameters()).device, memory_format=torch.channels_last)
+        return inet
 
     def build_loss(self):
         """A float32 ``PoseLoss`` on the CPU with PyTorch's default init (for
@@ -356,16 +390,14 @@ class PoseAutoencoder:
             "yaw_perturbed": np.zeros((batch_size,), np.float32),
         }
 
-    def prepare_batch(
-        self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
-    ) -> Dict[str, torch.Tensor]:
-        """A host batch of float images -> the loss-ready tensors on
-        ``device`` (``autoencoder.py:521-593`` of the JAX package): the yaw
-        column injected into the pose, NCHW images and masks turned NHWC, and
-        ``rgb_gt`` rescaled to [-1, 1] per shard. Raw uint8 crops
-        (``patch_raw``) need the resize op of the data slice and raise."""
+    def prepare_batch_host(self, batch: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+        """The numpy half of ``prepare_batch`` (``prepare_batch_host`` of the
+        JAX package): the yaw column injected into the pose, NCHW images and
+        masks turned NHWC, every field in its dtype; ``rgb_gt`` is not yet
+        rescaled. Raw uint8 crops (``patch_raw``) need the resize op of the
+        nuScenes slice and raise."""
         if "patch_raw" in batch:
-            raise NotImplementedError("raw-crop batches come with the data slice")
+            raise NotImplementedError("raw-crop batches come with the nuScenes slice")
         b = np.asarray(batch[self.class_key]).shape[0]
         pose = np.array(batch[self.pose_key], np.float32, copy=True)
         if self.train_on_yaw:
@@ -377,6 +409,7 @@ class PoseAutoencoder:
         if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[-1] != 1:
             mask = np.transpose(mask, (0, 2, 3, 1))
         host = {
+            "rgb_gt": rgb,
             "pose_gt": pose,
             "class_gt": np.asarray(batch[self.class_key], np.int64),
             "class_orig_id": np.asarray(batch.get("original_class_id", batch[self.class_key]),
@@ -386,9 +419,28 @@ class PoseAutoencoder:
             "yaw_perturbed": np.asarray(batch.get("yaw_perturbed", np.zeros(b)), np.float32),
             "mask_2d_bbox": mask,
         }
-        out = {k: torch.as_tensor(np.ascontiguousarray(v), device=device) for k, v in host.items()}
-        out["rgb_gt"] = rescale_minmax(torch.as_tensor(rgb, device=device), num_shards)
+        return {k: np.ascontiguousarray(v) for k, v in host.items()}
+
+    @staticmethod
+    def prepare_batch_device(
+        host: Mapping[str, Any], num_shards: int = 1, device="cuda", non_blocking: bool = False
+    ) -> Dict[str, torch.Tensor]:
+        """The device half: every field onto ``device`` and ``rgb_gt``
+        rescaled to [-1, 1] per shard there. ``host`` holds numpy arrays or
+        (pinned) CPU tensors."""
+        out = {k: torch.as_tensor(v).to(device, non_blocking=non_blocking)
+               for k, v in host.items()}
+        out["rgb_gt"] = rescale_minmax(out["rgb_gt"], num_shards)
         return out
+
+    def prepare_batch(
+        self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
+    ) -> Dict[str, torch.Tensor]:
+        """A host batch of float images -> the loss-ready tensors on
+        ``device`` (``autoencoder.py:521-593`` of the JAX package): the yaw
+        column injected into the pose, NCHW images and masks turned NHWC, and
+        ``rgb_gt`` rescaled to [-1, 1] per shard."""
+        return self.prepare_batch_device(self.prepare_batch_host(batch), num_shards, device)
 
     def init_net(
         self, generator: Optional[torch.Generator] = None, device="cuda"

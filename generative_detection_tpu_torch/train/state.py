@@ -13,6 +13,11 @@ norm), and ``torch.optim.Adam`` computes optax's ``adam`` update
 mu and nu. A parameter without a gradient gets a zero one, so every
 parameter's Adam step count advances each step, as optax's shared count does.
 
+Accumulation (``optax.MultiSteps`` semantics): with ``accumulate`` k > 1 the
+backward passes of a window of k micro-batches sum into the gradients, and
+the clip and the Adam step run once, at the window's end, on their mean.
+Parameters and moments do not change inside the window.
+
 Parameters stay float32 (flax keeps fp32 params and casts at use), so Adam's
 state and updates are fp32 whatever the compute dtype.
 """
@@ -34,27 +39,57 @@ class ClippedAdam:
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float,
                  grad_clip: Optional[float] = 1.0, b1: float = 0.5, b2: float = 0.9,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, accumulate: int = 1):
         self.params = list(params)
         self.grad_clip = grad_clip
+        self.accumulate = max(int(accumulate), 1)
+        self.mini_step = 0  # micro-batches summed into the open window
         fused = all(p.is_cuda for p in self.params)
         self.adam = torch.optim.Adam(self.params, lr=lr, betas=(b1, b2), eps=eps,
                                      foreach=not fused, fused=fused or None)
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        """Clear the gradients at a window's start (inside a window the
+        backward passes sum into them)."""
+        if self.mini_step == 0:
+            for p in self.params:
+                p.grad = None
 
-    def step(self) -> None:
-        """Clip by the global norm, then take the Adam step."""
+    def step(self) -> bool:
+        """Count a micro-batch; at the window's end average the summed
+        gradients, clip them by the global norm and take the Adam step.
+        True when it stepped."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.mini_step += 1
+        if self.mini_step < self.accumulate:
+            return False
+        self.mini_step = 0
+        grads = [p.grad for p in self.params]
+        if self.accumulate > 1:
+            torch._foreach_mul_(grads, 1.0 / self.accumulate)
         if self.grad_clip is not None and self.grad_clip > 0:
-            grads = [p.grad for p in self.params]
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
         self.adam.step()
+        return True
+
+    def state_dict(self) -> dict:
+        """Adam's state, the open window's count and, inside a window, the
+        summed gradients (on the CPU)."""
+        return {
+            "adam": self.adam.state_dict(),
+            "mini_step": self.mini_step,
+            "grads": [p.grad.detach().cpu() if self.mini_step and p.grad is not None else None
+                      for p in self.params],
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd["adam"])
+        self.mini_step = int(sd["mini_step"])
+        for p, g in zip(self.params, sd["grads"]):
+            p.grad = None if g is None else g.to(p.device)
 
     def moments(self, p: nn.Parameter):
         """Adam's (mu, nu) of ``p``, zeros before its first step."""
@@ -84,10 +119,10 @@ def make_optimizers(
     b2: float = 0.9,
     eps: float = 1e-8,
 ):
-    """(opt_ae over every net parameter, opt_disc over ``loss.discriminator``)."""
-    if accumulate_grad_batches > 1:
-        raise NotImplementedError("gradient accumulation comes with the trainer slice")
-    kw = dict(lr=learning_rate, grad_clip=grad_clip, b1=b1, b2=b2, eps=eps)
+    """(opt_ae over every net parameter, opt_disc over ``loss.discriminator``),
+    each accumulating over ``accumulate_grad_batches`` micro-batches."""
+    kw = dict(lr=learning_rate, grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
+              accumulate=accumulate_grad_batches)
     return (ClippedAdam(net.parameters(), **kw),
             ClippedAdam(loss.discriminator.parameters(), **kw))
 

@@ -33,7 +33,10 @@ IEEE fp32 convolutions and matmuls, no TF32.
 
 Step counting: ``step_counting='optimizer'`` (PyTorch Lightning 1.9's, which
 the reference pins) lets the curriculum see 2 * batch (generator) and
-2 * batch + 1 (discriminator); ``'batch'`` sees the batch index.
+2 * batch + 1 (discriminator); ``'batch'`` sees the batch index. With
+``accumulate_grad_batches`` k the batch index is the optimizer step,
+``state.step // k``: the curriculum clock advances once a window, as
+Lightning's ``global_step`` does.
 """
 
 from __future__ import annotations
@@ -98,9 +101,10 @@ def make_train_step(
     draws: optional tensors for the forward's random draws (see
     ``PoseAutoencoderNet.forward``); the separate discriminator forward takes
     ``draws['disc']`` when given.
+    accumulate_grad_batches: the window of the state's optimizers; the
+    curriculum sees the optimizer step ``state.step // k``.
     compute_dtype: defaults to the model's ``compute_dtype``."""
-    if accumulate_grad_batches > 1:
-        raise NotImplementedError("gradient accumulation comes with the trainer slice")
+    accum = max(int(accumulate_grad_batches), 1)
     if disc_forward not in ("shared", "separate"):
         raise ValueError(f"disc_forward must be 'shared' or 'separate', got {disc_forward!r}")
     dtype = compute_dtype or model.compute_dtype
@@ -114,7 +118,7 @@ def make_train_step(
     def _train_step(state, batch, draws):
         net, loss = state.net, state.loss
         lean = lean_pretrain and phase == "pretrain" and loss.disc_start >= pretrain
-        step_g, step_d = _global_steps(state.step, step_counting)
+        step_g, step_d = _global_steps(state.step // accum, step_counting)
         rgb, class_gt, mask = batch["rgb_gt"], batch["class_gt"], batch["mask_2d_bbox"]
         autocast = _autocast(rgb.device, dtype)
         draws = dict(draws or {})
@@ -202,9 +206,9 @@ def make_eval_step(
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Validation: ``eval_step(state, batch, generator=None, draws=None) ->
     metrics``, the forward and both losses for logging only, with d_weight 0
-    (the reference's eval-mode fallback)."""
-    if accumulate_grad_batches > 1:
-        raise NotImplementedError("gradient accumulation comes with the trainer slice")
+    (the reference's eval-mode fallback). The curriculum sees
+    ``state.step // accumulate_grad_batches``."""
+    accum = max(int(accumulate_grad_batches), 1)
     dtype = compute_dtype or model.compute_dtype
 
     @torch.no_grad()
@@ -212,7 +216,7 @@ def make_eval_step(
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[Mapping] = None):
         net, loss = state.net, state.loss
-        step_g, step_d = _global_steps(state.step, step_counting)
+        step_g, step_d = _global_steps(state.step // accum, step_counting)
         rgb = batch["rgb_gt"]
         with compute_precision(dtype), _autocast(rgb.device, dtype):
             outs = net(rgb, step_g, phase=phase, generator=generator, draws=draws)

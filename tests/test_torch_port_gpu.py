@@ -853,3 +853,53 @@ def test_conv_kernels_raise_outside_their_shapes(cuda):
     with pytest.raises(ValueError, match="CO % 128 == 0"):
         z = torch.zeros(1, 8, 8, 64, device="cuda", dtype=torch.bfloat16)
         conv3x3.conv3x3_wgrad(z, torch.zeros(1, 8, 8, 64, device="cuda", dtype=torch.bfloat16), 4)
+
+
+def test_tiny_trainer_fit_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Two steps of the Trainer's fit (a 'pretrain' then a 'full' step, and a
+    validation) of tiny_cpu.yaml at ch 128, on the card and on the CPU, from
+    the same seed, batches and forward draws (the draws handed to the net's
+    forward, since the card's and the CPU's generators differ). Limits: the
+    card-vs-CPU step's, losses and d_weight 1e-3 relative (1e-6 absolute for
+    the values the lean pretrain step logs as zero)."""
+    import json
+
+    from generative_detection_tpu_torch.models.autoencoder import PoseAutoencoderNet
+    from generative_detection_tpu_torch.train import Trainer
+    from generative_detection_tpu_torch.train.metrics import MetricsLogger
+
+    cfg = merge_configs([str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")],
+                        ["model.params.ddconfig.ch=128"])
+    model = instantiate_from_config(cfg["model"])
+    model.learning_rate = 1e-4
+    rng = np.random.default_rng(2)
+    draws = {"posterior": rng.normal(size=(8, 16, 16, 16)), "noise": rng.normal(size=(8, 16, 16, 16)),
+             "dropout": rng.uniform(size=(8, 16, 16, 16)), "bbox": rng.normal(size=(8, 8))}
+    forward = PoseAutoencoderNet.forward
+
+    def fwd(self, x, *args, **kw):
+        if x.shape[0] == 8 and not kw.get("draws"):
+            kw["draws"] = {k: torch.tensor(v, dtype=torch.float32, device=x.device)
+                           for k, v in draws.items()}
+        return forward(self, x, *args, **kw)
+
+    monkeypatch.setattr(PoseAutoencoderNet, "forward", fwd)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        logdir = str(tmp_path / device)
+        trainer = Trainer(model, logdir=logdir, max_epochs=1, max_steps=2, limit_val_batches=1,
+                          log_every_n_steps=1, device=device,
+                          logger=MetricsLogger(logdir))
+        before = norm.group_norm_backward.launches, attention.split_backward.launches
+        trainer.fit(instantiate_from_config(cfg["data"]))
+        trainer.logger.close()
+        if device == "cuda":
+            assert norm.group_norm_backward.launches > before[0]
+            assert attention.split_backward.launches > before[1]
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows[device] = [json.loads(line) for line in f if "aeloss" in line]
+    assert [r["step"] for r in rows["cuda"]] == [r["step"] for r in rows["cpu"]] == [1, 2]
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss_obj"):
+            assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (got["step"], k, got[k],
+                                                                         want[k])

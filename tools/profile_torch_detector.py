@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 tools/profile_torch_detector.py [--batch 1 8 32] [--requests 5] [--fp32]
-    python3 tools/profile_torch_detector.py --train [--steps 5] [--fp32]
+    python3 tools/profile_torch_detector.py --train [--steps 5] [--fp32] [--train-batch 16]
 
 Builds the flagship config (configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml)
 at full width with seeded random weights. By default it serves bf16 requests
@@ -123,6 +123,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile the flagship train step")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--fp32", action="store_true", help="the config's own fp32 path")
+    ap.add_argument("--train-batch", type=int, default=TRAIN_BATCH,
+                    help="the train step's batch (default the flagship's 16)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -133,12 +135,12 @@ def main() -> int:
 
     if args.train:
         model, state, step = flagship_train(None if args.fp32 else torch.bfloat16)
-        batch = train_batch(TRAIN_BATCH, model.input_size, "cuda", 1)
+        batch = train_batch(args.train_batch, model.input_size, "cuda", 1)
         for _ in range(3):
             step(state, batch)
         torch.cuda.synchronize()
         out = profiled(lambda: step(state, batch), args.steps)
-        print(json.dumps({"mode": "train", "batch": TRAIN_BATCH, "dtype": dtype,
+        print(json.dumps({"mode": "train", "batch": args.train_batch, "dtype": dtype,
                           "steps": args.steps, **out}), flush=True)
         return 0
 
