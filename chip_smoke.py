@@ -100,7 +100,27 @@ Phases (any failure raises and exits non-zero, before the result line):
    part (steps, validation, image logging, checkpoint saves), the
    checkpoint bytes and save seconds, and the peak memory; it deletes its
    directory at the end;
-9. one {"kernels": [...]} line, the nvidia-smi line, and last
+9. device_preprocess_and_eval, the nuScenes slice's entry points: (a) a
+   seeded raw-crop batch at the flagship's shape (batch 16, the nuScenes
+   reader's 400x400 uint8 buffers, crops of 50-400 px and one shrunk
+   close-up, mask rectangles past the crop on either side, output 256)
+   through prepare_batch on the card and on the CPU: masks bit-equal,
+   rgb_gt within 1e-5; the p50 over 20 batches of a batch's pinned
+   host-to-card copy plus crop-resize, mask and rescale (and of the float
+   contract's copy and rescale), the bytes each contract moves, beside the
+   bf16 and fp32 step p50s of phase 6 and the fit's of phase 8; (b) train_cli
+   with synthetic_smoke.yaml and device_preprocess true for 8 steps: every
+   batch takes the raw branch, the fp32 fit's kernels launch, every logged
+   value is finite, its step p50 over steps 5-8; (c) eval_cli -r <that run>
+   --limit 2 --out <json> in each image contract: finite metrics whose keys
+   are eval.py's, the forward's kernels launched, patches/s and wall time;
+   (d) where PIL is installed, a fixture nuScenes tree of 1600x900 JPEGs and
+   3 steps of train_cli on it through the port's NuScenesTrain and
+   NuScenesValidation in each contract (the reader's frame route is
+   printed: the native libjpeg region decoder where libjpeg's header is
+   installed, else PIL's whole-frame decode); the phase deletes its
+   directories;
+10. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Every phase that sets a switch restores the environment after it.
@@ -116,6 +136,7 @@ import importlib.util
 import json
 import math
 import os
+import pickle
 import statistics
 import shutil
 import subprocess
@@ -137,7 +158,9 @@ from generative_detection_tpu_torch.models.blocks import (
 )
 from generative_detection_tpu_torch.ops import _build, attention, conv3x3, fused_conv, norm
 from generative_detection_tpu_torch.ops import winograd_rows as wr
-from generative_detection_tpu_torch import train_cli
+from generative_detection_tpu_torch import eval_cli, train_cli
+from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
+from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
 from generative_detection_tpu_torch.data.datamodule import THREAD_NAME
 from generative_detection_tpu_torch.serving import make_detector_fn
 from generative_detection_tpu_torch.train import create_train_state, make_train_step
@@ -155,6 +178,22 @@ SMOKE = REPO / "configs/autoencoder/pose/synthetic_smoke.yaml"
 # batches; the resume takes it to 16. Step p50 over steps 5-12 (all 'full').
 FIT_STEPS, FIT_RESUME_STEPS, FIT_TIMED = 12, 16, slice(4, 12)
 BARE_WARMUP, BARE_STEPS = 2, 8
+# the kernels an fp32 fit of the flagship runs (synthetic_smoke.yaml's dtype)
+FIT_KERNELS = ("group_norm", "group_norm_bwd", "attention_split", "attention_split_512",
+               "attention_split_bwd", "attention_split_bwd_512")
+# device_preprocess_and_eval: the raw-crop batch at the flagship's shape (the
+# nuScenes reader's 400x400 uint8 buffers, batch 16, output 256), timed over
+# RAW_REPEATS batches; the card's rgb_gt within RAW_RGB_TOL of the CPU's; the
+# device_preprocess fit of synthetic_smoke.yaml to FIT_RAW_STEPS (step p50
+# over steps 5-8, all 'full'); the eval CLI's batches; the fixture nuScenes
+# fits' steps
+RAW_BATCH, RAW_BUFFER, RAW_OUT, RAW_WARMUP, RAW_REPEATS = 16, 400, 256, 2, 20
+RAW_RGB_TOL = 1e-5
+FIT_RAW_STEPS, FIT_RAW_TIMED = 8, slice(4, 8)
+EVAL_LIMIT = 2
+NUSC_STEPS, NUSC_SAMPLES = 3, 4
+DEVICE_PREPROCESS = ("data.params.train.params.device_preprocess=true",
+                     "data.params.validation.params.device_preprocess=true")
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: CUDA cores
@@ -1374,7 +1413,7 @@ def _check_fit_run(label: str, run: Path, steps: int) -> dict:
 def phase_fit_synthetic_smoke() -> dict:
     """The training entry point on the card: train_cli with synthetic_smoke.yaml,
     12 steps, then a resume to 16 (see the module docstring); returns the
-    launch counts of run 1."""
+    launch counts of run 1 and the Trainer's step p50 in ms."""
     require_default_tf32("fit_synthetic_smoke")
     tmp = Path(tempfile.mkdtemp(prefix="gdt_fit_smoke_"))
     try:
@@ -1391,8 +1430,7 @@ def phase_fit_synthetic_smoke() -> dict:
         threads1 = _loader_threads()
         require(tr1.state.step == FIT_STEPS, f"run 1 ended at step {tr1.state.step}")
         require_no_copies("fit_synthetic_smoke", counts)
-        for name in ("group_norm", "group_norm_bwd", "attention_split", "attention_split_512",
-                     "attention_split_bwd", "attention_split_bwd_512"):
+        for name in FIT_KERNELS:
             require(counts[name] > 0, f"fit_synthetic_smoke: no {name} launch: {counts}")
         require(not threads1, f"loader threads alive after run 1: {threads1}")
         run = Path(tr1.logdir)
@@ -1463,8 +1501,228 @@ def phase_fit_synthetic_smoke() -> dict:
         "launches_by_kind": {k: v for k, v in counts.items() if v},
         "run1": run1, "run2": run2,
     })
-    return counts
+    return counts, step_p50 * 1e3
 
+
+def eval_py_keys(gt_classes, num_eval: int) -> set:
+    """The keys of ``eval.py``'s JSON (its results, ``eval/metrics.py``
+    ``detection_metrics`` and ``eval/detection.py`` ``evaluate_detections``
+    under ``set/``) for an evaluation whose foreground ground truths have the
+    classes ``gt_classes``."""
+    keys = {"split", "psnr", "kl", "step", "num_eval", "class_accuracy"}
+    if num_eval:
+        keys |= {"mATE", "mASE", "mAOE", "class_accuracy_fg"}
+        keys |= {f"match@{t}m" for t in (0.5, 1.0, 2.0, 4.0)}
+    keys |= {f"set/{k}" for k in ("mAP", "nds3", "mATE", "mASE", "mAOE")}
+    return keys | {f"set/{m}/{c}" for c in gt_classes for m in ("AP", "ATE", "ASE", "AOE")}
+
+
+def _nuscenes_fixture(root: Path) -> None:
+    """A small nuScenes tree in the mmdet3d >= 1.1 layout: 1600x900 JPEG
+    frames for CAM_FRONT (two instances, one past the left edge) and CAM_BACK
+    (background only), the train and val info pickles."""
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:900, 0:1600].astype(np.float32)
+    cam2img = [[1266.0, 0.0, 800.0], [0.0, 1266.0, 450.0], [0.0, 0.0, 1.0]]
+    front = [{"bbox": [700.0, 380.0, 900.0, 520.0], "bbox_label": 0, "center_2d": [800.0, 450.0],
+              "bbox_3d": [1.2, 0.8, 20.0, 4.0, 1.6, 1.9, 0.4]},
+             {"bbox": [-40.0, 300.0, 120.0, 420.0], "bbox_label": 7, "center_2d": [40.0, 360.0],
+              "bbox_3d": [-9.0, 0.5, 12.0, 0.7, 1.8, 0.6, -1.1]}]
+    data_list = []
+    for s in range(NUSC_SAMPLES):
+        for cam in ("CAM_FRONT", "CAM_BACK"):
+            (root / "samples" / cam).mkdir(parents=True, exist_ok=True)
+            img = np.stack([127 + 100 * np.sin(xx / 97.0 + s) * np.cos(yy / 83.0),
+                            127 + 100 * np.cos(xx / 61.0) * np.sin(yy / 127.0 + s),
+                            (xx + yy) % 256], axis=-1) + rng.uniform(-20, 20, (900, 1600, 1))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                root / "samples" / cam / f"img_{s}.jpg", quality=90)
+        cams = ("CAM_FRONT", "CAM_FRONT_RIGHT", "CAM_FRONT_LEFT", "CAM_BACK", "CAM_BACK_LEFT",
+                "CAM_BACK_RIGHT")
+        data_list.append({
+            "sample_idx": s,
+            "images": {c: {"img_path": f"samples/{c}/img_{s}.jpg", "cam2img": cam2img}
+                       for c in cams},
+            "cam_instances": {c: (front if c == "CAM_FRONT" else []) for c in cams}})
+    for name in ("nuscenes_infos_train.pkl", "nuscenes_infos_val.pkl"):
+        with open(root / name, "wb") as f:
+            pickle.dump({"metainfo": {}, "data_list": data_list}, f)
+
+
+def _nuscenes_fits(tmp: Path) -> dict:
+    """Part (d): ``NUSC_STEPS`` steps of synthetic_smoke.yaml's model on a
+    fixture nuScenes tree through the port's NuScenesTrain and
+    NuScenesValidation, in both image contracts."""
+    from generative_detection_tpu_torch.data.nuscenes import NuScenesTrain
+
+    root = tmp / "nuscenes"
+    t0 = time.perf_counter()
+    _nuscenes_fixture(root)
+    out = {"fixture_s": time.perf_counter() - t0}
+    data = []
+    for split, cls in (("train", "NuScenesTrain"), ("validation", "NuScenesValidation")):
+        p = f"data.params.{split}"
+        data += [f"{p}.target=src.data.datasets.nuscenes.{cls}", f"{p}.params.data_root={root}",
+                 f"{p}.params.label_names=[car,pedestrian,background]",
+                 f"{p}.params.h_minmax_dir={root}", f"{p}.params.perturb_center=true",
+                 f"{p}.params.perturb_scale=true", f"{p}.params.patch_height=256"]
+    for contract in ("float", "raw"):
+        port_autoencoder.batch_contracts.clear()
+        t0 = time.perf_counter()
+        tr = train_cli.main(["-b", str(SMOKE), "-t", "-l", str(tmp), "-n", f"nusc_{contract}",
+                             "--max_steps", str(NUSC_STEPS), "--no-test", "true", *data,
+                             *(DEVICE_PREPROCESS if contract == "raw" else ())])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seen = dict(port_autoencoder.batch_contracts)
+        other = "float" if contract == "raw" else "raw"
+        require(tr.state.step == NUSC_STEPS and seen.get(contract, 0) >= NUSC_STEPS
+                and not seen.get(other), f"nuScenes fit ({contract}): step {tr.state.step}, "
+                f"batches by contract {seen}")
+        with open(Path(tr.logdir) / "metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        bad = [(r["step"], k) for r in rows for k, v in r.items() if not math.isfinite(v)]
+        require(not bad and any("aeloss" in r for r in rows),
+                f"nuScenes fit ({contract}): non-finite or no loss lines {bad[:5]}")
+        out[contract] = {"wall_s": wall, "steps_s": sum(tr.timings["step_s"]),
+                         "batches": seen}
+        del tr
+    ds = NuScenesTrain(data_root=str(root), label_names=["car", "background"],
+                       h_minmax_dir=str(root), seed=0)
+    out["frame_route"] = ds.frame_route
+    return out
+
+
+def _raw_batch_check() -> dict:
+    """Part (a): the raw-crop batch at the flagship's shape, prepared on the
+    card and on the CPU (masks bit-equal, rgb_gt within RAW_RGB_TOL), and the
+    p50 of a batch's host-to-card copy and device half in both contracts."""
+    model = instantiate_from_config(merge_configs([str(FLAGSHIP)])["model"])
+    batch = raw_crop_batch(RAW_BATCH, RAW_OUT, seed=4, buffer=RAW_BUFFER)
+    got = model.prepare_batch(batch, device="cuda")
+    want = model.prepare_batch(batch, device="cpu")
+    require(torch.equal(got["mask_2d_bbox"].cpu(), want["mask_2d_bbox"]),
+            "raw-crop masks differ between the card and the CPU")
+    rgb_err = (got["rgb_gt"].cpu() - want["rgb_gt"]).abs().max().item()
+    require(rgb_err <= RAW_RGB_TOL, f"raw-crop rgb_gt: card vs CPU max err {rgb_err}")
+
+    def p50_prepare(host_batch) -> float:
+        """p50 ms of one batch's host-to-card copy (pinned, non_blocking, as
+        the Trainer's prefetch makes it) and device half."""
+        pinned = {k: torch.from_numpy(v).pin_memory()
+                  for k, v in model.prepare_batch_host(host_batch).items()}
+        lat = []
+        for i in range(RAW_WARMUP + RAW_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prepare_batch_device(pinned, device="cuda", non_blocking=True)
+            torch.cuda.synchronize()
+            if i >= RAW_WARMUP:
+                lat.append(time.perf_counter() - t0)
+        return statistics.median(lat) * 1e3
+
+    # the same images in the float contract, for the copy's comparison
+    float_batch = {k: v for k, v in batch.items()
+                   if k not in ("patch_raw", "patch_src_size", "bbox_in_crop", "patch_out_size")}
+    float_batch["patch"] = want["rgb_gt"].numpy() * 0.5 + 0.5
+    float_batch["mask_2d_bbox"] = want["mask_2d_bbox"].numpy()
+    return {
+        "batch": RAW_BATCH, "buffer": RAW_BUFFER, "out": RAW_OUT,
+        "src_sizes": sorted(set(batch["patch_src_size"].tolist())),
+        "rgb_max_abs_err": rgb_err, "masks_bit_equal": True,
+        "prepare_p50_ms": {"raw": p50_prepare(batch), "float": p50_prepare(float_batch)},
+        "prepare_bytes": {c: sum(np.asarray(v).nbytes for v in model.prepare_batch_host(b).values())
+                          for c, b in (("raw", batch), ("float", float_batch))},
+    }
+
+
+def _fit_and_eval(tmp: Path) -> dict:
+    """Parts (b) and (c): the training entry point with device_preprocess
+    (every batch raw, the fp32 fit's kernels launched, every logged value
+    finite), then the eval CLI on that run in both image contracts (finite
+    metrics with eval.py's keys, the forward's kernels launched)."""
+    port_autoencoder.batch_contracts.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train_cli.main(["-b", str(SMOKE), "-t", "-l", str(tmp), "-n", "smoke_raw", "--max_steps",
+                         str(FIT_RAW_STEPS), "--no-test", "true", *DEVICE_PREPROCESS])
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = read_counts()
+    contracts = dict(port_autoencoder.batch_contracts)
+    require_no_copies("device_preprocess fit", fit_counts)
+    for name in FIT_KERNELS:
+        require(fit_counts[name] > 0, f"device_preprocess fit: no {name} launch: {fit_counts}")
+    require(tr.state.step == FIT_RAW_STEPS, f"device_preprocess fit ended at {tr.state.step}")
+    require(contracts.get("raw", 0) >= FIT_RAW_STEPS and not contracts.get("float"),
+            f"device_preprocess fit: batches by contract {contracts}")
+    run = Path(tr.logdir)
+    fit = {"steps": FIT_RAW_STEPS, "wall_s": fit_wall, "batches_by_contract": contracts,
+           "step_p50_ms": statistics.median(tr.timings["step_s"][FIT_RAW_TIMED]) * 1e3,
+           **_check_fit_run("device_preprocess fit", run, FIT_RAW_STEPS),
+           "launches": {k: v for k, v in fit_counts.items() if v}}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    val_cfg = merge_configs([str(SMOKE)])["data"]["params"]
+    val = instantiate_from_config(val_cfg["validation"])
+    n_eval = min(EVAL_LIMIT * val_cfg["batch_size"], len(val))
+    n_batches = -(-n_eval // val_cfg["batch_size"])
+    gt = {val[i]["class_name"] for i in range(n_eval) if val[i]["original_class_id"] != 10}
+    evals = {"limit": EVAL_LIMIT, "patches": n_eval}
+    for contract in ("float", "raw"):
+        out = tmp / f"eval_{contract}.json"
+        port_autoencoder.batch_contracts.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_cli.main(["-b", str(SMOKE), "-r", str(run), "--limit", str(EVAL_LIMIT),
+                             "--out", str(out), *(DEVICE_PREPROCESS if contract == "raw" else ())])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        label = f"eval ({contract})"
+        require_no_copies(label, counts)
+        for name in ("group_norm", "attention_split", "attention_split_512"):
+            require(counts[name] > 0, f"{label}: no {name} launch")
+        require(json.loads(out.read_text()) == res, f"{label}: --out differs")
+        seen = dict(port_autoencoder.batch_contracts)
+        require(seen == {contract: n_batches}, f"{label}: batches by contract {seen}")
+        bad = [k for k, v in res.items() if k != "split" and not math.isfinite(v)]
+        require(not bad, f"{label}: non-finite {bad}")
+        keys = eval_py_keys(gt, res["num_eval"])
+        require(set(res) == keys, f"{label}: keys {sorted(set(res) ^ keys)} differ from eval.py's")
+        require(res["step"] == FIT_RAW_STEPS, f"{label}: step {res['step']}")
+        evals[contract] = {"wall_s": wall, "patches_per_s": n_eval / wall, "psnr": res["psnr"],
+                           "kl": res["kl"], "keys": len(res),
+                           "launches": {k: v for k, v in counts.items() if v}}
+    return {"fit_device_preprocess": fit, "eval_cli": evals}
+
+
+def phase_device_preprocess_and_eval(train_p50_ms: dict, fit_p50_ms: float) -> None:
+    """The nuScenes slice's entry points on the card (see the module
+    docstring): (a) the raw-crop batch, (b) the device_preprocess fit, (c) the
+    eval CLI, (d) fits on a fixture nuScenes tree where PIL is installed."""
+    t0 = time.perf_counter()
+    raw = _raw_batch_check()
+    tmp = Path(tempfile.mkdtemp(prefix="gdt_raw_eval_"))
+    try:
+        fit_eval = _fit_and_eval(tmp)
+        has_pil = importlib.util.find_spec("PIL") is not None
+        nusc = _nuscenes_fits(tmp) if has_pil else "not run: PIL is not installed"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    raw_p50 = raw["prepare_p50_ms"]["raw"]
+    emit({
+        "phase": "device_preprocess_and_eval", "raw_batch": raw,
+        "step_p50_ms": {**train_p50_ms, "fit_synthetic_smoke": fit_p50_ms,
+                        "fit_device_preprocess": fit_eval["fit_device_preprocess"]["step_p50_ms"]},
+        "raw_prepare_share": {k: raw_p50 / v for k, v in train_p50_ms.items()},
+        **fit_eval, "nuscenes_fixture": nusc, "phase_wall_s": time.perf_counter() - t0,
+    })
 
 def _largest(cases, name, dtype=torch.bfloat16):
     """The ``dtype`` case of ``name`` with the most work (shape product)."""
@@ -1696,7 +1954,9 @@ def main() -> int:
     phase_train_card_vs_cpu("0")
     phase_train_card_vs_cpu("fused")
     phase_train_card_vs_cpu(None, ch=None)  # the config's own width: attention at C = 64
-    fit = phase_fit_synthetic_smoke()
+    fit, fit_p50 = phase_fit_synthetic_smoke()
+    phase_device_preprocess_and_eval({"train_bf16": train["result"]["p50_ms"],
+                                      "train_fp32": train_fp32["result"]["p50_ms"]}, fit_p50)
     emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
                       train_fused_fp32, step_sums, fit))
     print(smi, flush=True)

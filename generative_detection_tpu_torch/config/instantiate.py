@@ -33,15 +33,26 @@ for _prefix in (
 ):
     TARGET_ALIASES[f"{_prefix}.PoseLoss"] = f"{_PKG}.losses.contperceptual.PoseLoss"
 
-# data: the datamodule and the synthetic datasets
+# data: the datamodule and the datasets, under the JAX package's names and
+# the reference's (``src.data.datasets.nuscenes.*``)
 for _target in ("generative_detection_tpu.data.datamodule.DataModuleFromConfig",
                 "src.data.preprocessing.data_modules.DataModuleFromConfig"):
     TARGET_ALIASES[_target] = f"{_PKG}.data.datamodule.DataModuleFromConfig"
-for _cls in ("SyntheticPatchTrain", "SyntheticPatchValidation", "SyntheticPatchTest",
-             "SyntheticImageTrain", "SyntheticImageValidation"):
-    TARGET_ALIASES[f"generative_detection_tpu.data.synthetic.{_cls}"] = (
-        f"{_PKG}.data.synthetic.{_cls}"
-    )
+_DATASETS = {
+    "synthetic": ("SyntheticPatchTrain", "SyntheticPatchValidation", "SyntheticPatchTest",
+                  "SyntheticImageTrain", "SyntheticImageValidation"),
+    "nuscenes": ("NuScenesTrain", "NuScenesValidation", "NuScenesTest", "NuScenesTrainMini",
+                 "NuScenesValidationMini"),
+    "shapenet": ("ShapeNetTrain", "ShapeNetValidation", "ShapeNetTest"),
+    "waymo": ("WaymoTrain", "WaymoValidation"),
+}
+for _module, _classes in _DATASETS.items():
+    for _cls in _classes:
+        TARGET_ALIASES[f"generative_detection_tpu.data.{_module}.{_cls}"] = (
+            f"{_PKG}.data.{_module}.{_cls}"
+        )
+for _cls in _DATASETS["nuscenes"]:
+    TARGET_ALIASES[f"src.data.datasets.nuscenes.{_cls}"] = f"{_PKG}.data.nuscenes.{_cls}"
 
 # the trainer's callbacks and loggers, under the JAX package's names, the
 # reference's and Lightning's
@@ -78,10 +89,6 @@ NOT_PORTED: dict[str, str] = {
     "generative_detection_tpu.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
     "src.modules.losses": "the plain-autoencoder slice",
     "generative_detection_tpu.losses": "the plain-autoencoder slice",
-    "src.data": "the nuScenes slice",
-    "generative_detection_tpu.data.nuscenes": "the nuScenes slice",
-    "generative_detection_tpu.data.shapenet": "the nuScenes slice",
-    "generative_detection_tpu.data.waymo": "the nuScenes slice",
 }
 
 

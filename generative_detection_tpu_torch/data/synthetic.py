@@ -270,6 +270,38 @@ class SyntheticPatchBase:
         return item
 
 
+def raw_crop_batch(batch_size: int = 16, out_size: int = 256, seed: int = 0,
+                   buffer: int = 400) -> Dict[str, np.ndarray]:
+    """A seeded host batch of the raw-crop contract at the nuScenes reader's
+    shapes: uint8 crops of 50, 100, 200 or 400 px in a ``buffer``-sized
+    buffer (zero beyond the crop), the first one a close-up shrunk into the
+    whole buffer, and mask rectangles that run past the crop on either side;
+    the label fields hold seeded values."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.choice([50, 100, 200, 400], size=batch_size).astype(np.float32)
+    sizes[0] = buffer  # a crop larger than the buffer, shrunk into it on the host
+    raw = np.zeros((batch_size, buffer, buffer, 3), np.uint8)
+    for i, s in enumerate(sizes.astype(int)):
+        yy, xx = np.mgrid[0:s, 0:s]
+        raw[i, :s, :s] = np.stack([(xx * 3 + i) % 256, (yy * 5) % 256, (xx + yy) % 256], -1)
+        raw[i, :s, :s] ^= rng.integers(0, 32, size=(s, s, 3), dtype=np.uint8)
+    lo = rng.uniform(-0.3, 0.6, size=(batch_size, 2)) * sizes[:, None]
+    hi = lo + rng.uniform(0.2, 0.8, size=(batch_size, 2)) * sizes[:, None]
+    return {
+        "patch_raw": raw,
+        "patch_src_size": sizes,
+        "bbox_in_crop": np.concatenate([lo, hi], axis=1).astype(np.float32),
+        "patch_out_size": np.full((batch_size,), out_size, np.int32),
+        "class_id": rng.integers(0, 11, size=batch_size).astype(np.int32),
+        "original_class_id": rng.integers(0, 11, size=batch_size).astype(np.int32),
+        "pose_6d": rng.normal(size=(batch_size, POSE_DIM)).astype(np.float32),
+        "yaw": rng.uniform(-math.pi, math.pi, size=batch_size).astype(np.float32),
+        "yaw_perturbed": rng.uniform(-math.pi, math.pi, size=batch_size).astype(np.float32),
+        "bbox_sizes": rng.uniform(0.5, 4.0, size=(batch_size, LHW_DIM)).astype(np.float32),
+        "fill_factor": rng.uniform(0.0, 0.3, size=batch_size).astype(np.float32),
+    }
+
+
 class SyntheticPatchTrain(SyntheticPatchBase):
     split_seed = 0
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..geometry.cameras import z_learned_to_world
@@ -88,3 +89,14 @@ def recover_boxes(
 
     boxes = torch.stack([x_world, y_world, z_world, l, h, w, yaw], dim=-1)
     return {"boxes_3d": boxes, "class_id": cls, "score": score, "logits": logits}
+
+
+def frame_ids_from_batch(batch, batch_size: int) -> np.ndarray:
+    """Frame identity for the set-based evaluator: ``sample_idx * 64 +
+    cam_idx`` where the dataset emits both (the nuScenes reader does), so
+    patches of one camera frame compete in the matching; else -1 for every
+    patch, and the caller gives each patch a pseudo-frame of its own."""
+    if "sample_idx" in batch and "cam_idx" in batch:
+        return (np.asarray(batch["sample_idx"], np.int64).reshape(-1) * 64
+                + np.asarray(batch["cam_idx"], np.int64).reshape(-1))
+    return np.full((batch_size,), -1, np.int64)

@@ -17,6 +17,7 @@
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from ..config import instantiate_from_config
+from ..ops.resize import batched_crop_resize, bbox_mask
 from ..utils.distributions import DiagonalGaussianDistribution
 from .blocks import Decoder, Encoder, _nchw, _nhwc, flax_like_init_
 from .discriminator import init_discriminator_
@@ -392,24 +394,17 @@ class PoseAutoencoder:
 
     def prepare_batch_host(self, batch: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         """The numpy half of ``prepare_batch`` (``prepare_batch_host`` of the
-        JAX package): the yaw column injected into the pose, NCHW images and
-        masks turned NHWC, every field in its dtype; ``rgb_gt`` is not yet
-        rescaled. Raw uint8 crops (``patch_raw``) need the resize op of the
-        nuScenes slice and raise."""
-        if "patch_raw" in batch:
-            raise NotImplementedError("raw-crop batches come with the nuScenes slice")
+        JAX package): the yaw column injected into the pose, every field in
+        its dtype. A float batch gives ``rgb_gt`` (not yet rescaled) and
+        ``mask_2d_bbox``, NCHW turned NHWC. A raw-crop batch (the datasets'
+        ``device_preprocess: true`` contract) passes ``patch_raw`` (uint8
+        crops padded into one buffer size), ``patch_src_size``,
+        ``bbox_in_crop`` and ``patch_out_size`` through for the device half."""
         b = np.asarray(batch[self.class_key]).shape[0]
         pose = np.array(batch[self.pose_key], np.float32, copy=True)
         if self.train_on_yaw:
             pose[:, 3] = np.asarray(batch["yaw"], np.float32)
-        rgb = np.asarray(batch[self.image_rgb_key], np.float32)
-        if rgb.ndim == 4 and rgb.shape[1] == 3 and rgb.shape[-1] != 3:
-            rgb = np.transpose(rgb, (0, 2, 3, 1))
-        mask = np.asarray(batch["mask_2d_bbox"], np.float32)
-        if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[-1] != 1:
-            mask = np.transpose(mask, (0, 2, 3, 1))
         host = {
-            "rgb_gt": rgb,
             "pose_gt": pose,
             "class_gt": np.asarray(batch[self.class_key], np.int64),
             "class_orig_id": np.asarray(batch.get("original_class_id", batch[self.class_key]),
@@ -417,29 +412,54 @@ class PoseAutoencoder:
             "bbox_gt": np.asarray(batch[self.bbox_key], np.float32),
             "fill_factor_gt": np.asarray(batch[self.fill_factor_key], np.float32),
             "yaw_perturbed": np.asarray(batch.get("yaw_perturbed", np.zeros(b)), np.float32),
-            "mask_2d_bbox": mask,
         }
+        if "patch_raw" in batch:
+            host["patch_raw"] = np.asarray(batch["patch_raw"], np.uint8)  # (B, S, S, 3)
+            host["patch_src_size"] = np.asarray(batch["patch_src_size"], np.float32)
+            host["bbox_in_crop"] = np.asarray(batch["bbox_in_crop"], np.float32)
+            host["patch_out_size"] = np.asarray(batch["patch_out_size"], np.int32).reshape(-1)[:1]
+        else:
+            rgb = np.asarray(batch[self.image_rgb_key], np.float32)
+            if rgb.ndim == 4 and rgb.shape[1] == 3 and rgb.shape[-1] != 3:
+                rgb = np.transpose(rgb, (0, 2, 3, 1))
+            mask = np.asarray(batch["mask_2d_bbox"], np.float32)
+            if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[-1] != 1:
+                mask = np.transpose(mask, (0, 2, 3, 1))
+            host["rgb_gt"] = rgb
+            host["mask_2d_bbox"] = mask
         return {k: np.ascontiguousarray(v) for k, v in host.items()}
 
     @staticmethod
     def prepare_batch_device(
         host: Mapping[str, Any], num_shards: int = 1, device="cuda", non_blocking: bool = False
     ) -> Dict[str, torch.Tensor]:
-        """The device half: every field onto ``device`` and ``rgb_gt``
-        rescaled to [-1, 1] per shard there. ``host`` holds numpy arrays or
-        (pinned) CPU tensors."""
+        """The device half: every field onto ``device``; a raw-crop batch is
+        cropped, resized and its box mask drawn there (``ops/resize.py``);
+        then ``rgb_gt`` is rescaled to [-1, 1] per shard. ``host`` holds
+        numpy arrays or (pinned) CPU tensors. ``batch_contracts`` counts the
+        batches of each contract."""
+        host = dict(host)
+        raw = "patch_raw" in host
+        out_size = int(np.asarray(host.pop("patch_out_size")).reshape(-1)[0]) if raw else 0
         out = {k: torch.as_tensor(v).to(device, non_blocking=non_blocking)
                for k, v in host.items()}
+        if raw:
+            src = out.pop("patch_src_size")
+            centers = torch.stack([src / 2.0, src / 2.0], dim=-1)
+            out["rgb_gt"] = batched_crop_resize(out.pop("patch_raw"), centers, src, out_size)
+            out["mask_2d_bbox"] = bbox_mask(out.pop("bbox_in_crop"), src, out_size)
+        batch_contracts["raw" if raw else "float"] += 1
         out["rgb_gt"] = rescale_minmax(out["rgb_gt"], num_shards)
         return out
 
     def prepare_batch(
         self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
     ) -> Dict[str, torch.Tensor]:
-        """A host batch of float images -> the loss-ready tensors on
+        """A host batch of either contract -> the loss-ready tensors on
         ``device`` (``autoencoder.py:521-593`` of the JAX package): the yaw
-        column injected into the pose, NCHW images and masks turned NHWC, and
-        ``rgb_gt`` rescaled to [-1, 1] per shard."""
+        column injected into the pose, NHWC images and masks (raw crops
+        resized and masks drawn on ``device``), and ``rgb_gt`` rescaled to
+        [-1, 1] per shard."""
         return self.prepare_batch_device(self.prepare_batch_host(batch), num_shards, device)
 
     def init_net(
@@ -450,6 +470,10 @@ class PoseAutoencoder:
         net = flax_like_init_(self.build_net(), generator)
         cast_compute_dtype(net, self.compute_dtype)
         return net.to(device=device, memory_format=torch.channels_last)
+
+
+# batches that ``prepare_batch_device`` prepared, by image contract ("raw", "float")
+batch_contracts: collections.Counter = collections.Counter()
 
 
 def rescale_minmax(x: torch.Tensor, num_shards: int = 1) -> torch.Tensor:

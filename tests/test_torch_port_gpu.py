@@ -903,3 +903,47 @@ def test_tiny_trainer_fit_card_matches_cpu(cuda, tmp_path, monkeypatch):
         for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss_obj"):
             assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (got["step"], k, got[k],
                                                                          want[k])
+
+
+def test_raw_crop_prepare_batch_card_matches_cpu(cuda):
+    """The raw-crop branch of ``prepare_batch`` at the flagship's shape
+    (batch 16, 400x400 uint8 buffers, output 256): crop-resize, mask and
+    rescale on the card against the CPU's. Masks bit-equal, ``rgb_gt``
+    within 1e-5 (the same float32 arithmetic on both)."""
+    from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
+    from generative_detection_tpu_torch.models import autoencoder
+
+    model = instantiate_from_config(merge_configs(
+        [str(REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml")])["model"])
+    batch = raw_crop_batch(16, 256, seed=4)
+    before = autoencoder.batch_contracts["raw"]
+    got = model.prepare_batch(batch, device="cuda")
+    want = model.prepare_batch(batch, device="cpu")
+    assert autoencoder.batch_contracts["raw"] == before + 2
+    assert got["rgb_gt"].shape == (16, 256, 256, 3) and got["rgb_gt"].is_cuda
+    assert torch.equal(got["mask_2d_bbox"].cpu(), want["mask_2d_bbox"])
+    assert 0 < float(want["mask_2d_bbox"].mean()) < 1
+    assert (got["rgb_gt"].cpu() - want["rgb_gt"]).abs().max().item() <= 1e-5
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+
+
+def test_eval_cli_card_matches_cpu(cuda, tmp_path):
+    """``eval_cli`` on tiny_cpu.yaml, on the card and with ``--device cpu``,
+    in both image contracts: the metrics within the tiny card-vs-CPU
+    tolerances (PERF.md section 2: 1e-3 relative for PSNR and KL, boxes
+    1e-3, so the box metrics 1e-3 relative plus 1e-3 absolute)."""
+    from generative_detection_tpu_torch import eval_cli
+
+    tiny = str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")
+    for raw in (False, True):
+        dotlist = ["data.params.validation.params.device_preprocess=true"] if raw else []
+        card = eval_cli.main(["-b", tiny, "--limit", "2", *dotlist])
+        cpu = eval_cli.main(["-b", tiny, "--limit", "2", "--device", "cpu", *dotlist])
+        assert list(card) == list(cpu)
+        for k, want in cpu.items():
+            if k == "split":
+                assert card[k] == want
+            else:
+                assert abs(card[k] - want) <= 1e-3 * abs(want) + (0 if k in ("psnr", "kl")
+                                                                  else 1e-3), (raw, k)

@@ -159,9 +159,9 @@ def test_pose_configs_build_port_objects(name):
     "target",
     [
         "src.modules.losses.LPIPSWithDiscriminator",
-        "generative_detection_tpu.data.nuscenes.NuScenesTrain",
-        "src.data.datasets.nuscenes.NuScenesValidation",
-        "generative_detection_tpu.data.waymo.WaymoTrain",
+        "generative_detection_tpu.models.autoencoder.Autoencoder",
+        "src.models.autoencoder.Autoencoder",
+        "generative_detection_tpu.losses.contperceptual.LPIPSWithDiscriminator",
     ],
 )
 def test_unported_targets_raise(target):
