@@ -120,7 +120,25 @@ Phases (any failure raises and exits non-zero, before the result line):
    printed: the native libjpeg region decoder where libjpeg's header is
    installed, else PIL's whole-frame decode); the phase deletes its
    directories;
-10. one {"kernels": [...]} line, the nvidia-smi line, and last
+10. export_and_interop, the serving export and reference checkpoints: (a)
+   three batch-polymorphic artifacts of the flagship detector
+   (export_detector with batch=None: bf16, bf16 with GDT_FUSE_INFERENCE=1,
+   fp32), each exported, loaded (load_detector) and run at batch 1, 8 and
+   32 beside the live make_detector_fn, a request of each in turn: outputs
+   held against the live ones (fp32: boxes 1e-3, equal classes, scores
+   1e-5; bf16: equal classes, box sizes, yaw and scores within 3e-2 / 5e-2,
+   centres finite), the launches a request equal to the live path's (28
+   GroupNorm and 3 attention; fused 4 GroupNorm, 24 B6 and their affines;
+   fp32 also the split-precision attention), export and load seconds, blob
+   bytes, p50s side by side, and the detector phase's bf16 p50s beside
+   them; the fp32 artifact also against the CPU's plain detector under
+   PyTorch's default TF32 flags (it must run IEEE); (b) the flagship's
+   weights written as a reference .ckpt (export_pose_autoencoder,
+   save_torch_checkpoint) and a second model built through ckpt_path with
+   ignore_keys ["pose_encoder"]: every tensor bit-equal, the ignored ones
+   its own init. The gdt operators' dispatch cost alone is measured by
+   tools/op_dispatch_cost.py;
+11. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Every phase that sets a switch restores the environment after it.
@@ -146,6 +164,7 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -162,7 +181,10 @@ from generative_detection_tpu_torch import eval_cli, train_cli
 from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
 from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
 from generative_detection_tpu_torch.data.datamodule import THREAD_NAME
-from generative_detection_tpu_torch.serving import make_detector_fn
+from generative_detection_tpu_torch.serving import export_detector, load_detector, make_detector_fn
+from generative_detection_tpu_torch.utils.torch_compat import (
+    export_pose_autoencoder, save_torch_checkpoint,
+)
 from generative_detection_tpu_torch.train import create_train_state, make_train_step
 from generative_detection_tpu_torch.train.callbacks import Callback
 
@@ -609,7 +631,7 @@ def gn_bwd_case(g, hw, c, act, dtype):
     beta = 0.1 * torch.randn(c, device="cuda", generator=g)
     _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, act)
     _, mean, rstd = norm._gn_forward_reference(x, gamma, beta, 32, 1e-6, act)
-    args = (x, dy, (partial,), gamma, beta, 32, 1e-6, act)
+    args = (x, dy, partial, gamma, beta, 32, 1e-6, act)
     dx, dgamma, dbeta = norm.group_norm_backward(*args)
     again = norm.group_norm_backward(*args)
     want = norm._gn_backward_reference(x, dy, mean, rstd, gamma, beta, act)
@@ -764,8 +786,8 @@ def _dname(dtype) -> str:
 
 def gn_affine_case(g, hw, c, dtype, b=BATCH):
     x, gamma, beta, _, _ = _conv_inputs(g, b, hw, c, 128, dtype)
-    a, shift, (partial,) = norm.group_norm_affine(x, gamma, beta)
-    a2, shift2, (partial2,) = norm.group_norm_affine(x, gamma, beta)
+    a, shift, partial = norm.group_norm_affine(x, gamma, beta)
+    a2, shift2, partial2 = norm.group_norm_affine(x, gamma, beta)
     wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
     torch.cuda.synchronize()
     name = f"group_norm_affine {tuple(x.shape)} {dtype}"
@@ -1724,6 +1746,149 @@ def phase_device_preprocess_and_eval(train_p50_ms: dict, fit_p50_ms: float) -> N
         **fit_eval, "nuscenes_fixture": nusc, "phase_wall_s": time.perf_counter() - t0,
     })
 
+EXPORT_REQUESTS = {1: 20, 8: 20, 32: 10}  # timed requests by batch (after 3 warm-ups)
+# the bf16 detector's agreement of tests/test_torch_port_detector.py: box
+# sizes, yaw and scores; centres (ill-conditioned under bf16 rounding) finite
+BF16_TOL = dict(rtol=3e-2, atol=5e-2)
+
+
+def _hold_loaded(label: str, dtype: str, got, want) -> dict:
+    """The loaded artifact's outputs against the live detector's: fp32 at
+    the detector phase's limits, bf16 at BF16_TOL; classes equal in both."""
+    got, want = [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want]
+    require(got[0].shape == want[0].shape and np.isfinite(got[0]).all()
+            and np.isfinite(got[2]).all(), f"{label}: loaded output misshapen or not finite")
+    np.testing.assert_array_equal(got[1], want[1], err_msg=f"{label} classes")
+    if dtype == "float32":
+        np.testing.assert_allclose(got[0], want[0], err_msg=f"{label} boxes", **BOX_TOL)
+        np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-5, err_msg=f"{label} scores")
+    else:
+        np.testing.assert_allclose(got[0][:, 3:], want[0][:, 3:], err_msg=f"{label} boxes",
+                                   **BF16_TOL)
+        np.testing.assert_allclose(got[2], want[2], err_msg=f"{label} scores", **BF16_TOL)
+    return {"boxes_max_abs_diff": float(np.abs(got[0] - want[0]).max()),
+            "score_max_abs_diff": float(np.abs(got[2] - want[2]).max()),
+            "bit_equal": all(np.array_equal(g, w) for g, w in zip(got, want))}
+
+
+def _export_case(label: str, dtype: str, fuse: bool, expect: dict) -> dict:
+    """Export the flagship detector (batch-polymorphic, ``dtype``, the fused
+    convs when ``fuse``), load it, and serve batch 1, 8 and 32 from the one
+    artifact beside the live ``make_detector_fn``: agreement, launches a
+    request equal to the live path's and to ``expect``, p50s side by side."""
+    with switches(GDT_FUSE_INFERENCE="1" if fuse else "0"):
+        model, net, hmin, hmax = flagship_detector()
+        t0 = time.perf_counter()
+        blob = export_detector(model, net, hmin, hmax, batch=None, dtype=dtype)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        detect = load_detector(blob)
+        load_s = time.perf_counter() - t0
+        live = make_detector_fn(model, net, hmin, hmax, 256, dtype=dtype)
+        out = {"phase": "export_and_interop", "artifact": label, "export_s": export_s,
+               "blob_bytes": len(blob), "load_s": load_s, "metadata": detect.metadata}
+        if dtype == "float32":  # IEEE under the default flags: the CPU's plain detector
+            require_default_tf32(f"export_{label}")
+            args = detector_inputs(2, 99)
+            cpu = make_detector_fn(model, net, hmin, hmax, 256, dtype=dtype, device="cpu")
+            out["vs_cpu_batch_2"] = _hold_loaded(f"{label} vs cpu", dtype, detect(*args),
+                                                 cpu(*args))
+            require_default_tf32(f"export_{label}")
+        for b, n in EXPORT_REQUESTS.items():
+            inputs = [torch.as_tensor(a, device="cuda") for a in detector_inputs(b, b)]
+            counts, lat = {}, {"live": [], "loaded": []}
+            for i in range(n + 3):  # the first 3 requests of each warm up
+                for name, fn in (("live", live), ("loaded", detect)):
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    res = fn(*inputs)
+                    torch.cuda.synchronize()
+                    if i >= 3:
+                        lat[name].append(time.perf_counter() - t0)
+                    counts[name] = read_counts()
+                    if name == "live":
+                        want = res
+            require(counts["loaded"] == counts["live"],
+                    f"{label} batch {b}: loaded launches {counts['loaded']} != live "
+                    f"{counts['live']}")
+            for name in COUNTED:
+                require(counts["loaded"][name] == expect.get(name, 0),
+                        f"{label} batch {b} {name} launches {counts['loaded'][name]} != "
+                        f"{expect.get(name, 0)}")
+            require_no_copies(label, counts["loaded"])
+            out[f"batch_{b}"] = {
+                "requests": n, **_hold_loaded(f"{label} batch {b}", dtype, res, want),
+                "p50_ms": {k: statistics.median(v) * 1e3 for k, v in lat.items()},
+                "launches_per_request": {k: v for k, v in counts["loaded"].items() if v},
+            }
+        del detect, live, blob, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def _ckpt_round_trip(tmp: Path) -> dict:
+    """The flagship's seeded weights and loss written as a reference .ckpt,
+    then a second model built through ``ckpt_path`` with ``ignore_keys``
+    ["pose_encoder"]: every tensor bit-equal to the first's, the ignored
+    ones its own init."""
+    model, net, _, _ = flagship_detector()
+    loss = model.build_loss()
+    t0 = time.perf_counter()
+    path = tmp / "flagship.ckpt"
+    save_torch_checkpoint(str(path), export_pose_autoencoder(net, loss), global_step=0)
+    write_s = time.perf_counter() - t0
+    cfg = merge_configs([str(FLAGSHIP)])
+    cfg["model"]["params"].update(ckpt_path=str(path), ignore_keys=["pose_encoder"])
+    model2 = instantiate_from_config(cfg["model"])
+    net2 = model2.init_net(torch.Generator().manual_seed(1), device="cuda")
+    init = {k: v.clone() for k, v in net2.state_dict().items()}
+    loss2 = model2.build_loss()
+    t0 = time.perf_counter()
+    model2.maybe_init_from_ckpt(net2, loss2)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = net.state_dict()
+    ignored = 0
+    for k, v in net2.state_dict().items():
+        kept = k.startswith("pose_encoder")
+        ignored += kept
+        require(torch.equal(v, init[k] if kept else want[k]),
+                f"ckpt round trip: {k} is not {'its init' if kept else 'the file'}'s")
+    require(ignored > 0 and torch.equal(loss2.logvar, loss.logvar)
+            and torch.equal(loss2.discriminator.main[0].weight, loss.discriminator.main[0].weight),
+            "ckpt round trip: the loss did not load")
+    return {"ckpt_bytes": path.stat().st_size, "write_s": write_s, "load_s": load_s,
+            "tensors": len(want), "ignored": ignored, "bit_equal": True}
+
+
+def phase_export_and_interop(det_p50_ms: dict, expect: dict) -> dict:
+    """Serving export and reference checkpoints (see the module docstring):
+    three flagship artifacts against the live detector, and the .ckpt
+    round trip. ``det_p50_ms``: the detector phase's
+    bf16 p50 by batch, printed beside the live p50s here; ``expect``: the
+    launches a request of each artifact."""
+    t0 = time.perf_counter()
+    cases = {label: _export_case(label, dtype, fuse, expect[label])
+             for label, dtype, fuse in (("bf16", "bfloat16", False),
+                                        ("bf16_fused", "bfloat16", True),
+                                        ("fp32", "float32", False))}
+    tmp = Path(tempfile.mkdtemp(prefix="gdt_ckpt_"))
+    try:
+        ckpt = _ckpt_round_trip(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {
+        "phase": "export_and_interop", "ckpt_round_trip": ckpt,
+        "p50_ms_live_vs_loaded": {label: {b: c[f"batch_{b}"]["p50_ms"] for b in EXPORT_REQUESTS}
+                                  for label, c in cases.items()},
+        "detector_phase_bf16_p50_ms": det_p50_ms, "phase_wall_s": time.perf_counter() - t0,
+    }
+    emit(summary)
+    return summary
+
+
 def _largest(cases, name, dtype=torch.bfloat16):
     """The ``dtype`` case of ``name`` with the most work (shape product)."""
     keys = [k for k in cases if k[0] == name and k[-1] == dtype]
@@ -1957,6 +2122,13 @@ def main() -> int:
     fit, fit_p50 = phase_fit_synthetic_smoke()
     phase_device_preprocess_and_eval({"train_bf16": train["result"]["p50_ms"],
                                       "train_fp32": train_fp32["result"]["p50_ms"]}, fit_p50)
+    phase_export_and_interop(
+        {b: r["p50_ms"] for b, r in det["results"].items()},
+        {"bf16": {"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD},
+         "bf16_fused": {"group_norm": n_det_gn, "attention": ATTN_PER_FORWARD,
+                        "fused_conv": n_b6, "group_norm_affine": n_b6},
+         "fp32": {"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
+                  "attention_split": n_split_det, "attention_split_512": n_split_det_512}})
     emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
                       train_fused_fp32, step_sums, fit))
     print(smi, flush=True)

@@ -7,6 +7,7 @@ stays the reference the port is tested against. This package imports
 
 Kernels: every Pallas kernel on a ported path becomes a hand-written CUDA
 kernel under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
-(``ops/_build.py``). A kernel wrapper runs its plain PyTorch version for a
-CPU tensor and launches the kernel for a CUDA tensor, or raises.
+(``ops/_build.py``), and runs as a ``torch.library`` operator of the ``gdt``
+namespace (``ops/library.py``): its plain PyTorch version for a CPU tensor,
+the kernel for a CUDA tensor, or it raises.
 """

@@ -17,12 +17,12 @@ its own pseudo-frame.
 
 ``-b`` base YAMLs and ``a.b=c`` dotlist overrides as in ``train_cli``; ``-r``
 restores the network's parameters alone (a run directory or its
-``checkpoints/``); without it the network is initialised from ``-s``.
-``--device {cuda,cpu}`` (default cuda); ``lightning.trainer.accelerator:
-cpu`` in the config selects the CPU too. The forward's random draws are made
-on the CPU from ``-s``, so the card and the CPU see the same draws. One card,
-no mesh; ``ckpt_path`` in the model config raises (reference checkpoints are
-not read yet).
+``checkpoints/``); without it the network is initialised from ``-s``, and
+``ckpt_path`` in the model config (a reference ``.ckpt``; ``ignore_keys`` the
+prefixes it skips) loads over it. ``--device {cuda,cpu}`` (default cuda);
+``lightning.trainer.accelerator: cpu`` in the config selects the CPU too. The
+forward's random draws are made on the CPU from ``-s``, so the card and the
+CPU see the same draws. One card, no mesh.
 """
 
 from __future__ import annotations
@@ -139,6 +139,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         logging.info("Restored checkpoint params at step %d", start_step)
     else:
         net = flax_like_net(model, torch.Generator().manual_seed(opt.seed), device)
+        model.maybe_init_from_ckpt(net)
         start_step = 0
     net.eval()
 

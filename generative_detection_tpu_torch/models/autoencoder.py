@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import collections
+import logging
 import os
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -244,7 +245,10 @@ class PoseAutoencoder:
     """Config-facing wrapper with the reference constructor surface. It
     keeps the configuration; ``build_net``/``init_net`` make networks.
     ``learning_rate`` is the base rate until the training entry point scales
-    it."""
+    it. ``ckpt_path`` names a reference checkpoint (``ignore_keys`` the key
+    prefixes to skip) that every entry point building a state loads over its
+    initial weights (``maybe_init_from_ckpt``), as the reference loads it at
+    construction."""
 
     learning_rate: float = 4.5e-6
 
@@ -279,11 +283,8 @@ class PoseAutoencoder:
         lpips_weights_path=None,
         input_size=256,
     ):
-        if ckpt_path:
-            raise NotImplementedError(
-                "ckpt_path: loading reference checkpoints comes with the interop "
-                "slice; load a state_dict into init_net()'s network instead"
-            )
+        self.ckpt_path = ckpt_path
+        self.ignore_keys = tuple(ignore_keys or ())
         self.input_size = input_size
         self.image_rgb_key = image_rgb_key
         self.image_mask_key = image_mask_key
@@ -322,6 +323,37 @@ class PoseAutoencoder:
             loss_params, train_on_yaw=train_on_yaw, prior_means=prior_means,
             prior_logvars=prior_logvars,
         )
+
+    def init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module], path: str,
+                       ignore_keys: Sequence[str] = ()):
+        """Overlay the reference checkpoint at ``path`` onto ``net`` (and
+        ``loss``) in place, ldm's ``init_from_ckpt``: keys under
+        ``ignore_keys`` (else the wrapper's) dropped, the rest loaded with
+        strict=False into each module's dtype and device (a shape that
+        differs raises; missing and unexpected keys are logged). Returns
+        (net, loss)."""
+        from ..utils.torch_compat import (
+            filter_ignore_keys, load_overlay, load_torch_state_dict, split_loss,
+        )
+
+        sd = filter_ignore_keys(load_torch_state_dict(path), ignore_keys or self.ignore_keys)
+        net_sd, loss_sd = split_loss(sd)
+        load_overlay(net, net_sd, "the network")
+        if loss is not None and loss_sd:
+            load_overlay(loss, loss_sd, "the loss")
+        return net, loss
+
+    def maybe_init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module] = None):
+        """``init_from_ckpt`` from ``ckpt_path`` when it is set, else nothing.
+        Called by every entry point that builds a state from a seed (the
+        train state, the Trainer's fit and forward-only loops, the eval CLI
+        without ``-r``); the detector and its export serve the weights they
+        are given, so a caller applies it before them. Returns (net, loss)."""
+        if not self.ckpt_path:
+            return net, loss
+        logging.info("Initializing from torch checkpoint %s (ignore_keys=%s)",
+                     self.ckpt_path, list(self.ignore_keys))
+        return self.init_from_ckpt(net, loss, self.ckpt_path, self.ignore_keys)
 
     def build_net(self, fuse: bool = False) -> PoseAutoencoderNet:
         """A float32 network on the CPU with PyTorch's default init (for

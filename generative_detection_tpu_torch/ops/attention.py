@@ -2,11 +2,13 @@
 
     o = softmax(q k^T * C^-0.5) v      (no output scale)
 
-``single_head_attention`` takes CPU tensors through the plain PyTorch versions
+Every call goes through an operator of ``torch.ops.gdt`` (``ops/library.py``):
+``gdt::attention_fwd``, ``flash_attention_fwd`` and ``attention_bwd``. The
+dispatcher sends CPU tensors to the plain PyTorch versions
 (``_attention_reference``, ``_attention_backward_reference``, materialized
-logits) and CUDA tensors through the hand-written kernels in
-``csrc/attention.cu`` (forward) and ``csrc/attention_bwd.cu`` (backward), or
-raises. When autograd needs the result, the call goes through
+logits) and CUDA tensors to the hand-written kernels in
+``csrc/attention.cu`` (forward) and ``csrc/attention_bwd.cu`` (backward),
+which raise where they cannot run. When autograd needs the result, the call goes through
 ``_AttentionFn``, whose forward keeps (q, k, v, o, lse).
 
 Kernel notes:
@@ -176,17 +178,30 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(*tensors):
-    """Raise unless the kernels take (B, L, C) ``tensors``: float32 or
+def _check_inputs(q):
+    """Raise unless the kernels take (B, L, C) inputs like ``q``: float32 or
     bfloat16, C <= 512 (other L and C go through ``kernel_shape``'s
-    padding), contiguous and 16-byte aligned."""
-    _, l, c = tensors[0].shape
-    if tensors[0].dtype not in _DTYPES:
-        raise TypeError(f"attention kernel takes float32 or bfloat16, got {tensors[0].dtype}")
+    padding). Shape and dtype only: the wrappers check them where a tracer
+    sees them."""
+    _, l, c = q.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"attention kernel takes float32 or bfloat16, got {q.dtype}")
     kernel_shape(l, c)
+
+
+def _check_layout(*tensors):
+    """Raise unless every tensor is contiguous and 16-byte aligned (inside
+    the CUDA implementations, on the tensors the kernels read)."""
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention kernel takes contiguous, 16-byte aligned tensors")
+
+
+def _check_kernel_args(*tensors):
+    """Raise unless the kernels take (B, L, C) ``tensors``: the wrappers'
+    checks and the CUDA implementations' together."""
+    _check_inputs(tensors[0])
+    _check_layout(*tensors)
 
 
 def split_precision(q) -> bool:
@@ -231,7 +246,16 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, l_valid, scale):
+# ---------------------------------------------------------------------------
+# the operators' implementations (registered in ``ops/library.py``): the CUDA
+# ones launch the kernels on the grid's shapes and count, the CPU ones are the
+# plain versions, the fake ones give the outputs' shapes
+# ---------------------------------------------------------------------------
+
+
+def _attention_fwd_cuda(q, k, v, l_valid, scale):
+    """``gdt::attention_fwd`` on the card: (o, lse)."""
+    _check_layout(q, k, v)
     b, l, c = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, l), dtype=torch.float32, device=q.device)
@@ -247,12 +271,17 @@ def _launch_fwd(q, k, v, l_valid, scale):
     return o, lse
 
 
-def _attention_cuda(q, k, v):
-    _check_kernel_args(q, k, v)
-    return _on_grid(_launch_fwd, (q, k, v))
+def _attention_fwd_cpu(q, k, v, l_valid, scale):
+    return _attention_reference(q, k, v, l_valid, scale)
 
 
-def _launch_flash(q, k, v, l_valid, scale):
+def _attention_fwd_fake(q, k, v, l_valid, scale):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def _flash_attention_fwd_cuda(q, k, v, l_valid, scale):
+    """``gdt::flash_attention_fwd`` on the card: o."""
+    _check_layout(q, k, v)
     b, l, c = q.shape
     o = torch.empty_like(q)
     scratch = _split_scratch(q)
@@ -267,22 +296,17 @@ def _launch_flash(q, k, v, l_valid, scale):
     return o
 
 
-def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Forward-only softmax(q k^T / sqrt(C)) v over (B, L, C) with every
-    product to fp32 accuracy whatever the input dtype (the counterpart of
-    the JAX package's ``_attention_pallas``). Not differentiable."""
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash attention takes equal (B, L, C) q, k, v, got {q.shape}")
-    if q.device.type == "cpu":
-        return _flash_reference(q, k, v)
-    _check_kernel_args(q, k, v)
-    return _on_grid(_launch_flash, (q, k, v))
+def _flash_attention_fwd_cpu(q, k, v, l_valid, scale):
+    return _flash_reference(q, k, v, l_valid, scale)
 
 
-flash_attention_forward.launches = 0
+def _flash_attention_fwd_fake(q, k, v, l_valid, scale):
+    return torch.empty_like(q)
 
 
-def _launch_bwd(q, k, v, do, lse, di, l_valid, scale):
+def _attention_bwd_cuda(q, k, v, do, lse, di, l_valid, scale):
+    """``gdt::attention_bwd`` on the card: (dq, dk, dv)."""
+    _check_layout(q, k, v, do, lse, di)
     b, l, c = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     scratch = _split_scratch(q, backward=True)
@@ -300,23 +324,59 @@ def _launch_bwd(q, k, v, do, lse, di, l_valid, scale):
     return dq, dk, dv
 
 
+def _attention_bwd_cpu(q, k, v, do, lse, di, l_valid, scale):
+    return _attention_backward_reference(q, k, v, do, lse, di, l_valid, scale)
+
+
+def _attention_bwd_fake(q, k, v, do, lse, di, l_valid, scale):
+    return tuple(torch.empty_like(q) for _ in range(3))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: every kernel runs through an operator of ``torch.ops.gdt``;
+# on the card the inputs are padded to the kernels' grid first
+# ---------------------------------------------------------------------------
+
+
+def _plain_args(q):
+    """The true length and scale that a CPU call hands its operator."""
+    _, l, c = q.shape
+    return l, c ** -0.5
+
+
+def _attention_cuda(q, k, v):
+    _check_inputs(q)
+    return _on_grid(torch.ops.gdt.attention_fwd, (q, k, v))
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Forward-only softmax(q k^T / sqrt(C)) v over (B, L, C) with every
+    product to fp32 accuracy whatever the input dtype (the counterpart of
+    the JAX package's ``_attention_pallas``). Not differentiable."""
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash attention takes equal (B, L, C) q, k, v, got {q.shape}")
+    if q.device.type == "cuda":
+        _check_inputs(q)
+        return _on_grid(torch.ops.gdt.flash_attention_fwd, (q, k, v))
+    return torch.ops.gdt.flash_attention_fwd(q, k, v, *_plain_args(q))
+
+
+flash_attention_forward.launches = 0
+
+
 def _attention_backward_cuda(q, k, v, do, lse, di):
-    _check_kernel_args(q, k, v, do)
+    _check_inputs(q)
     b, l, _ = q.shape
     for name, t in (("lse", lse), ("di", di)):
-        if (t.shape != (b, l) or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"attention backward: {name} must be contiguous, 16-byte "
-                             f"aligned float32 ({b}, {l})")
-    return _on_grid(_launch_bwd, (q, k, v, do), (lse, di))
+        if t.shape != (b, l) or t.dtype != torch.float32:
+            raise ValueError(f"attention backward: {name} must be float32 ({b}, {l})")
+    return _on_grid(torch.ops.gdt.attention_bwd, (q, k, v, do), (lse, di))
 
 
 def _attention_forward(q, k, v):
-    if q.device.type == "cpu":
-        return _attention_reference(q, k, v)
     if q.device.type == "cuda":
         return _attention_cuda(q, k, v)
-    raise ValueError(f"attention runs on cpu or cuda, got {q.device}")
+    return torch.ops.gdt.attention_fwd(q, k, v, *_plain_args(q))
 
 
 def attention_backward(q, k, v, o, lse, do):
@@ -325,8 +385,8 @@ def attention_backward(q, k, v, o, lse, do):
     if do.dtype != q.dtype or do.shape != q.shape:
         raise ValueError("attention backward: do must match q in shape and dtype")
     di = (do.float() * o.float()).sum(dim=-1)
-    if q.device.type == "cpu":
-        return _attention_backward_reference(q, k, v, do, lse, di)
+    if q.device.type != "cuda":
+        return torch.ops.gdt.attention_bwd(q, k, v, do, lse, di, *_plain_args(q))
     if not do.is_contiguous():
         do = do.contiguous()
         attention_backward.grad_copies += 1

@@ -4,8 +4,13 @@ the GroupNorm+SiLU prologue, B6, and the row-Winograd forward and dgrad, B7)
 and ``csrc/conv3x3_wgrad.cu`` (the row-Winograd weight gradient, B8: bf16
 ``wgmma``, fp32 split-precision ``wgmma``).
 
-These launch and check; they count nothing. The wrappers that own the
-launch counts are in ``ops.fused_conv`` and ``ops.winograd_rows``.
+``_launch_wino`` and ``_launch_wgrad`` check and launch; they count nothing
+and run only inside the CUDA implementations of the ``gdt`` operators, which
+live beside their launch counts in ``ops.fused_conv`` (``gdt::fused_conv``,
+``fused_conv_z``) and ``ops.winograd_rows`` (``gdt::wino_rows``,
+``wino_rows_dgrad``, ``wino_wgrad``). ``conv3x3_forward`` and
+``conv3x3_wgrad`` call those operators by kernel mode (the kernel tools'
+entry points).
 """
 
 from __future__ import annotations
@@ -95,28 +100,22 @@ def forward_shape_error(shape, co: int, dtype, mode: int, gn: bool = False,
     return None
 
 
-def conv3x3_forward(
-    x: torch.Tensor,
-    u: torch.Tensor,
-    bias: torch.Tensor,
-    mode: int,
-    gn_ab: Optional[tuple] = None,
-    emit_z: bool = False,
-):
+def _launch_wino(x, u, bias, ga, gb, mode: int, emit_z: bool):
     """Launch the forward kernel: x (B, H, W, C), u (P*3, C, CO) in x's dtype
     (P = 3 for ``mode`` 1, the direct kernel; mode + 2 for F(mode,3)), bias
-    (CO,) fp32, ``gn_ab`` the (B, C) fp32 GroupNorm affine of the prologue.
+    (CO,), ``ga``/``gb`` the (B, C) GroupNorm affine of the prologue or None.
     Every mode takes ``csrc/conv3x3_wino.cu``; in fp32 a pre-pass splits u
     into three bf16 pieces, in scratch allocated here
-    (``forward_shape_error`` gives the shapes it takes). Returns out (B, H,
-    W, CO), and z (B, H, W, C) with ``emit_z``."""
+    (``forward_shape_error`` gives the shapes it takes). Returns (out (B, H,
+    W, CO), z (B, H, W, C) with ``emit_z``, else None)."""
     b, h, w, c = x.shape
     co = u.shape[-1]
     pts = 3 if mode == 1 else mode + 2
+    gn = ga is not None
     bias = bias.float().contiguous()
-    ga, gb = _affine_args(gn_ab, b, c, x.device)
+    ga, gb = _affine_args((ga, gb) if gn else None, b, c, x.device)
     _check(x, u, bias, ga, gb, dtype=x.dtype)
-    err = forward_shape_error(x.shape, co, x.dtype, mode, gn_ab is not None, emit_z)
+    err = forward_shape_error(x.shape, co, x.dtype, mode, gn, emit_z)
     if err is None and (u.shape != (pts * 3, c, co) or u.dtype != x.dtype):
         err = f"u must be ({pts * 3}, {c}, {co}) {x.dtype}, got {tuple(u.shape)} {u.dtype}"
     if err is not None:
@@ -132,9 +131,37 @@ def conv3x3_forward(
     lib = _wino_lib()
     rc = lib.gdt_conv3x3_wino(*ptrs, z.data_ptr() if z is not None else None,
                               pieces.data_ptr() if pieces is not None else None, b, h, w, c, co,
-                              mode, int(gn_ab is not None), int(emit_z), _DTYPES[x.dtype], stream)
+                              mode, int(gn), int(emit_z), _DTYPES[x.dtype], stream)
     _build.check(lib, rc, "conv3x3 kernel launch")
-    return (out, z) if emit_z else out
+    return out, z
+
+
+def conv3x3_forward(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    bias: torch.Tensor,
+    mode: int,
+    gn_ab: Optional[tuple] = None,
+    emit_z: bool = False,
+):
+    """The forward kernel of ``mode`` through its operator: 1, the direct
+    conv with the GroupNorm prologue (B6, ``gdt::fused_conv``, or
+    ``fused_conv_z`` with ``emit_z``); 2 or 4, the row-Winograd conv F(mode,3)
+    (B7, ``gdt::wino_rows``). x (B, H, W, C), u (P*3, C, CO) in x's dtype,
+    bias (CO,), ``gn_ab`` the (B, C) GroupNorm affine of the prologue.
+    Returns out (B, H, W, CO), and z (B, H, W, C) with ``emit_z``."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv3x3 kernels take float32 or bfloat16, got {x.dtype}")
+    err = forward_shape_error(x.shape, u.shape[-1], x.dtype, mode, gn_ab is not None, emit_z)
+    if err is not None:
+        raise ValueError(err)
+    ga, gb = gn_ab if gn_ab is not None else (None, None)
+    if mode != 1:
+        return torch.ops.gdt.wino_rows(x, u, bias, ga, gb, mode)
+    w = u.reshape(3, 3, *u.shape[1:])
+    if emit_z:
+        return torch.ops.gdt.fused_conv_z(x, w, bias, ga, gb)
+    return torch.ops.gdt.fused_conv(x, w, bias, ga, gb)
 
 
 def wgrad_shape_error(shape, co: int, dtype, m: int) -> Optional[str]:
@@ -162,15 +189,14 @@ def _wgrad_splits(b: int, h: int, w: int, c: int, co: int, m: int, dtype) -> int
     return max(1, min(splits, chunks))
 
 
-def conv3x3_wgrad(
-    z: torch.Tensor, dy: torch.Tensor, m: int, gn_ab: Optional[tuple] = None
-) -> torch.Tensor:
-    """Launch ``csrc/conv3x3_wgrad.cu``: z (B, H, W, C) (raw x with
-    ``gn_ab``), dy (B, H, W, CO) in z's dtype (bf16: TMA + ``wgmma``; fp32:
-    split-precision ``wgmma``; any W). Returns dU ((m+2)*3, C, CO) float32."""
+def _launch_wgrad(z, dy, ga, gb, m: int) -> torch.Tensor:
+    """Launch ``csrc/conv3x3_wgrad.cu``: z (B, H, W, C) (raw x with the
+    affine ``ga``/``gb``), dy (B, H, W, CO) in z's dtype (bf16: TMA +
+    ``wgmma``; fp32: split-precision ``wgmma``; any W), the split-K partials
+    allocated here. Returns dU ((m+2)*3, C, CO) float32."""
     b, h, w, c = z.shape
     co = dy.shape[-1]
-    ga, gb = _affine_args(gn_ab, b, c, z.device)
+    ga, gb = _affine_args((ga, gb) if ga is not None else None, b, c, z.device)
     _check(z, dy, ga, gb, dtype=z.dtype)
     err = wgrad_shape_error(z.shape, co, z.dtype, m)
     if err is None and (dy.shape != (b, h, w, co) or dy.dtype != z.dtype):
@@ -186,8 +212,18 @@ def conv3x3_wgrad(
         z.data_ptr(), dy.data_ptr(),
         ga.data_ptr() if ga is not None else None,
         gb.data_ptr() if gb is not None else None,
-        part.data_ptr(), du.data_ptr(), b, h, w, c, co, m, int(gn_ab is not None), splits,
+        part.data_ptr(), du.data_ptr(), b, h, w, c, co, m, int(ga is not None), splits,
         _DTYPES[z.dtype], torch.cuda.current_stream(z.device).cuda_stream,
     )
     _build.check(lib, rc, "conv3x3 wgrad kernel launch")
     return du
+
+
+def conv3x3_wgrad(
+    z: torch.Tensor, dy: torch.Tensor, m: int, gn_ab: Optional[tuple] = None
+) -> torch.Tensor:
+    """The weight-gradient kernel through ``gdt::wino_wgrad``: z (B, H, W, C)
+    (raw x with ``gn_ab``), dy (B, H, W, CO) in z's dtype. Returns dU
+    ((m+2)*3, C, CO) float32."""
+    ga, gb = gn_ab if gn_ab is not None else (None, None)
+    return torch.ops.gdt.wino_wgrad(z, dy, ga, gb, m)

@@ -3,10 +3,11 @@ package), over NHWC activations and HWIO (3, 3, C, CO) kernels.
 
 ``gn_silu_conv`` computes the per-(image, channel) affine (a, b) of the
 GroupNorm (``norm.group_norm_affine``: the stats kernel on the card), then
-conv(silu(x a + b)) + bias with the activation made inside the convolution:
-on the card ``fused_conv_wgmma_kernel`` of ``csrc/conv3x3_wino.cu`` in bf16
-(``fused_conv_split_wgmma_kernel``, the same pipeline on split precision, in
-fp32), on the CPU the plain ``gn_silu_conv_reference``. Two backward variants, one
+conv(silu(x a + b)) + bias with the activation made inside the convolution,
+through the operator ``gdt::fused_conv`` (``fused_conv_z`` when the training
+variant keeps z): on the card ``fused_conv_wgmma_kernel`` of
+``csrc/conv3x3_wino.cu`` in bf16 (``fused_conv_split_wgmma_kernel``, the same
+pipeline on split precision, in fp32), on the CPU the plain composite. Two backward variants, one
 ``torch.autograd.Function`` each, as the JAX package's two custom VJPs:
 
 - inference (``save_activation=False``, ``_make_fused_vjp``): the forward
@@ -37,7 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .conv3x3 import conv3x3_forward
+from .conv3x3 import _launch_wino
 from .norm import _gn_affine_reference, group_norm_affine, group_norm_backward
 
 # Per-program VMEM budget of the TPU kernel (bytes); routing only.
@@ -98,29 +99,67 @@ def gn_silu_conv_reference(x, gamma, beta, w, bias, num_groups: int = 32, eps: f
     return _conv_bias(_silu_affine(x, a, b), w, bias)
 
 
-def _fused_forward(x, a, b, w, bias, emit_z):
-    """(out, z) of the fused forward from the affine: the kernel on the card,
-    the plain version on the CPU. z is None unless ``emit_z``."""
-    if x.device.type == "cpu":
-        z = _silu_affine(x, a, b)
-        return _conv_bias(z, w, bias), (z if emit_z else None)
-    w9 = w.to(x.dtype).reshape(9, w.shape[2], w.shape[3]).contiguous()
-    res = conv3x3_forward(x, w9, bias, 1, gn_ab=(a, b), emit_z=emit_z)
+# the operators' implementations (registered in ``ops/library.py``): x (B, H,
+# W, C), w (3, 3, C, CO) HWIO, bias (CO,), ga/gb the (B, C) float32 affine
+
+
+def _w9(w, dtype):
+    """The kernel's (9, C, CO) taps in ``dtype``."""
+    return w.to(dtype).reshape(9, w.shape[2], w.shape[3]).contiguous()
+
+
+def _fused_conv_cuda(x, w, bias, ga, gb):
+    """``gdt::fused_conv`` on the card: B6, the output alone."""
+    out, _ = _launch_wino(x, _w9(w, x.dtype), bias, ga, gb, 1, False)
     gn_silu_conv.launches += 1
-    return res if emit_z else (res, None)
+    return out
+
+
+def _fused_conv_cpu(x, w, bias, ga, gb):
+    return _conv_bias(_silu_affine(x, ga, gb), w, bias)
+
+
+def _fused_conv_fake(x, w, bias, ga, gb):
+    return x.new_empty((*x.shape[:3], w.shape[-1]))
+
+
+def _fused_conv_z_cuda(x, w, bias, ga, gb):
+    """``gdt::fused_conv_z`` on the card: B6 writing the output and the
+    activation z."""
+    out, z = _launch_wino(x, _w9(w, x.dtype), bias, ga, gb, 1, True)
+    gn_silu_conv.launches += 1
+    return out, z
+
+
+def _fused_conv_z_cpu(x, w, bias, ga, gb):
+    z = _silu_affine(x, ga, gb)
+    return _conv_bias(z, w, bias), z
+
+
+def _fused_conv_z_fake(x, w, bias, ga, gb):
+    return _fused_conv_fake(x, w, bias, ga, gb), torch.empty_like(x)
+
+
+def _fused_forward(x, a, b, w, bias, emit_z):
+    """(out, z) of the fused forward from the affine through
+    ``gdt::fused_conv`` (``fused_conv_z`` with ``emit_z``): the kernel on the
+    card, the plain version on the CPU. z is None unless ``emit_z``."""
+    if emit_z:
+        return torch.ops.gdt.fused_conv_z(x, w, bias, a, b)
+    return torch.ops.gdt.fused_conv(x, w, bias, a, b), None
 
 
 def _fused_vjp_forward(ctx, x, gamma, beta, w, bias, num_groups, eps, save_activation):
     a, b, stats = group_norm_affine(x, gamma, beta, num_groups, eps)
     out, z = _fused_forward(x, a, b, w, bias, save_activation)
-    ctx.save_for_backward(x, gamma, beta, w, a, b, z, *stats)
+    ctx.save_for_backward(x, gamma, beta, w, a, b, z, stats)
     ctx.cfg = (num_groups, eps, bias.dtype)
     return out
 
 
 def _fused_vjp_backward(ctx, dy):
     """The vjp of the plain composite, from the saved z or a recomputed one."""
-    x, gamma, beta, w, a, b, z, *stats = ctx.saved_tensors
+    x, gamma, beta, w, a, b, z, stats = ctx.saved_tensors
     num_groups, eps, bias_dtype = ctx.cfg
     if z is None:
         z = _silu_affine(x, a, b)
@@ -183,10 +222,14 @@ def gn_silu_conv(
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     with torch.autocast(x.device.type, enabled=False):
-        if fused_eligible(x.shape, co, x.dtype, num_groups):
+        if not fused_eligible(x.shape, co, x.dtype, num_groups):
+            return gn_silu_conv_reference(x, gamma, beta, w, bias, num_groups, eps)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, w, bias)):
             fn = _FusedConvTrainFn if save_activation else _FusedConvFn
             return fn.apply(x, gamma, beta, w, bias, num_groups, eps)
-        return gn_silu_conv_reference(x, gamma, beta, w, bias, num_groups, eps)
+        # forward only: the affine without the backward's stats
+        a, b, _ = group_norm_affine(x, gamma, beta, num_groups, eps, keep_stats=False)
+        return _fused_forward(x, a, b, w, bias, False)[0]
 
 
 gn_silu_conv.launches = 0  # calls that launched the fused kernel (B6, either dtype)

@@ -1,13 +1,20 @@
 """GroupNorm(+SiLU) over NHWC feature maps, forward and backward.
 
-``group_norm`` takes a CPU tensor through the plain PyTorch versions
-(``_gn_reference``, ``_gn_backward_reference``) and a CUDA tensor through the
-hand-written kernels in ``csrc/group_norm.cu`` (forward) and
-``csrc/group_norm_bwd.cu`` (backward), or raises. There is no other path.
-When autograd needs the result, the call goes through ``_GroupNormFn``; its
-forward keeps the per-(image, group) statistics (the kernel's stats partials
-on the card, mean and rstd on the CPU) so the backward never recomputes
-them. Under ``torch.no_grad`` and ``inference_mode`` nothing is saved.
+Every call goes through an operator of ``torch.ops.gdt`` (``ops/library.py``):
+``gdt::group_norm``, ``group_norm_train``, ``group_norm_affine``,
+``group_norm_affine_train`` and ``group_norm_bwd``. The dispatcher sends a
+CPU tensor to the plain PyTorch versions (``_gn_reference``,
+``_gn_backward_reference``) and a CUDA tensor to the hand-written kernels in
+``csrc/group_norm.cu`` (forward) and ``csrc/group_norm_bwd.cu`` (backward),
+which raise where they cannot run. There is no other path. The CUDA
+implementation picks the forward's route from the concrete shape when it
+runs, so a traced graph (``torch.export``) holds one operator whatever the
+batch. When autograd needs the result, the call goes through
+``_GroupNormFn``; its forward keeps the per-(image, group) statistics (the
+kernel's stats partials on the card, mean and rstd on the CPU) so the
+backward never recomputes them. Under ``torch.no_grad`` and
+``inference_mode`` the stat-less ``gdt::group_norm`` runs and nothing is
+saved.
 
 Kernel notes:
 
@@ -324,59 +331,90 @@ def _check_kernel_args(x, gamma, beta, act):
         raise ValueError("group_norm kernel needs a 16-byte aligned tensor")
 
 
-def _gn_resident(x, gamma, beta, num_groups, eps, act, route):
-    """One launch of the resident kernel on ``route``: returns (y, partial)."""
-    b, h, w, c = x.shape
-    l, dev = h * w, x.device
-    m = route.cs // (c // num_groups)
-    partial = torch.empty(_partial_shape(b, l, num_groups), dtype=torch.float32, device=dev)
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    state, tags = _resident_state(dev, stream, b * (c // route.cs) * route.tiles * 2 * m)
-    lib = _lib()
-    rc = lib.gdt_group_norm_resident(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), partial.data_ptr(),
-        tags.data_ptr(), state.data_ptr(), b, l, c, num_groups, route.cs, route.tiles,
-        route.tile_rows, partial.shape[1], route.grid, eps, int(act == "silu"),
-        _DTYPES[x.dtype], stream,
-    )
-    _build.check(lib, rc, "group_norm resident kernel launch")
-    return y, partial
-
-
 def _route_of(x, num_groups):
     b, h, w, c = x.shape
     return forward_route(b, h * w, c, num_groups, x.element_size(), _sm_count(x.device.index))
 
 
-def _gn_cuda(x, gamma, beta, num_groups, eps, act):
-    """Forward kernel: returns (y, partial), ``partial`` the (B, tiles, 2, G)
-    float32 stats that the backward kernels fold again."""
+# ---------------------------------------------------------------------------
+# the operators' implementations (registered in ``ops/library.py``): the CUDA
+# ones launch the kernels and count, the CPU ones are the plain versions, the
+# fake ones give the outputs' shapes from the inputs' alone. A training op
+# also returns the ``stats`` its backward folds: the kernels' (B, tiles, 2, G)
+# partials on the card, (mean, rstd) stacked as (2, B, G) on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _gn_launch(x, gamma, beta, num_groups, eps, act):
+    """The forward kernels on the route the concrete shape picks (one
+    resident launch, or the two-pass kernels): returns (y, partial)."""
     _check_kernel_args(x, gamma, beta, act)
     gamma, beta = gamma.contiguous(), beta.contiguous()
     route = _route_of(x, num_groups)
-    if route.kind == "resident":
-        y, partial = _gn_resident(x, gamma, beta, num_groups, eps, act, route)
-        group_norm.launches += 1
-        return y, partial
     b, h, w, c = x.shape
-    l = h * w
-    rows, tiles = _tiling(b, l)
+    l, dev = h * w, x.device
     y = torch.empty_like(x)
-    partial = torch.empty((b, tiles, 2, num_groups), dtype=torch.float32, device=x.device)
+    partial = torch.empty(_partial_shape(b, l, num_groups), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
-    rc = lib.gdt_group_norm_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        partial.data_ptr(), b, l, c, num_groups, rows, tiles, eps,
-        int(act == "silu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, rc, "group_norm kernel launch")
+    if route.kind == "resident":
+        m = route.cs // (c // num_groups)
+        state, tags = _resident_state(dev, stream, b * (c // route.cs) * route.tiles * 2 * m)
+        rc = lib.gdt_group_norm_resident(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            tags.data_ptr(), state.data_ptr(), b, l, c, num_groups, route.cs, route.tiles,
+            route.tile_rows, partial.shape[1], route.grid, eps, int(act == "silu"),
+            _DTYPES[x.dtype], stream,
+        )
+        _build.check(lib, rc, "group_norm resident kernel launch")
+    else:
+        rows, tiles = _tiling(b, l)
+        rc = lib.gdt_group_norm_fwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), b, l, c, num_groups, rows, tiles, eps,
+            int(act == "silu"), _DTYPES[x.dtype], stream,
+        )
+        _build.check(lib, rc, "group_norm kernel launch")
+        group_norm.two_pass += 1
     group_norm.launches += 1
-    group_norm.two_pass += 1
     return y, partial
 
 
-def _gn_affine_cuda(x, gamma, beta, num_groups, eps):
+def _group_norm_cuda(x, gamma, beta, num_groups, eps, act):
+    """``gdt::group_norm`` on the card: y alone."""
+    return _gn_launch(x, gamma, beta, num_groups, eps, act)[0]
+
+
+def _group_norm_cpu(x, gamma, beta, num_groups, eps, act):
+    return _gn_reference(x, gamma, beta, num_groups, eps, act)
+
+
+def _group_norm_fake(x, gamma, beta, num_groups, eps, act):
+    return torch.empty_like(x)
+
+
+def _group_norm_train_cuda(x, gamma, beta, num_groups, eps, act):
+    """``gdt::group_norm_train`` on the card: (y, the kernels' partials)."""
+    return _gn_launch(x, gamma, beta, num_groups, eps, act)
+
+
+def _group_norm_train_cpu(x, gamma, beta, num_groups, eps, act):
+    y, mean, rstd = _gn_forward_reference(x, gamma, beta, num_groups, eps, act)
+    return y, torch.stack((mean, rstd))
+
+
+def _stats_like(x, num_groups):
+    """The stats of a training op for ``x``'s device, empty."""
+    b, h, w, _ = x.shape
+    shape = _partial_shape(b, h * w, num_groups) if x.device.type == "cuda" else (2, b, num_groups)
+    return x.new_empty(shape, dtype=torch.float32)
+
+
+def _group_norm_train_fake(x, gamma, beta, num_groups, eps, act):
+    return torch.empty_like(x), _stats_like(x, num_groups)
+
+
+def _gn_affine_launch(x, gamma, beta, num_groups, eps):
     """The stats pass and the affine fold: returns (a, b, partial)."""
     _check_kernel_args(x, gamma, beta, None)
     b, h, w, c = x.shape
@@ -397,39 +435,49 @@ def _gn_affine_cuda(x, gamma, beta, num_groups, eps):
     return a, shift, partial
 
 
-def group_norm_affine(x, gamma, beta, num_groups=32, eps=1e-6):
-    """The per-(image, channel) float32 affine (a, b) of GroupNorm over NHWC
-    ``x``, each (B, C), and the ``stats`` that ``group_norm_backward`` takes:
-    (mean, rstd) for a CPU tensor, the kernel's (partial,) for a CUDA one.
-    Not differentiable itself: the fused convolutions' backward uses
-    ``group_norm_backward``."""
-    if x.device.type == "cpu":
-        a, b, mean, rstd = _gn_affine_reference(x, gamma, beta, num_groups, eps)
-        return a, b, (mean, rstd)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_affine runs on cpu or cuda, got {x.device}")
-    a, b, partial = _gn_affine_cuda(x, gamma, beta, num_groups, eps)
-    return a, b, (partial,)
+def _group_norm_affine_cuda(x, gamma, beta, num_groups, eps):
+    """``gdt::group_norm_affine`` on the card: (a, b)."""
+    return _gn_affine_launch(x, gamma, beta, num_groups, eps)[:2]
 
 
-group_norm_affine.launches = 0  # calls that launched the stats + affine kernels
+def _group_norm_affine_cpu(x, gamma, beta, num_groups, eps):
+    return _gn_affine_reference(x, gamma, beta, num_groups, eps)[:2]
 
 
-def _gn_backward_cuda(x, dy, partial, gamma, beta, num_groups, eps, act):
-    """Backward kernels: returns (dx, dgamma, dbeta) from the forward's
-    stats ``partial``."""
+def _affine_like(x):
+    return x.new_empty((x.shape[0], x.shape[-1]), dtype=torch.float32)
+
+
+def _group_norm_affine_fake(x, gamma, beta, num_groups, eps):
+    return _affine_like(x), _affine_like(x)
+
+
+def _group_norm_affine_train_cuda(x, gamma, beta, num_groups, eps):
+    """``gdt::group_norm_affine_train`` on the card: (a, b, partials)."""
+    return _gn_affine_launch(x, gamma, beta, num_groups, eps)
+
+
+def _group_norm_affine_train_cpu(x, gamma, beta, num_groups, eps):
+    a, b, mean, rstd = _gn_affine_reference(x, gamma, beta, num_groups, eps)
+    return a, b, torch.stack((mean, rstd))
+
+
+def _group_norm_affine_train_fake(x, gamma, beta, num_groups, eps):
+    return _affine_like(x), _affine_like(x), _stats_like(x, num_groups)
+
+
+def _group_norm_bwd_cuda(x, dy, stats, gamma, beta, num_groups, eps, act):
+    """``gdt::group_norm_bwd`` on the card: (dx, (dgamma, dbeta) as one (2,
+    C) tensor) from the forward's partials."""
     _check_kernel_args(x, gamma, beta, act)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("group_norm backward: dy must match x in shape, dtype and device")
-    if not dy.is_contiguous():
-        dy = dy.contiguous()
-        group_norm_backward.grad_copies += 1
-    if dy.data_ptr() % 16:
-        raise ValueError("group_norm backward kernel needs a 16-byte aligned dy")
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError("group_norm backward kernel needs a contiguous, 16-byte aligned dy")
     b, h, w, c = x.shape
     l = h * w
     rows, tiles = _tiling(b, l)
-    if partial.shape != _partial_shape(b, l, num_groups) or partial.dtype != torch.float32:
+    if stats.shape != _partial_shape(b, l, num_groups) or stats.dtype != torch.float32:
         raise ValueError("group_norm backward: partial does not come from this forward")
     gamma, beta = gamma.contiguous(), beta.contiguous()
     dx = torch.empty_like(x)
@@ -438,34 +486,62 @@ def _gn_backward_cuda(x, dy, partial, gamma, beta, num_groups, eps, act):
     dgb = torch.empty((2, c), dtype=torch.float32, device=x.device)
     lib = _bwd_lib()
     rc = lib.gdt_group_norm_bwd(
-        x.data_ptr(), dy.data_ptr(), partial.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         chan.data_ptr(), grp.data_ptr(), dx.data_ptr(), dgb.data_ptr(), b, l, c,
         num_groups, rows, tiles, eps, int(act == "silu"), _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, rc, "group_norm backward kernel launch")
     group_norm_backward.launches += 1
-    return dx, dgb[0], dgb[1]
+    return dx, dgb
 
 
-def _gn_forward(x, gamma, beta, num_groups, eps, act):
-    """(y, stats) by device: stats are (mean, rstd) on the CPU and the
-    kernel's (partial,) on the card."""
-    if x.device.type == "cpu":
-        y, mean, rstd = _gn_forward_reference(x, gamma, beta, num_groups, eps, act)
-        return y, (mean, rstd)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm runs on cpu or cuda, got {x.device}")
-    y, partial = _gn_cuda(x, gamma, beta, num_groups, eps, act)
-    return y, (partial,)
+def _group_norm_bwd_cpu(x, dy, stats, gamma, beta, num_groups, eps, act):
+    dx, dgamma, dbeta = _gn_backward_reference(x, dy, stats[0], stats[1], gamma, beta, act)
+    return dx, torch.stack((dgamma, dbeta))
+
+
+def _group_norm_bwd_fake(x, dy, stats, gamma, beta, num_groups, eps, act):
+    return torch.empty_like(x), x.new_empty((2, x.shape[-1]), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: every kernel runs through an operator of ``torch.ops.gdt``
+# ---------------------------------------------------------------------------
+
+
+def _gn_cuda(x, gamma, beta, num_groups, eps, act):
+    """The forward on the card through ``gdt::group_norm_train``: returns
+    (y, partial), ``partial`` the (B, tiles, 2, G) float32 stats that the
+    backward kernels fold again."""
+    return torch.ops.gdt.group_norm_train(x, gamma, beta, num_groups, eps, act)
+
+
+def group_norm_affine(x, gamma, beta, num_groups=32, eps=1e-6, keep_stats=True):
+    """The per-(image, channel) float32 affine (a, b) of GroupNorm over NHWC
+    ``x``, each (B, C), and the ``stats`` tensor that ``group_norm_backward``
+    takes (the training operator's, as it returns it); None without
+    ``keep_stats`` (the forward-only paths, whose operator's outputs do not
+    depend on the batch's tiling). Not differentiable itself:
+    the fused convolutions' backward uses ``group_norm_backward``."""
+    if not keep_stats:
+        a, b = torch.ops.gdt.group_norm_affine(x, gamma, beta, num_groups, eps)
+        return a, b, None
+    return torch.ops.gdt.group_norm_affine_train(x, gamma, beta, num_groups, eps)
+
+
+group_norm_affine.launches = 0  # calls that launched the stats + affine kernels
 
 
 def group_norm_backward(x, dy, stats, gamma, beta, num_groups=32, eps=1e-6, act=None):
-    """(dx, dgamma, dbeta) of ``group_norm`` from the ``stats`` its forward
-    kept: (mean, rstd) for a CPU tensor, (partial,) for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return _gn_backward_reference(x, dy, *stats, gamma, beta, act)
-    return _gn_backward_cuda(x, dy, *stats, gamma, beta, num_groups, eps, act)
+    """(dx, dgamma, dbeta) of ``group_norm`` from the ``stats`` tensor its
+    training operator returned (the kernel's (B, tiles, 2, G) partials for a
+    CUDA tensor, (mean, rstd) stacked (2, B, G) for a CPU one)."""
+    if x.device.type == "cuda" and not dy.is_contiguous():
+        dy = dy.contiguous()
+        group_norm_backward.grad_copies += 1
+    dx, dgb = torch.ops.gdt.group_norm_bwd(x, dy, stats, gamma, beta, num_groups, eps, act)
+    return dx, dgb[0], dgb[1]
 
 
 group_norm_backward.launches = 0  # calls that launched the kernels (reduce + dx)
@@ -475,14 +551,14 @@ group_norm_backward.grad_copies = 0  # gradients that arrived non-contiguous
 class _GroupNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, num_groups, eps, act):
-        y, stats = _gn_forward(x, gamma, beta, num_groups, eps, act)
-        ctx.save_for_backward(x, gamma, beta, *stats)
+        y, stats = torch.ops.gdt.group_norm_train(x, gamma, beta, num_groups, eps, act)
+        ctx.save_for_backward(x, gamma, beta, stats)
         ctx.cfg = (num_groups, eps, act)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, gamma, beta, *stats = ctx.saved_tensors
+        x, gamma, beta, stats = ctx.saved_tensors
         dx, dgamma, dbeta = group_norm_backward(x, dy, stats, gamma, beta, *ctx.cfg)
         return dx, dgamma, dbeta, None, None, None
 
@@ -504,7 +580,7 @@ def group_norm(
         raise ValueError(f"channels {x.shape[-1]} not divisible by groups {num_groups}")
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad or beta.requires_grad):
         return _GroupNormFn.apply(x, gamma, beta, num_groups, eps, act)
-    return _gn_forward(x, gamma, beta, num_groups, eps, act)[0]
+    return torch.ops.gdt.group_norm(x, gamma, beta, num_groups, eps, act)
 
 
 group_norm.launches = 0  # calls that launched the kernels: one resident launch, or two

@@ -23,9 +23,17 @@ _G = np.array([[1, 0, 0], [0.5, 0.5, 0.5], [0.5, -0.5, 0.5], [0, 0, 1]], np.floa
 
 
 @functools.lru_cache(maxsize=None)
-def _g_matrix(device: torch.device) -> torch.Tensor:
-    """G on ``device``, copied once (a per-call host copy waits for the card)."""
+def _g_matrix_once(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_G).to(device)
+
+
+def _g_matrix(device: torch.device) -> torch.Tensor:
+    """G on ``device``, copied once (a per-call host copy waits for the card);
+    under a tracer (``torch.export``) a fresh copy, which the cache must not
+    keep past the trace."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_G).to(device)
+    return _g_matrix_once(device)
 
 
 def transform_kernel(kernel: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,8 @@ m - 1:
   backward also recomputes the activation inside the weight-gradient kernel,
   and pulls dz back through ``norm.group_norm_backward``.
 
+Every kernel call goes through an operator of ``torch.ops.gdt``
+(``gdt::wino_rows``, ``wino_rows_dgrad``, ``wino_wgrad``; ``ops/library.py``).
 A CPU tensor takes the plain versions (``_wino_rows_reference``,
 ``_wino_wgrad_reference``: the same V/U/G/AT algorithm and rounding in torch
 ops); a CUDA tensor takes ``csrc/conv3x3_wino.cu`` for the forward and
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .conv3x3 import conv3x3_forward, conv3x3_wgrad
+from .conv3x3 import _launch_wgrad, _launch_wino
 from .norm import group_norm_affine, group_norm_backward
 
 # F(2,3) 1-D transforms.
@@ -79,10 +81,18 @@ _VMEM_BUDGET = 10 * 1024 * 1024
 
 
 @functools.lru_cache(maxsize=None)
+def _g_matrix_once(m_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_MATS[m_out][1]).to(device)
+
+
 def _g_matrix(m_out: int, device: torch.device) -> torch.Tensor:
     """G of F(m_out,3) on ``device``, copied once: a copy from host memory per
-    call would make the host wait for the card's queue on every conv."""
-    return torch.from_numpy(_MATS[m_out][1]).to(device)
+    call would make the host wait for the card's queue on every conv. Under
+    a tracer (``torch.export``) a fresh copy: the tracer's tensor must not
+    outlive the trace in the cache."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_MATS[m_out][1]).to(device)
+    return _g_matrix_once(m_out, device)
 
 
 def transform_kernel_rows(kernel: torch.Tensor, m_out: int = 2) -> torch.Tensor:
@@ -214,54 +224,95 @@ def _wino_wgrad_reference(z, dy, ga, gb, m_out):
 # ---------------------------------------------------------------------------
 
 
-def _rows(z, u3n, bias, gn_ab, m_out):
-    if z.device.type == "cpu":
-        ga, gb = gn_ab if gn_ab is not None else (None, None)
-        return _wino_rows_reference(z, u3n, bias, ga, gb, m_out)
-    return conv3x3_forward(z, u3n, bias, m_out, gn_ab=gn_ab)
+# the operators' implementations (registered in ``ops/library.py``): z
+# (N, H, W, C) in T, u the transformed kernel (3(m+2), C, CO) in T, bias
+# (CO,), ga/gb the (N, C) float32 affine or None
+
+
+def _wino_rows_cuda(z, u, bias, ga, gb, m):
+    """``gdt::wino_rows`` on the card: the forward kernel (B7)."""
+    out, _ = _launch_wino(z, u, bias, ga, gb, m, False)
+    wino_rows_forward.launches += 1
+    return out
+
+
+def _wino_rows_cpu(z, u, bias, ga, gb, m):
+    return _wino_rows_reference(z, u, bias, ga, gb, m)
+
+
+def _wino_rows_fake(z, u, bias, ga, gb, m):
+    return z.new_empty((*z.shape[:3], u.shape[-1]))
+
+
+def _zero_bias(u):
+    return torch.zeros(u.shape[-1], dtype=torch.float32, device=u.device)
+
+
+def _wino_rows_dgrad_cuda(dy, u, m):
+    """``gdt::wino_rows_dgrad`` on the card: the same kernel (B7) on dy with
+    the rotated, io-swapped kernel's transform, no bias."""
+    out, _ = _launch_wino(dy, u, _zero_bias(u), None, None, m, False)
+    wino_rows_dgrad.launches += 1
+    return out
+
+
+def _wino_rows_dgrad_cpu(dy, u, m):
+    return _wino_rows_reference(dy, u, _zero_bias(u), None, None, m)
+
+
+def _wino_rows_dgrad_fake(dy, u, m):
+    return dy.new_empty((*dy.shape[:3], u.shape[-1]))
+
+
+def _wino_wgrad_cuda(z, dy, ga, gb, m):
+    """``gdt::wino_wgrad`` on the card: dU from the weight-gradient kernel
+    (B8)."""
+    du = _launch_wgrad(z, dy, ga, gb, m)
+    wino_wgrad.launches += 1
+    return du
+
+
+def _wino_wgrad_cpu(z, dy, ga, gb, m):
+    return _wino_wgrad_reference(z, dy, ga, gb, m)
+
+
+def _wino_wgrad_fake(z, dy, ga, gb, m):
+    return z.new_empty(((m + 2) * 3, z.shape[-1], dy.shape[-1]), dtype=torch.float32)
 
 
 def wino_rows_forward(z, u3n, bias, m_out, gn_ab=None):
-    """The row-Winograd forward (B7) from the transformed kernel ``u3n``."""
-    out = _rows(z, u3n, bias, gn_ab, m_out)
-    if z.device.type == "cuda":
-        wino_rows_forward.launches += 1
-    return out
+    """The row-Winograd forward (B7) from the transformed kernel ``u3n``,
+    through ``gdt::wino_rows``."""
+    ga, gb = gn_ab if gn_ab is not None else (None, None)
+    return torch.ops.gdt.wino_rows(z, u3n, bias, ga, gb, m_out)
 
 
 def wino_rows_dgrad(dy, u3n_rot, m_out):
     """dz of the row-Winograd conv: the same kernel on dy with the rotated,
-    io-swapped kernel's transform ``u3n_rot`` (B7 as dgrad)."""
-    zero = torch.zeros(u3n_rot.shape[-1], dtype=torch.float32, device=dy.device)
-    out = _rows(dy, u3n_rot, zero, None, m_out)
-    if dy.device.type == "cuda":
-        wino_rows_dgrad.launches += 1
-    return out
+    io-swapped kernel's transform ``u3n_rot`` (B7 as dgrad), through
+    ``gdt::wino_rows_dgrad``."""
+    return torch.ops.gdt.wino_rows_dgrad(dy, u3n_rot, m_out)
 
 
-wino_rows_forward.launches = 0  # calls that launched the forward kernel as the forward
-wino_rows_dgrad.launches = 0  # calls that launched it as the dgrad
+wino_rows_forward.launches = 0  # launches of the forward kernel as the forward
+wino_rows_dgrad.launches = 0  # launches of it as the dgrad
 
 
 def wino_wgrad(z, dy, dtype, m_out: int = 2, gn_ab=None):
     """Winograd weight gradient (B8) dK[ky,kx] = sum_a G[a,ky] dU[a,kx],
-    (3, 3, C, CO) fp32. With ``gn_ab=(a, b)`` (per-(batch, channel) fp32
-    GroupNorm affines), ``z`` is the raw pre-norm input and the activation
-    silu(z a + b) is recomputed inside."""
+    (3, 3, C, CO) fp32, dU through ``gdt::wino_wgrad``. With ``gn_ab=(a,
+    b)`` (per-(batch, channel) fp32 GroupNorm affines), ``z`` is the raw
+    pre-norm input and the activation silu(z a + b) is recomputed inside."""
     n, h, w, c = z.shape
     co = dy.shape[-1]
     z, dy = z.to(dtype).contiguous(), dy.to(dtype).contiguous()
-    if z.device.type == "cpu":
-        ga, gb = gn_ab if gn_ab is not None else (None, None)
-        du = _wino_wgrad_reference(z, dy, ga, gb, m_out)
-    else:
-        du = conv3x3_wgrad(z, dy, m_out, gn_ab)
-        wino_wgrad.launches += 1
+    ga, gb = gn_ab if gn_ab is not None else (None, None)
+    du = torch.ops.gdt.wino_wgrad(z, dy, ga, gb, m_out)
     return torch.einsum("ak,axio->kxio", _g_matrix(m_out, du.device),
                         du.reshape(m_out + 2, 3, c, co))
 
 
-wino_wgrad.launches = 0  # calls that launched csrc/conv3x3_wgrad.cu (either dtype)
+wino_wgrad.launches = 0  # launches of csrc/conv3x3_wgrad.cu (either dtype)
 
 
 def _u3n(kernel, dtype, m_out):
@@ -318,6 +369,10 @@ def _use_wgrad_kernel(z, dy, dtype, m_out):
                        m_out) is not None
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 class _WinoRowsFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, kernel, bias, dtype, m_out):
@@ -345,20 +400,22 @@ def wino_rows_conv3x3(z, kernel, bias, dtype=torch.float32, m_out: int = 2):
     (Cout,) or None; m_out: 2 (F(2,3)) or 4 (F(4,3)). Computes in ``dtype``
     and returns it."""
     with torch.autocast(z.device.type, enabled=False):
-        return _WinoRowsFn.apply(z, kernel, bias, dtype, m_out)
+        if _needs_grad(z, kernel, bias):
+            return _WinoRowsFn.apply(z, kernel, bias, dtype, m_out)
+        return _fwd_impl(z, kernel, bias, dtype, m_out)
 
 
 class _GnWinoFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, kernel, bias, dtype, m_out, num_groups, eps):
         a, b, stats = group_norm_affine(x, gamma, beta, num_groups, eps)
-        ctx.save_for_backward(x, gamma, beta, kernel, a, b, *stats)
+        ctx.save_for_backward(x, gamma, beta, kernel, a, b, stats)
         ctx.cfg = (dtype, m_out, num_groups, eps, None if bias is None else bias.dtype)
         return _fwd_impl(x, kernel, bias, dtype, m_out, gn_ab=(a, b))
 
     @staticmethod
     def backward(ctx, dy):
-        x, gamma, beta, kernel, a, b, *stats = ctx.saved_tensors
+        x, gamma, beta, kernel, a, b, stats = ctx.saved_tensors
         dtype, m_out, num_groups, eps, bias_dtype = ctx.cfg
         # cotangent of the activation z: the dgrad kernel (or cuDNN's dgrad)
         dz = _dz(dy, kernel, dtype, m_out, x)
@@ -386,4 +443,8 @@ def gn_silu_wino_conv3x3(
     ``ops.fused_conv.gn_silu_conv_reference``; gate calls on
     ``gn_silu_wino_eligible``."""
     with torch.autocast(x.device.type, enabled=False):
-        return _GnWinoFn.apply(x, gamma, beta, kernel, bias, dtype, m_out, num_groups, eps)
+        if _needs_grad(x, gamma, beta, kernel, bias):
+            return _GnWinoFn.apply(x, gamma, beta, kernel, bias, dtype, m_out, num_groups, eps)
+        # forward only: the affine without the backward's stats
+        a, b, _ = group_norm_affine(x, gamma, beta, num_groups, eps, keep_stats=False)
+        return _fwd_impl(x, kernel, bias, dtype, m_out, gn_ab=(a, b))

@@ -420,7 +420,8 @@ class Trainer:
     def _params_for_inference(self):
         """(network, step) for forward-only loops: the live state's, else
         the network of ``resume_from_checkpoint`` (read without the
-        optimizers' moments), else a fresh seeded one."""
+        optimizers' moments), else a fresh seeded one with ``ckpt_path``'s
+        weights over it when the model has one."""
         if self.state is not None:
             return self.state.net, self.state.step
         m = self.model
@@ -429,7 +430,9 @@ class Trainer:
             net = m.build_net()
             net.load_state_dict(restored["net"])
             return net.to(self.device, memory_format=torch.channels_last), restored["step"]
-        return flax_like_net(m, torch.Generator().manual_seed(self.seed), self.device), 0
+        net = flax_like_net(m, torch.Generator().manual_seed(self.seed), self.device)
+        m.maybe_init_from_ckpt(net)
+        return net, 0
 
     @torch.no_grad()
     def predict(self, datamodule, limit_batches: Optional[int] = None) -> List[Dict[str, Any]]:

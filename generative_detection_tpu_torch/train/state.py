@@ -132,11 +132,13 @@ def create_train_state(model, learning_rate: float, grad_clip: Optional[float] =
                        accumulate_grad_batches: int = 1) -> TrainState:
     """A fresh state for a ``PoseAutoencoder``: seeded float32 net and loss on
     ``device`` and both optimizers. The weights are drawn on the CPU from
-    ``seed``; the forward's draws come from a generator on ``device`` seeded
-    with ``seed + 1``."""
+    ``seed``, then ``model.ckpt_path``'s reference checkpoint loads over them
+    when it is set (the Adam moments start fresh); the forward's draws come
+    from a generator on ``device`` seeded with ``seed + 1``."""
     g = torch.Generator().manual_seed(seed)
     net = flax_like_net(model, g, device)
     loss = model.init_loss(g, device=device)
+    model.maybe_init_from_ckpt(net, loss)
     opt_ae, opt_disc = make_optimizers(
         net, loss, learning_rate, grad_clip, accumulate_grad_batches
     )

@@ -147,7 +147,7 @@ def test_group_norm_stats_layout_matches_plain(cuda, shape, dtype):
     per-tile partials fold (over tiles) to the same sums."""
     x, gamma, beta = _gn_inputs(cuda, shape, dtype)
     _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, None)
-    _, _, (partial_aff,) = norm.group_norm_affine(x, gamma, beta)
+    _, _, partial_aff = norm.group_norm_affine(x, gamma, beta)
     want = norm._gn_partial_reference(x, 32)
     assert partial.shape == partial_aff.shape == want.shape and not partial[:, 1:].any()
     for got in (partial[:, 0], partial_aff.sum(dim=1)):
@@ -201,7 +201,7 @@ def test_group_norm_backward_kernel_matches_plain(cuda, hw, c, act, dtype):
     _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, act)
     _, mean, rstd = norm._gn_forward_reference(x, gamma, beta, 32, 1e-6, act)
     before = norm.group_norm_backward.launches
-    dx, dgamma, dbeta = norm.group_norm_backward(x, dy, (partial,), gamma, beta, 32, 1e-6, act)
+    dx, dgamma, dbeta = norm.group_norm_backward(x, dy, partial, gamma, beta, 32, 1e-6, act)
     want = norm._gn_backward_reference(x, dy, mean, rstd, gamma, beta, act)
     torch.cuda.synchronize()
     assert norm.group_norm_backward.launches == before + 1
@@ -220,7 +220,7 @@ def test_group_norm_backward_kernel_is_deterministic(cuda, shape, dtype):
     x, gamma, beta = _gn_inputs(cuda, shape, dtype)
     dy = torch.randn(x.shape, device="cuda", generator=cuda).to(dtype)
     _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, "silu")
-    args = (x, dy, (partial,), gamma, beta, 32, 1e-6, "silu")
+    args = (x, dy, partial, gamma, beta, 32, 1e-6, "silu")
     first = norm.group_norm_backward(*args)
     second = norm.group_norm_backward(*args)
     for a, b in zip(first, second):
@@ -559,8 +559,8 @@ AFFINE_ROWS = [(256, 128), (128, 128), (64, 128), (64, 256), (32, 256), (16, 256
 def test_group_norm_affine_kernel_matches_plain(cuda, hw, c, dtype):
     x, gamma, beta = _gn_inputs(cuda, (2, hw, hw, c), dtype)
     before = norm.group_norm_affine.launches
-    a, b, (partial,) = norm.group_norm_affine(x, gamma, beta)
-    a2, b2, (partial2,) = norm.group_norm_affine(x, gamma, beta)
+    a, b, partial = norm.group_norm_affine(x, gamma, beta)
+    a2, b2, partial2 = norm.group_norm_affine(x, gamma, beta)
     wa, wb, _, _ = norm._gn_affine_reference(x, gamma, beta, 32, 1e-6)
     assert norm.group_norm_affine.launches == before + 2
     torch.testing.assert_close(a, wa, rtol=1e-4, atol=1e-5)
@@ -704,7 +704,8 @@ def test_wino_wgrad_split_kernel_matches_plain(cuda, b, hw, c, co):
     again = conv3x3.conv3x3_wgrad(x, dy, 4, (a, b_))
     want = wr._wino_wgrad_reference(x, dy, a, b_, 4)
     torch.cuda.synchronize()
-    assert wr.wino_wgrad.launches == before + 1 and got.shape == (3, 3, c, co)
+    # every launch runs in gdt::wino_wgrad and counts there, the direct ones too
+    assert wr.wino_wgrad.launches == before + 3 and got.shape == (3, 3, c, co)
     assert torch.equal(du, again)
     _rel_close(du, want, CONV_REL_TOL[torch.float32])
 
@@ -947,3 +948,98 @@ def test_eval_cli_card_matches_cpu(cuda, tmp_path):
             else:
                 assert abs(card[k] - want) <= 1e-3 * abs(want) + (0 if k in ("psnr", "kl")
                                                                   else 1e-3), (raw, k)
+
+
+def _tiny_request(b, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, 32, 32, 3)).astype(np.float32), np.full((b,), 1266.0, np.float32),
+            np.tile(np.float32([800.0, 450.0]), (b, 1)), rng.uniform(60, 200, b).astype(np.float32),
+            np.tile(np.float32([820.0, 460.0]), (b, 1)), np.full((b,), 2.56, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_exported_tiny_detector_matches_live_on_the_card(cuda, dtype):
+    """A batch-polymorphic artifact of the tiny detector at ch 128 (attention
+    at C = 256), exported and loaded on the card in this process, serves
+    batches 1 and 3 as the live detector does, and its calls launch the
+    kernels through the gdt operators: 11 GroupNorm and 2 attention launches
+    a request, as the live path's."""
+    from generative_detection_tpu_torch.serving import export_detector, load_detector
+
+    model = _tiny_model()
+    net = model.init_net(torch.Generator().manual_seed(0), device="cpu")
+    hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
+    blob = export_detector(model, net, hmin, hmax, batch=None, dtype=dtype)
+    detect = load_detector(blob)
+    assert detect.metadata["device"] == "cuda" and detect.metadata["dtype"] == dtype
+    live = make_detector_fn(model, net, hmin, hmax, 32, dtype=dtype)
+    def launches():
+        return norm.group_norm.launches, attention.single_head_attention.launches
+
+    for b in (1, 3):
+        args = _tiny_request(b, b)
+        before = launches()
+        want = [t.cpu() for t in live(*args)]
+        mid = launches()
+        got = [t.cpu() for t in detect(*args)]
+        after = launches()
+        assert [m - a for a, m in zip(before, mid)] == [11, 2]
+        assert [z - m for m, z in zip(mid, after)] == [11, 2]
+        assert torch.equal(got[1], want[1])
+        np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), rtol=0, atol=1e-5)
+
+
+def test_fp32_artifact_is_ieee_under_default_flags(cuda, tmp_path):
+    """C4 for a loaded artifact, and a load in another process: one process
+    exports an fp32 artifact of the tiny detector on the card and writes it
+    with the CPU detector's outputs; a fresh process with PyTorch's default
+    TF32 flags loads it and matches those outputs at chip_smoke.py's limits,
+    leaving the flags as found; a process with CUDA hidden cannot load it (it
+    never runs on the CPU)."""
+    export = """
+import sys, numpy as np, torch
+from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
+from generative_detection_tpu_torch.serving import export_detector, make_detector_fn
+cfg = merge_configs(["configs/autoencoder/pose/tiny_cpu.yaml"], ["model.params.ddconfig.ch=128"])
+model = instantiate_from_config(cfg["model"])
+net = model.init_net(torch.Generator().manual_seed(0), device="cpu")
+rng = np.random.default_rng(4)
+b = 2
+args = (rng.normal(size=(b, 32, 32, 3)).astype(np.float32), np.full((b,), 1266.0, np.float32),
+        np.tile(np.float32([800.0, 450.0]), (b, 1)), np.full((b,), 100.0, np.float32),
+        np.tile(np.float32([820.0, 460.0]), (b, 1)), np.full((b,), 2.56, np.float32))
+hmin, hmax = np.full(11, 0.5, np.float32), np.full(11, 4.0, np.float32)
+open(sys.argv[1], "wb").write(export_detector(model, net, hmin, hmax, batch=None, dtype="float32"))
+want = [t.numpy() for t in make_detector_fn(model, net, hmin, hmax, 32, dtype="float32",
+                                              device="cpu")(*args)]
+np.savez(sys.argv[2], *args, *want)
+"""
+    serve = """
+import sys, numpy as np, torch
+from generative_detection_tpu_torch.serving import load_detector
+flags = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+assert flags[0], flags
+data = np.load(sys.argv[2])
+args, want = [data[f"arr_{i}"] for i in range(6)], [data[f"arr_{i}"] for i in range(6, 9)]
+got = [t.cpu().numpy() for t in load_detector(open(sys.argv[1], "rb").read())(*args)]
+np.testing.assert_allclose(got[0], want[0], rtol=1e-3, atol=1e-3)
+np.testing.assert_array_equal(got[1], want[1])
+np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-5)
+assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == flags
+"""
+    hidden = """
+import sys, pytest
+from generative_detection_tpu_torch.serving import load_detector
+blob = open(sys.argv[1], "rb").read()
+with pytest.raises(RuntimeError, match="CUDA is not available"):
+    load_detector(blob)
+with pytest.raises(ValueError, match="exported for cuda"):
+    load_detector(blob, device="cpu")
+"""
+    files = [str(tmp_path / "tiny.pt2"), str(tmp_path / "io.npz")]
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    for code, extra in ((export, {}), (serve, {}), (hidden, {"CUDA_VISIBLE_DEVICES": ""})):
+        run = subprocess.run([sys.executable, "-c", code, *files], cwd=REPO,
+                             env={**env, **extra}, capture_output=True, text=True, timeout=600)
+        assert run.returncode == 0, run.stdout + run.stderr

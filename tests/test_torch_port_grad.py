@@ -105,11 +105,12 @@ def test_group_norm_backward_takes_the_forward_stats():
     dy = torch.from_numpy(rng.normal(size=(1, 4, 4, 64)).astype(np.float32))
     gamma, beta = torch.ones(64), torch.zeros(64)
     _, mean, rstd = _gn_forward_reference(x, gamma, beta, 32, 1e-6, "silu")
-    got = group_norm_backward(x, dy, (mean, rstd), gamma, beta, 32, 1e-6, "silu")
+    got = group_norm_backward(x, dy, torch.stack((mean, rstd)), gamma, beta, 32, 1e-6, "silu")
     want = _gn_backward_reference(x, dy, mean, rstd, gamma, beta, "silu")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    moved = group_norm_backward(x, dy, (mean + 1.0, rstd), gamma, beta, 32, 1e-6, "silu")
+    moved = group_norm_backward(x, dy, torch.stack((mean + 1.0, rstd)), gamma, beta, 32, 1e-6,
+                                "silu")
     assert not torch.allclose(moved[0], got[0])
     with torch.no_grad():
         out = group_norm(x.requires_grad_(True), gamma, beta, 32, 1e-6, "silu")

@@ -88,7 +88,7 @@ def _site(norm, g, hw, c, act, dtype) -> dict:
     beta = 0.1 * torch.randn(c, device="cuda", generator=g)
     _, partial = norm._gn_cuda(x, gamma, beta, 32, 1e-6, act)
     _, mean, rstd = norm._gn_forward_reference(x, gamma, beta, 32, 1e-6, act)
-    args = (x, dy, (partial,), gamma, beta, 32, 1e-6, act)
+    args = (x, dy, partial, gamma, beta, 32, 1e-6, act)
     got = norm.group_norm_backward(*args)
     again = norm.group_norm_backward(*args)
     want = norm._gn_backward_reference(x, dy, mean, rstd, gamma, beta, act)

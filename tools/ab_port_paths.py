@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Compare two checkouts of the PyTorch port on one card: the bf16 detector
-(p50 and peak memory at batch 1, 8, 32), default and with
+(p50, p10, min and peak memory at batch 1, 8, 32), default and with
 GDT_FUSE_INFERENCE=1, and the flagship bf16 train step (p50 at batch 16),
 default and with GDT_WINOGRAD=fused, each tree in its own process, in the
 order given. With ``--fp32`` also the flagship's fp32 path as its config
@@ -9,7 +9,13 @@ and 32 and the train step at batch 16 (5 timed steps after 3 warm-up), and
 its two opt-in paths: the detector at batch 32 with GDT_FUSE_INFERENCE=1
 and the step with GDT_WINOGRAD=fused, each with p50 and peak memory.
 
-    python3 tools/ab_port_paths.py [--fp32] PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
+    python3 tools/ab_port_paths.py [--fp32] [--detector-only] [--requests N] \
+        PARENT_TREE CHANGE_TREE CHANGE_TREE PARENT_TREE
+
+``--detector-only`` times the default bf16 detector alone (no fused
+detector, no train step), so that many alternating runs fit one call;
+``--requests N`` sets the timed requests at batch 1 and 8 (50 by default;
+batch 32 takes a fifth of them, at least 10).
 
 A tree is a directory holding a checkout (e.g. from ``git archive``); its
 ``generative_detection_tpu_torch`` is imported and builds its own kernels.
@@ -29,7 +35,7 @@ import time
 FLAGSHIP = "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"
 
 
-def _p50(fn, n: int, warmup: int = 3) -> float:
+def _latencies_ms(fn, n: int, warmup: int = 3) -> list:
     import torch
 
     lat = []
@@ -38,12 +44,19 @@ def _p50(fn, n: int, warmup: int = 3) -> float:
         fn()
         torch.cuda.synchronize()
         if i >= warmup:
-            lat.append(time.perf_counter() - t0)
-    return statistics.median(lat) * 1e3
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
 
 
-def _detector(make_detector_fn, model, net, dtype="bfloat16",
-              batches=((1, 50), (8, 50), (32, 10))) -> dict:
+def _p50(fn, n: int, warmup: int = 3) -> float:
+    return statistics.median(_latencies_ms(fn, n, warmup))
+
+
+def _batches(requests: int) -> tuple:
+    return ((1, requests), (8, requests), (32, max(10, requests // 5)))
+
+
+def _detector(make_detector_fn, model, net, dtype="bfloat16", batches=_batches(50)) -> dict:
     """p50 and peak memory of the detector in ``dtype`` at each (batch,
     requests) of ``batches``."""
     import numpy as np
@@ -63,12 +76,15 @@ def _detector(make_detector_fn, model, net, dtype="bfloat16",
         detect(*args)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out[b] = {"p50_ms": _p50(lambda: detect(*args), n),
+        lat = sorted(_latencies_ms(lambda: detect(*args), n))
+        # p10 and min: the host's other load only adds to a request's time
+        out[b] = {"p50_ms": statistics.median(lat), "p10_ms": lat[len(lat) // 10],
+                  "min_ms": lat[0],
                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     return out
 
 
-def run_one(tree: str, fp32: bool) -> dict:
+def run_one(tree: str, fp32: bool, detector_only: bool = False, requests: int = 50) -> dict:
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -82,9 +98,12 @@ def run_one(tree: str, fp32: bool) -> dict:
         raise RuntimeError("no CUDA device")
     model = instantiate_from_config(merge_configs([FLAGSHIP])["model"])
     net = model.init_net(torch.Generator().manual_seed(0), device="cuda")
-    out = {"tree": tree, "detector": _detector(make_detector_fn, model, net)}
+    out = {"tree": tree, "detector": _detector(make_detector_fn, model, net,
+                                               batches=_batches(requests))}
+    if detector_only:
+        return out
     os.environ["GDT_FUSE_INFERENCE"] = "1"  # read when the detector builds its net
-    out["detector_fused"] = _detector(make_detector_fn, model, net)
+    out["detector_fused"] = _detector(make_detector_fn, model, net, batches=_batches(requests))
     del os.environ["GDT_FUSE_INFERENCE"]
     del net
     torch.cuda.empty_cache()
@@ -144,17 +163,24 @@ def _train(model, create_train_state, make_train_step, dtype, n: int, runs: dict
 
 
 def main(argv) -> int:
-    fp32 = "--fp32" in argv
-    argv = [a for a in argv if a != "--fp32"]
+    flags = [a for a in argv[1:] if a in ("--fp32", "--detector-only")]
+    argv = [a for a in argv if a not in flags]
+    requests = []
+    if "--requests" in argv:
+        i = argv.index("--requests")
+        requests = argv[i:i + 2]
+        del argv[i:i + 2]
+    n = int(requests[1]) if requests else 50
     if len(argv) == 3 and argv[1] == "--one":
-        print(json.dumps(run_one(argv[2], fp32)), flush=True)
+        print(json.dumps(run_one(argv[2], "--fp32" in flags, "--detector-only" in flags, n)),
+              flush=True)
         return 0
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv[1:]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]
-                       + (["--fp32"] if fp32 else []), check=True)
+                       + flags + requests, check=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
