@@ -48,6 +48,11 @@ Phases (any failure raises and exits non-zero, before the result line):
    (fp32: six bf16 piece products for each of S and P V and for each of the
    backward's five products). The kernel phase sets
    TF32 off for its library calls and restores PyTorch's defaults after it;
+   then long_attention: B1 and B2 at (1, 65536, 256) (a 1024^2 input's
+   level-2 attention), fp32 on the split-precision kernels and bf16, held
+   against a float64 reference formed on the card 2048 query rows at a time
+   (O, dQ, dK, dV within 1e-3 x RMS in fp32, 0.1 in bf16), timed beside
+   SDPA;
 5. detector: the flagship config (configs/autoencoder/pose/
    autoencoder_kl_16x16x16.yaml) at full width with seeded random weights
    serves requests at batch 1, 8 and 32 in bf16, first as it is, then with
@@ -138,7 +143,22 @@ Phases (any failure raises and exits non-zero, before the result line):
    ignore_keys ["pose_encoder"]: every tensor bit-equal, the ignored ones
    its own init. The gdt operators' dispatch cost alone is measured by
    tools/op_dispatch_cost.py;
-11. one {"kernels": [...]} line, the nvidia-smi line, and last
+11. plain_autoencoder, the plain KL autoencoder family (Autoencoder,
+   LPIPSWithDiscriminator, the plain steps) built from
+   configs/autoencoder/plain_kl_tiny.yaml with the flagship's ddconfig and
+   embed_dim (disc_start 0, bf16 compute), 256x256 inputs, batch 16: 2
+   warm-up + 10 timed bf16 steps, 1 + 5 fp32 steps, one GDT_WINOGRAD=fused
+   bf16 step, each step's launches equal to the hook-counted sites (B7 and
+   B8 where the tile rules take them), the eval step, and predict through
+   the Trainer under GDT_FUSE_INFERENCE=1 (B6 at every fused site); then
+   plain_kl_tiny.yaml as shipped for 3 steps on the card and on the CPU
+   from one seed, batches and posterior draws (losses, d_weight, Adam first
+   moments as in phase 7), and train_cli with it on the card (--device cuda
+   over the config's accelerator: cpu), a resume, export_torch_ckpt and
+   ckpt_path (bit-equal to the run); then plain_fused_fp32_512: one fp32
+   GDT_WINOGRAD=fused step at 512x512, batch 2: its peak memory and the
+   largest B8 split-K partial buffer;
+12. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Every phase that sets a switch restores the environment after it.
@@ -177,7 +197,7 @@ from generative_detection_tpu_torch.models.blocks import (
 )
 from generative_detection_tpu_torch.ops import _build, attention, conv3x3, fused_conv, norm
 from generative_detection_tpu_torch.ops import winograd_rows as wr
-from generative_detection_tpu_torch import eval_cli, train_cli
+from generative_detection_tpu_torch import eval_cli, export_torch_ckpt, train_cli
 from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
 from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
 from generative_detection_tpu_torch.data.datamodule import THREAD_NAME
@@ -185,7 +205,9 @@ from generative_detection_tpu_torch.serving import export_detector, load_detecto
 from generative_detection_tpu_torch.utils.torch_compat import (
     export_pose_autoencoder, save_torch_checkpoint,
 )
-from generative_detection_tpu_torch.train import create_train_state, make_train_step
+from generative_detection_tpu_torch.train import (
+    Trainer, create_train_state, make_plain_eval_step, make_plain_train_step, make_train_step,
+)
 from generative_detection_tpu_torch.train.callbacks import Callback
 
 REPO = Path(__file__).resolve().parent
@@ -196,6 +218,7 @@ _spec.loader.exec_module(ab_wgrad)
 FLAGSHIP = REPO / "configs/autoencoder/pose/autoencoder_kl_16x16x16.yaml"
 TINY = REPO / "configs/autoencoder/pose/tiny_cpu.yaml"
 SMOKE = REPO / "configs/autoencoder/pose/synthetic_smoke.yaml"
+PLAIN = REPO / "configs/autoencoder/plain_kl_tiny.yaml"
 # synthetic_smoke.yaml's run: 12 steps of batch 4 over two epochs of 8
 # batches; the resume takes it to 16. Step p50 over steps 5-12 (all 'full').
 FIT_STEPS, FIT_RESUME_STEPS, FIT_TIMED = 12, 16, slice(4, 12)
@@ -275,6 +298,14 @@ TINY_GN_ROWS = ((16, 32), (32, 32), (16, 64))  # tiny_cpu.yaml's GroupNorm rows 
 # pose config's mid block, a 320^2 plain autoencoder's lowest level, C = 96
 OFF_GRID_ATTN = ((1, 576, 512), (2, 400, 512), (2, 256, 96))
 LONG_L = 16384  # B9: L * C * 4 = 16 MiB > 8 MiB at C = 256 (attention.py:394)
+# long_attention: a 1024^2 input's level-2 attention, L * C * 4 = 64 MiB (B9's
+# route in the JAX package), against a float64 reference formed on the card
+# LONG_ROWS query rows at a time (the whole L x L float64 matrix is 34 GB)
+LONG_ATTN = (1, 65536, 256)
+LONG_ROWS = 2048
+# ... and the peak memory of one fp32 GDT_WINOGRAD=fused step of the plain
+# family at the flagship backbone's width, 512^2 input, batch 2
+BIG_PLAIN_SIZE, BIG_PLAIN_BATCH = 512, 2
 # The kernels on wgmma and TMA (their names carry WGMMA_TAG): attention (B1
 # and the flash variant B5 in bf16, B1 and B5 in fp32 on split precision, B2
 # in bf16 at every width (dK/dV and dQ at C = 64, 128, 256, the role kernel
@@ -1065,6 +1096,93 @@ def _kernel_cases(gn_train: Counter, attn_train: Counter, sites: dict) -> dict:
                 emit(r)
             torch.cuda.empty_cache()
     return cases
+
+
+def _attention_f64(q, k, v, do):
+    """softmax(q k^T / sqrt(C)) v and its (dq, dk, dv) for the output
+    gradient ``do``, in float64 on the card, ``LONG_ROWS`` query rows at a
+    time (batch 1)."""
+    q, k, v, do = (t[0].double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    o, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(0, q.shape[0], LONG_ROWS):
+        rows = slice(r, r + LONG_ROWS)
+        p = torch.softmax((q[rows] @ k.T) * scale, dim=-1)
+        o[rows] = p @ v
+        dv += p.T @ do[rows]
+        di = (do[rows] * o[rows]).sum(-1, keepdim=True)
+        ds = p * (do[rows] @ v.T - di) * scale
+        del p
+        dq[rows] = ds @ k
+        dk += ds.T @ q[rows]
+        del ds
+    return o[None], dq[None], dk[None], dv[None]
+
+
+def phase_long_attention() -> dict:
+    """Attention at ``LONG_ATTN`` = (1, 65536, 256), forward (B1) and
+    backward (B2), fp32 on the split-precision kernels and bf16, against a
+    float64 reference on the card: max |err| <= tol x RMS(reference) for O,
+    dQ, dK and dV (fp32 1e-3, the split kernels' gate; bf16 0.1). Each
+    route's time beside SDPA's on the same inputs (a yardstick)."""
+    b, l, c = LONG_ATTN
+    g = torch.Generator(device="cuda").manual_seed(65536)
+    q, k, v, do = (torch.randn(b, l, c, device="cuda", generator=g) for _ in range(4))
+    t0 = time.perf_counter()
+    want = _attention_f64(q, k, v, do)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    out = {"phase": "long_attention", "shape": list(LONG_ATTN), "reference": "float64",
+           "reference_s": ref_s}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = _dname(dtype)
+        qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
+        reset_counts()
+        o, lse = attention.single_head_attention(qd, kd, vd, return_lse=True)
+        grads = attention.attention_backward(qd, kd, vd, o, lse, dod)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if dtype == torch.float32:
+            require(counts["attention_split"] == 1 and counts["attention_split_bwd"] == 1,
+                    f"long attention fp32 did not take the split kernels: {counts}")
+        require(counts["pad_copies"] == 0, "long attention was padded")
+        errs = {}
+        for what, got, w in zip(("o", "dq", "dk", "dv"), (o, *grads), want):
+            rms = w.pow(2).mean().sqrt().item()
+            err = (got.double() - w).abs().max().item()
+            errs[what] = {"max_abs_err": err, "rms": rms, "err_over_rms": err / rms}
+        emit({"phase": "long_attention_errors", "dtype": name, "errors": errs})
+        for what, e in errs.items():
+            require(e["err_over_rms"] <= ATTN_REL_TOL[dtype],
+                    f"long attention {name} {what}: max err {e['max_abs_err']} > "
+                    f"{ATTN_REL_TOL[dtype]} x RMS {e['rms']}")
+        di = (dod.float() * o.float()).sum(-1)
+        q4, k4, v4 = (t[:, None].detach().requires_grad_(True) for t in (qd, kd, vd))
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), (q4, k4, v4), dod[:, None])
+
+        fwd_ms = time_ms(lambda: attention.single_head_attention(qd, kd, vd, return_lse=True), 5)
+        bwd_ms = time_ms(lambda: attention._attention_backward_cuda(qd, kd, vd, dod, lse, di), 5)
+        lib_ms = time_ms(lib_fwd, 5)
+        out[name] = {
+            "errors": errs, "tol_over_rms": ATTN_REL_TOL[dtype],
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "forward_kernel": _attn_kernel(dtype, c), "backward_kernel": _attn_bwd_kernel(dtype, c),
+            "sdpa_forward_ms": lib_ms, "sdpa_backward_ms": time_ms(lib_fwd_bwd, 5) - lib_ms,
+            "forward_bound_ms": attn_bound(b, l, c, dtype, 4 * q.numel() * dtype.itemsize)["bound_ms"],
+            "backward_bound_ms": attn_bound(b, l, c, dtype, 7 * q.numel() * dtype.itemsize,
+                                            products=5)["bound_ms"],
+        }
+        del o, lse, grads, q4, k4, v4
+    del want
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 def flagship_detector(device: str = "cuda"):
@@ -1889,6 +2007,377 @@ def phase_export_and_interop(det_p50_ms: dict, expect: dict) -> dict:
     return summary
 
 
+# plain_autoencoder: the plain family at the flagship backbone's width (its
+# ddconfig and embed_dim over plain_kl_tiny.yaml, disc_start 0, bf16 compute),
+# 256^2 input, batch 16: 2 warm-up + 10 timed bf16 steps, 1 + 5 fp32, one
+# GDT_WINOGRAD=fused bf16 step after a warm-up, the eval step, predict under
+# GDT_FUSE_INFERENCE=1; the card against the CPU at plain_kl_tiny.yaml's own
+# width (batch 2) for 3 steps; its CLI fit (the config's 4 steps), a resume to
+# 6, the .ckpt export and ckpt_path
+PLAIN_SIZE, PLAIN_BATCH = 256, 16
+PLAIN_WARMUP, PLAIN_STEPS, PLAIN_WARMUP_FP32, PLAIN_STEPS_FP32 = 2, 10, 1, 5
+PLAIN_CPU_STEPS, PLAIN_CPU_BATCH = 3, 2
+PLAIN_RESUME_STEPS = 6
+
+
+def plain_model(dtype="bfloat16", size=PLAIN_SIZE):
+    """plain_kl_tiny.yaml with the flagship's ddconfig and embed_dim, the GAN
+    term and d_weight live from step 0, in ``dtype``."""
+    flagship = merge_configs([str(FLAGSHIP)])["model"]["params"]
+    dotlist = [f"model.params.ddconfig.{k}={json.dumps(v)}"
+               for k, v in flagship["ddconfig"].items()]
+    dotlist += [f"model.params.embed_dim={flagship['embed_dim']}",
+                "model.params.lossconfig.params.disc_start=0", f"model.params.dtype={dtype}"]
+    return instantiate_from_config(merge_configs([str(PLAIN)], dotlist)["model"])
+
+
+def plain_sites(model, size=PLAIN_SIZE) -> dict:
+    """Forwards of the plain net at ``size``^2, batch 1, on the card, read
+    with forward hooks: its GroupNorm and attention sites (and those at
+    C = 512) as it is, the convs that take the norm's affine with
+    GDT_WINOGRAD=fused (B7 sites, (h, C, CO)) and in the fused inference net
+    (B6 sites)."""
+    found = {"gn": 0, "attn": 0, "attn_512": 0, "wino": Counter(), "b6": 0}
+    where = ["plain"]
+
+    def on_gn(*_):
+        found["gn"] += where[0] == "plain"
+
+    def on_attn(_m, inp, _out):
+        if where[0] == "plain":
+            found["attn"] += 1
+            found["attn_512"] += inp[0].shape[1] == 512
+
+    def on_conv(m, args, kwargs, _out):
+        if kwargs.get("gn_affine") is not None:
+            x = args[0]
+            if where[0] == "wino":
+                found["wino"][(x.shape[2], x.shape[1], m.out_channels)] += 1
+            elif where[0] == "b6":
+                found["b6"] += 1
+
+    def hooked(net):
+        for m in net.modules():
+            if isinstance(m, GroupNormSiLU):
+                m.register_forward_hook(on_gn)
+            elif isinstance(m, AttnBlock):
+                m.register_forward_hook(on_attn)
+            elif isinstance(m, Conv3x3):
+                m.register_forward_hook(on_conv, with_kwargs=True)
+        return net
+
+    x = torch.zeros(1, size, size, 3, device="cuda")
+    net = hooked(model.init_net(torch.Generator().manual_seed(0), device="cuda"))
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        net(x, sample_posterior=False)
+        where[0] = "wino"
+        with switches(GDT_WINOGRAD="fused"):
+            net(x, sample_posterior=False)
+        where[0] = "b6"
+        with switches(GDT_FUSE_INFERENCE="1"):
+            hooked(model.inference_net(net))(x, sample_posterior=False)
+    return found
+
+
+def _plain_batch(b, size, device, seed) -> dict:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.rand(b, size, size, 3, generator=g, device=device) * 2 - 1}
+
+
+def _plain_steps(label, state, step, batch, warmup, n, expect) -> dict:
+    """``warmup`` then ``n`` timed steps; the launches of the timed ones
+    against ``expect`` per step; finite losses, d_weight live, LPIPS and
+    logvar unchanged, the discriminator moved."""
+    lpips0 = [p.detach().clone() for p in state.loss.perceptual_loss.parameters()]
+    disc0 = [p.detach().clone() for p in state.loss.discriminator.parameters()]
+    logvar0 = state.loss.logvar.item()
+    for _ in range(warmup):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    counts = read_counts()
+    require_no_copies(label, counts)
+    for name in COUNTED:
+        want = expect.get(name, 0) * n
+        require(counts[name] == want, f"{label} {name} launches {counts[name]} != {want}")
+    values = {k: float(v) for k, v in metrics.items()}
+    require(all(math.isfinite(v) for v in values.values()), f"{label}: losses {values}")
+    require(values["train/d_weight"] > 0 and values["train/disc_factor"] == 1.0,
+            f"{label}: d_weight {values['train/d_weight']}, "
+            f"disc_factor {values['train/disc_factor']}")
+    require(all(torch.equal(a, b) for a, b in zip(lpips0, state.loss.perceptual_loss.parameters()))
+            and state.loss.logvar.item() == logvar0, f"{label}: LPIPS or logvar changed")
+    require(any(not torch.equal(a, b) for a, b in zip(disc0, state.loss.discriminator.parameters())),
+            f"{label}: the discriminator did not move")
+    p50 = statistics.median(lat)
+    return {"phase": label, "steps": n, "p50_ms": p50 * 1e3, "min_ms": min(lat) * 1e3,
+            "max_ms": max(lat) * 1e3, "train_images_per_s": batch["image"].shape[0] / p50,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": {k: v / n for k, v in counts.items() if v},
+            "counts": counts, "losses": values}
+
+
+def _plain_card_vs_cpu() -> dict:
+    """plain_kl_tiny.yaml as shipped (ch 32, fp32, disc_start 2), batch 2, 3
+    steps from seed 0 on the card and on the CPU with the same batches and
+    posterior draws, crossing disc_start: each step's aeloss, discloss and
+    d_weight within 1e-3 relative and both optimizers' Adam first moments
+    after it within 1e-3 of each one's largest (``phase_train_card_vs_cpu``'s
+    limits); the card's steps ran the kernels. Steps 2 and 3 start the card
+    from the CPU's state (weights, Adam moments): Adam's first update moves
+    every weight whose gradient lies below fp32 rounding by up to 2 lr, in a
+    direction of its own on each device, and the next step's d_weight (a
+    ratio of two gradient norms) then differs by up to 2.6e-3."""
+    model = instantiate_from_config(merge_configs([str(PLAIN)])["model"])
+    rng = np.random.default_rng(20)
+    size = model.ddconfig["resolution"]
+    latent = size // 2 ** (len(model.ddconfig["ch_mult"]) - 1)
+    hosts = [rng.uniform(-1, 1, size=(PLAIN_CPU_BATCH, size, size, 3)).astype(np.float32)
+             for _ in range(PLAIN_CPU_STEPS)]
+    draws = [rng.standard_normal((PLAIN_CPU_BATCH, latent, latent, model.embed_dim)
+                                 ).astype(np.float32) for _ in range(PLAIN_CPU_STEPS)]
+    step = make_plain_train_step(model)
+    require_default_tf32("plain_card_vs_cpu")
+    states = {d: create_train_state(model, 1e-4, grad_clip=1.0, seed=0, device=d)
+              for d in ("cuda", "cpu")}
+    reset_counts()
+    rows, errs = [], []
+    for i, (host, eps) in enumerate(zip(hosts, draws)):
+        card, cpu = states["cuda"], states["cpu"]
+        if i:
+            card.net.load_state_dict(cpu.net.state_dict())
+            card.loss.load_state_dict(cpu.loss.state_dict())
+            with torch.no_grad():
+                for mine, theirs in ((card.opt_ae, cpu.opt_ae), (card.opt_disc, cpu.opt_disc)):
+                    for p_card, p_cpu in zip(mine.params, theirs.params):
+                        for k, v in theirs.adam.state[p_cpu].items():
+                            mine.adam.state[p_card][k].copy_(v)
+        losses, moments = {}, {}
+        for device, state in states.items():
+            state, m = step(state, model.prepare_batch({"image": host}, device=device),
+                            {"posterior": torch.as_tensor(eps, device=device)})
+            losses[device] = {k: float(m[k]) for k in ("aeloss", "discloss", "train/d_weight",
+                                                        "train/disc_factor")}
+            moments[device] = [torch.cat([opt.moments(p)[0].flatten().cpu() for p in opt.params])
+                               for opt in (state.opt_ae, state.opt_disc)]
+        got, want = losses["cuda"], losses["cpu"]
+        for k, w in want.items():
+            require(abs(got[k] - w) <= TRAIN_LOSS_RTOL * abs(w),
+                    f"plain card vs CPU step {i} {k}: {got[k]} vs {w}")
+        step_errs = {}
+        for name, g_m, w_m in zip(("opt_ae", "opt_disc"), moments["cuda"], moments["cpu"]):
+            err = (g_m - w_m).abs().max().item()
+            require(err <= MOMENT_REL * w_m.abs().max().item(),
+                    f"plain card vs CPU step {i} {name} Adam mu: max err {err}, "
+                    f"scale {w_m.abs().max().item()}")
+            step_errs[name] = err
+        rows.append({"card": got, "cpu": want})
+        errs.append(step_errs)
+    launches = read_counts()
+    for name in ("attention", "attention_bwd", "attention_split", "attention_split_bwd",
+                 "group_norm", "group_norm_bwd"):
+        require(launches[name] > 0, f"plain_card_vs_cpu ran no {name} kernel: {launches}")
+    require([r["cpu"]["train/disc_factor"] for r in rows] == [0.0, 1.0, 1.0],
+            f"plain card vs CPU: disc_factor by step {rows}")
+    return {"config": PLAIN.name, "batch": PLAIN_CPU_BATCH, "steps": rows,
+            "mu_max_abs_err": errs, "card_launches": {k: v for k, v in launches.items() if v}}
+
+
+def _plain_cli(tmp: Path) -> dict:
+    """train_cli with plain_kl_tiny.yaml on the card (``--device cuda`` over
+    the config's ``accelerator: cpu``), a resume to ``PLAIN_RESUME_STEPS``,
+    export_torch_ckpt of the run, and that .ckpt through ``ckpt_path`` into a
+    network of another seed: every tensor equal to the run's last one."""
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = train_cli.main(["-b", str(PLAIN), "-t", "-l", str(tmp), "-n", "plain",
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    require(tr.device.type == "cuda", f"plain fit ran on {tr.device}")
+    fit_steps = tr.state.step
+    for name in ("group_norm", "group_norm_bwd", "attention_split", "attention_split_bwd"):
+        require(counts[name] > 0, f"plain fit: no {name} launch: {counts}")
+    run = Path(tr.logdir)
+    del tr
+    tr2 = train_cli.main(["-r", str(run), "-t", "--max_steps", str(PLAIN_RESUME_STEPS),
+                          "--device", "cuda"])
+    require(tr2.state.step == PLAIN_RESUME_STEPS, f"plain resume ended at {tr2.state.step}")
+    del tr2
+    run_info = _check_fit_run("plain fit", run, PLAIN_RESUME_STEPS)
+    ckpt = tmp / "plain.ckpt"
+    exported = export_torch_ckpt.main(["-b", str(PLAIN), "-r", str(run), "--out", str(ckpt)])
+    require(exported["step"] == PLAIN_RESUME_STEPS, f"export at step {exported['step']}")
+    cfg = merge_configs([str(PLAIN)])
+    cfg["model"]["params"]["ckpt_path"] = str(ckpt)
+    model = instantiate_from_config(cfg["model"])
+    net = model.init_net(torch.Generator().manual_seed(1), device="cuda")
+    loss = model.init_loss(torch.Generator().manual_seed(1), device="cuda")
+    model.maybe_init_from_ckpt(net, loss)
+    saved = torch.load(run / "checkpoints" / "last" / str(PLAIN_RESUME_STEPS) / "net.pt",
+                       map_location="cpu", weights_only=True)
+    for k, v in net.state_dict().items():
+        require(torch.equal(v.cpu(), saved[k]), f"plain ckpt_path: {k} is not the run's")
+    return {"fit_steps": fit_steps, "resumed_to": PLAIN_RESUME_STEPS, "fit_s": fit_s,
+            "fit_launches": {k: v for k, v in counts.items() if v}, **run_info,
+            "export": exported["tensors"], "ckpt_path_bit_equal": True}
+
+
+def phase_plain_autoencoder() -> dict:
+    """The plain KL autoencoder family on the card (see ``PLAIN_SIZE``'s
+    comment); returns the launch counts of its bf16, fp32 and fused steps
+    and of its predict."""
+    t_phase = time.perf_counter()
+    model = plain_model()
+    sites = plain_sites(model)
+    n_gn, n_attn, n_512, wino = sites["gn"], sites["attn"], sites["attn_512"], sites["wino"]
+    n_wino = sum(wino.values())
+    require(n_gn > 0 and n_attn > 0 and n_512 > 0 and n_wino > 0 and sites["b6"] > 0,
+            f"plain sites {sites}")
+    per_step = {"group_norm": n_gn, "group_norm_bwd": n_gn, "attention": n_attn,
+                "attention_bwd": n_attn}
+    split = {"attention_split": n_attn - n_512, "attention_split_512": n_512,
+             "attention_split_bwd": n_attn - n_512, "attention_split_bwd_512": n_512}
+    lr = PLAIN_BATCH * 4.5e-6
+    state = create_train_state(model, lr, grad_clip=1.0, seed=0, device="cuda")
+    batch = _plain_batch(PLAIN_BATCH, PLAIN_SIZE, "cuda", 3)
+    out = {"phase": "plain_autoencoder", "config": f"{PLAIN.name} + {FLAGSHIP.name} ddconfig",
+           "batch": PLAIN_BATCH, "input": PLAIN_SIZE,
+           "sites": {"group_norm": n_gn, "attention": n_attn, "attention_c512": n_512,
+                     "winograd_fused": n_wino, "fused_conv_inference": sites["b6"]}}
+    bf16 = _plain_steps("plain_bf16", state, make_plain_train_step(model), batch,
+                        PLAIN_WARMUP, PLAIN_STEPS, {**per_step, "attention_bwd_512": n_512})
+    require_default_tf32("plain_fp32")
+    fp32 = _plain_steps("plain_fp32", state, make_plain_train_step(model, compute_dtype=torch.float32),
+                        batch, PLAIN_WARMUP_FP32, PLAIN_STEPS_FP32, {**per_step, **split})
+    routed = wino_routed(wino)
+    with switches(GDT_WINOGRAD="fused"):
+        fused = _plain_steps(
+            "plain_bf16_winograd_fused", state, make_plain_train_step(model), batch, 1, 1,
+            {**per_step, "attention_bwd_512": n_512, "group_norm": n_gn - n_wino,
+             "group_norm_affine": n_wino, "wino_rows": n_wino,
+             "wino_rows_dgrad": sum(routed["wino_rows_dgrad"].values()),
+             "wino_wgrad": sum(routed["wino_wgrad"].values())})
+    for r in (bf16, fp32, fused):
+        out[r["phase"]] = {k: v for k, v in r.items() if k != "counts"}
+
+    # the eval step, then predict under GDT_FUSE_INFERENCE=1 through the Trainer
+    reset_counts()
+    metrics = make_plain_eval_step(model)(state, batch, generator=state.generator)
+    torch.cuda.synchronize()
+    eval_counts = read_counts()
+    require(all(math.isfinite(float(v)) for v in metrics.values())
+            and all(k.startswith("val/") for k in metrics) and float(metrics["val/d_weight"]) == 0,
+            f"plain eval metrics {metrics}")
+    for name in COUNTED:
+        want = {"group_norm": n_gn, "attention": n_attn}.get(name, 0)
+        require(eval_counts[name] == want, f"plain eval {name} launches {eval_counts[name]} != {want}")
+    split_cfg = {"target": "generative_detection_tpu.data.synthetic.SyntheticImageValidation",
+                 "params": {"length": PLAIN_BATCH, "patch_height": PLAIN_SIZE}}
+    dm = instantiate_from_config({"target": "generative_detection_tpu.data.datamodule.DataModuleFromConfig",
+                                  "params": {"batch_size": PLAIN_BATCH, "num_workers": 0,
+                                             "predict": split_cfg}})
+    tmp = Path(tempfile.mkdtemp(prefix="gdt_plain_"))
+    try:
+        trainer = Trainer(model, logdir=str(tmp / "predict"), device="cuda")
+        trainer.state = state
+        with switches(GDT_FUSE_INFERENCE="1"):
+            reset_counts()
+            preds = trainer.predict(dm)
+            torch.cuda.synchronize()
+            predict_counts = read_counts()
+        dm.teardown()
+        require(len(preds) == 1 and set(preds[0]) == {"dec_obj"}
+                and preds[0]["dec_obj"].shape == (PLAIN_BATCH, PLAIN_SIZE, PLAIN_SIZE, 3)
+                and bool(np.isfinite(preds[0]["dec_obj"]).all()), "plain predict output")
+        b6 = sites["b6"]
+        for name in COUNTED:
+            want = {"fused_conv": b6, "group_norm_affine": b6, "group_norm": n_gn - b6,
+                    "attention": n_attn}.get(name, 0)
+            require(predict_counts[name] == want,
+                    f"plain predict {name} launches {predict_counts[name]} != {want}")
+        del trainer
+        out["eval"] = {"launches": {k: v for k, v in eval_counts.items() if v},
+                       "rec_loss": float(metrics["val/rec_loss"])}
+        out["predict_fused"] = {"launches": {k: v for k, v in predict_counts.items() if v}}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = _plain_card_vs_cpu()
+        out["cli"] = _plain_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"bf16": bf16["counts"], "fp32": fp32["counts"], "fused": fused["counts"],
+            "predict": predict_counts}
+
+
+def phase_plain_fused_fp32_memory() -> dict:
+    """One fp32 GDT_WINOGRAD=fused step of the plain family at the flagship
+    backbone's width at ``BIG_PLAIN_SIZE``^2 input, batch ``BIG_PLAIN_BATCH``
+    (attention at L = 16384 on the split kernels): its peak memory and the
+    largest weight-gradient (B8) split-K partial buffer, whose split count
+    grows with the input (``ops/conv3x3.py`` ``_wgrad_splits``)."""
+    require_default_tf32("plain_fused_fp32_512")
+    model = plain_model("float32")
+    partials = []
+    splits_fn = conv3x3._wgrad_splits
+
+    def recording(b, h, w, c, co, m, dtype):
+        n = splits_fn(b, h, w, c, co, m, dtype)
+        partials.append(((b, h, w, c, co), n, n * (m + 2) * 3 * c * co * 4))
+        return n
+
+    with switches(GDT_WINOGRAD="fused"):
+        state = create_train_state(model, 1e-4, grad_clip=1.0, seed=0, device="cuda")
+        step = make_plain_train_step(model)
+        batch = _plain_batch(BIG_PLAIN_BATCH, BIG_PLAIN_SIZE, "cuda", 4)
+        state, _ = step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        gc.collect()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        conv3x3._wgrad_splits = recording
+        try:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        finally:
+            conv3x3._wgrad_splits = splits_fn
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(float(v)) for v in metrics.values()), "plain 512 fp32 losses")
+    for name in ("wino_rows", "wino_wgrad", "attention_split", "attention_split_bwd"):
+        require(counts[name] > 0, f"plain 512 fp32 fused step: no {name} launch: {counts}")
+    largest = max(partials, key=lambda p: p[2])
+    out = {"phase": "plain_fused_fp32_512", "input": BIG_PLAIN_SIZE, "batch": BIG_PLAIN_BATCH,
+           "step_ms": step_s * 1e3, "max_memory_allocated_bytes": peak,
+           "memory_allocated_before_bytes": held,
+           "largest_wgrad_partial": {"site": list(largest[0]), "splits": largest[1],
+                                     "bytes": largest[2]},
+           "wgrad_partial_bytes_per_step": sum(p[2] for p in partials),
+           "launches": {k: v for k, v in counts.items() if v}}
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return counts
+
+
 def _largest(cases, name, dtype=torch.bfloat16):
     """The ``dtype`` case of ``name`` with the most work (shape product)."""
     keys = [k for k in cases if k[0] == name and k[-1] == dtype]
@@ -1942,7 +2431,8 @@ def wino_step_sums(cases: dict, wino: Counter, dtype=torch.bfloat16) -> dict:
 
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
-                 train_fp32: dict, train_fused_fp32: dict, step_sums: dict, fit: dict):
+                 train_fp32: dict, train_fused_fp32: dict, step_sums: dict, fit: dict,
+                 plain: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -1964,7 +2454,12 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     their times summed over a fused detector request's or a fused step's
     sites (``step_sums``, by (name, dtype)). ``fit_launches`` gives each
     kernel's launches in the training entry point's fit (run 1 of
-    ``phase_fit_synthetic_smoke``, fp32), 0 for kernels it does not run."""
+    ``phase_fit_synthetic_smoke``, fp32), 0 for kernels it does not run.
+    ``plain_launches`` gives them on the plain family's paths
+    (``phase_plain_autoencoder``): a bf16 row over the 10 timed bf16 steps
+    (B7, B8: the one GDT_WINOGRAD=fused step; B6 and its affine: predict
+    under GDT_FUSE_INFERENCE=1), an fp32 row over the 5 timed fp32 steps
+    (fp32 B7, B8: the fused fp32 step at 512^2), 0 where none runs it."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -2026,6 +2521,19 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
                 7: "attention_split_bwd", 8: "attention_split_bwd_512", 9: "attention_split_512"}
     for i, e in enumerate(entries):
         e["fit_launches"] = fit[fit_rows[i]] if i in fit_rows else 0
+    # the plain family's counters, by row: (run, counter)
+    plain_rows = {0: ("bf16", "group_norm"), 1: ("bf16", "attention"),
+                  2: ("bf16", "group_norm_bwd"), 3: ("bf16", "attention_bwd"),
+                  5: ("fp32", "attention_split"), 7: ("fp32", "attention_split_bwd"),
+                  8: ("fp32", "attention_split_bwd_512"), 9: ("fp32", "attention_split_512"),
+                  10: ("predict", "group_norm_affine"), 11: ("predict", "fused_conv"),
+                  12: ("fused", "wino_rows"), 13: ("fused", "wino_rows_dgrad"),
+                  14: ("fused", "wino_wgrad"), 15: ("bf16", "attention_bwd_512"),
+                  17: ("fused_fp32_512", "wino_wgrad"), 18: ("fused_fp32_512", "wino_rows"),
+                  19: ("fused_fp32_512", "wino_rows_dgrad")}
+    for i, e in enumerate(entries):
+        run, counter = plain_rows.get(i, (None, None))
+        e["plain_launches"] = plain[run][counter] if run else 0
     for e, r in zip(entries, (row[0] for row in rows)):
         if "kernel" in r:  # the attention, GroupNorm forward and conv kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
@@ -2064,6 +2572,7 @@ def main() -> int:
           "winograd_shapes": sorted([list(k) + [n] for k, n in wino.items()])})
     require(n_b6 > 0 and n_wino > 0, "no fused-conv site found")
     cases = phase_kernels(gn_train, attn_train, sites)
+    phase_long_attention()
     step_sums = {}  # by (kernel name, dtype name)
     for dtype in (torch.bfloat16, torch.float32):
         wino_sums = wino_step_sums(cases, wino, dtype)
@@ -2129,8 +2638,10 @@ def main() -> int:
                         "fused_conv": n_b6, "group_norm_affine": n_b6},
          "fp32": {"group_norm": GN_PER_FORWARD, "attention": ATTN_PER_FORWARD,
                   "attention_split": n_split_det, "attention_split_512": n_split_det_512}})
+    plain = phase_plain_autoencoder()
+    plain["fused_fp32_512"] = phase_plain_fused_fp32_memory()
     emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
-                      train_fused_fp32, step_sums, fit))
+                      train_fused_fp32, step_sums, fit, plain))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -3,9 +3,8 @@
 The port's counterpart of ``generative_detection_tpu/config/instantiate.py``.
 The repo's YAMLs name either the reference's ``src.*`` targets or the JAX
 package's ``generative_detection_tpu.*`` targets; ``TARGET_ALIASES`` maps both
-onto this package's classes, so the pose configs build port objects
-unchanged. Targets whose port has not landed yet raise ``NotImplementedError``
-naming the slice that brings them.
+onto this package's classes, so the pose and plain autoencoder configs build
+port objects unchanged.
 """
 
 from __future__ import annotations
@@ -17,7 +16,8 @@ _PKG = "generative_detection_tpu_torch"
 
 TARGET_ALIASES: dict[str, str] = {}
 for _prefix in ("src.models.autoencoder", "generative_detection_tpu.models.autoencoder"):
-    TARGET_ALIASES[f"{_prefix}.PoseAutoencoder"] = f"{_PKG}.models.autoencoder.PoseAutoencoder"
+    for _cls in ("PoseAutoencoder", "Autoencoder"):
+        TARGET_ALIASES[f"{_prefix}.{_cls}"] = f"{_PKG}.models.autoencoder.{_cls}"
 for _prefix in (
     "src.modules.autoencodermodules.pose_decoder",
     "src.modules.autoencodermodules.pose_encoder",
@@ -31,7 +31,8 @@ for _prefix in (
     "src.modules.losses.contperceptual",
     "generative_detection_tpu.losses.contperceptual",
 ):
-    TARGET_ALIASES[f"{_prefix}.PoseLoss"] = f"{_PKG}.losses.contperceptual.PoseLoss"
+    for _cls in ("PoseLoss", "LPIPSWithDiscriminator"):
+        TARGET_ALIASES[f"{_prefix}.{_cls}"] = f"{_PKG}.losses.contperceptual.{_cls}"
 
 # data: the datamodule and the datasets, under the JAX package's names and
 # the reference's (``src.data.datasets.nuscenes.*``)
@@ -82,16 +83,6 @@ for _target, _cls in (
     TARGET_ALIASES[_target] = f"{_PKG}.train.metrics.{_cls}"
 TARGET_ALIASES["generative_detection_tpu.train.loop.Trainer"] = f"{_PKG}.train.loop.Trainer"
 
-# Target prefixes of the JAX package and the reference that later slices
-# port, with the slice that brings them.
-NOT_PORTED: dict[str, str] = {
-    "src.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
-    "generative_detection_tpu.models.autoencoder.Autoencoder": "the plain-autoencoder slice",
-    "src.modules.losses": "the plain-autoencoder slice",
-    "generative_detection_tpu.losses": "the plain-autoencoder slice",
-}
-
-
 def get_obj_from_str(string: str) -> Any:
     """Import ``a.b.C`` and return the attribute ``C`` of module ``a.b``."""
     module, cls = string.rsplit(".", 1)
@@ -99,14 +90,7 @@ def get_obj_from_str(string: str) -> Any:
 
 
 def resolve_target(target: str) -> str:
-    if target in TARGET_ALIASES:
-        return TARGET_ALIASES[target]
-    for prefix, later in NOT_PORTED.items():
-        if target == prefix or target.startswith(prefix + "."):
-            raise NotImplementedError(
-                f"{target} is not ported to {_PKG} yet; it comes with {later}"
-            )
-    return target
+    return TARGET_ALIASES.get(target, target)
 
 
 def instantiate_from_config(config: Mapping[str, Any], **extra_kwargs: Any) -> Any:

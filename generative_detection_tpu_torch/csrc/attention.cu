@@ -302,6 +302,14 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 namespace sp {
 
 constexpr int NP = 3;  // bf16 pieces of every fp32 operand
+// Key tiles whose P V products one wgmma accumulator chain sums. The tensor
+// core's fp32 sum truncates, so a chain's error grows with its length: over
+// a whole row of 65536 keys O missed 1e-3 of its RMS against float64 (1.5e-3;
+// 2.4e-4 at 4096 keys). Every FLUSH_TILES key tiles (4096 keys) the
+// accumulator is added into o with IEEE fp32 arithmetic (the partial scaled
+// by the softmax's running max since the last flush) and restarts at zero;
+// a row of at most 4096 keys never flushes.
+constexpr int FLUSH_TILES = 64;
 
 // A block: 64 query rows, one consumer warpgroup (threads 0-127) and one
 // producer warp (128-159). Shared memory: the three Q pieces, then a ring
@@ -390,10 +398,33 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
   float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};  // rows g, g + 8
+  float m_flush[2];  // the running max at the last flush
+  const int row = row0 + q0 + warp * 16 + g;
+  float* orow = o + (size_t)row * C + 2 * tq;
 
   mbar_wait(q_full, 0);
   int n = 0;  // piece tiles taken from the ring
   for (int it = 0; it < n_tiles; ++it) {
+    if (it % FLUSH_TILES == 0 && it > 0) {
+      // o = o * 2^(m_flush - m) + acc (o = acc the first time), acc = 0
+      const bool add = it > FLUSH_TILES;
+      float f[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        f[h] = add ? exp2f(m_flush[h] - m_row[h]) : 0.f;
+        m_flush[h] = m_row[h];
+      }
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2* dst = reinterpret_cast<float2*>(orow + 8 * h * C + 8 * j);
+          const float2 old = add ? *dst : make_float2(0.f, 0.f);
+          *dst = make_float2(fmaf(old.x, f[h], acc[4 * j + 2 * h]),
+                             fmaf(old.y, f[h], acc[4 * j + 2 * h + 1]));
+          acc[4 * j + 2 * h] = acc[4 * j + 2 * h + 1] = 0.f;
+        }
+    }
     // descriptors of this tile's operands: rebuilt each tile from an opaque
     // base, so the compiler cannot keep the 48 of the Q pieces in registers
     const uint64_t dq = desc_kmajor(opaque(smem_u32(qs)));
@@ -483,25 +514,28 @@ attn_fwd_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  // O / l, lse = m + log(l) (natural log)
-  float inv[2];
-  const int row = row0 + q0 + warp * 16 + g;
+  // O / l, lse = m + log(l) (natural log); after a flush O = o 2^(m_flush
+  // - m) + acc
+  float inv[2], f[2];
+  const bool flushed = n_tiles > FLUSH_TILES;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_row[h];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[h] = 1.f / l;
+    f[h] = flushed ? exp2f(m_flush[h] - m_row[h]) : 0.f;
     if (LSE && tq == 0) lse[row + 8 * h] = (m_row[h] + log2f(l)) * kLn2;
   }
-  float* orow = o + (size_t)row * C + 2 * tq;
 #pragma unroll
-  for (int j = 0; j < C / 8; ++j) {
-    *reinterpret_cast<float2*>(orow + 8 * j) =
-        make_float2(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]);
-    *reinterpret_cast<float2*>(orow + 8 * C + 8 * j) =
-        make_float2(acc[4 * j + 2] * inv[1], acc[4 * j + 3] * inv[1]);
-  }
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* dst = reinterpret_cast<float2*>(orow + 8 * h * C + 8 * j);
+      const float2 old = flushed ? *dst : make_float2(0.f, 0.f);
+      *dst = make_float2(fmaf(old.x, f[h], acc[4 * j + 2 * h]) * inv[h],
+                         fmaf(old.y, f[h], acc[4 * j + 2 * h + 1]) * inv[h]);
+    }
 }
 
 // The pre-pass into scratch: NP * 3 * n bf16 (the pieces of q, k, v; n =

@@ -471,6 +471,13 @@ constexpr int MAX_STAGES = 6;
 constexpr int THREADS = 160;   // one consumer warpgroup and one producer warp
 constexpr int STATS = 2 * BR;  // lse and di of one tile's rows, floats
 constexpr int WIDE_C = 512, W = 256, CB = WIDE_C / W;  // C = 512: two 256-column blocks
+// Steps (64 rows of the other side) whose products one wgmma accumulator
+// chain sums at C <= 256. The tensor core's fp32 sum truncates, so a chain's
+// error grows with its length: over 65536 rows dK missed 1e-3 of its RMS
+// against float64 (2.3e-3; 1.6e-4 over 4096). Every FLUSH_TILES steps the
+// accumulator is added into the output with IEEE fp32 arithmetic and
+// restarts at zero; at most 4096 rows never flush.
+constexpr int FLUSH_TILES = 64;
 
 // The operands in scratch: piece p of row r of operand t at row (t NP + p) B L + r.
 enum Operand { OPQ, OPK, OPV, OPDO };
@@ -605,6 +612,21 @@ __device__ __forceinline__ void store_acc(float* orow, const float (&acc)[C / 2]
   }
 }
 
+// store_acc, or with `add` the accumulator added to what the rows hold
+// (IEEE fp32); then the accumulator is zero.
+template <int C>
+__device__ __forceinline__ void flush_acc(float* orow, float (&acc)[C / 2], int ld, bool add) {
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* dst = reinterpret_cast<float2*>(orow + 8 * h * ld + 8 * j);
+      const float2 old = add ? *dst : make_float2(0.f, 0.f);
+      *dst = make_float2(old.x + acc[4 * j + 2 * h], old.y + acc[4 * j + 2 * h + 1]);
+      acc[4 * j + 2 * h] = acc[4 * j + 2 * h + 1] = 0.f;
+    }
+}
+
 // One block of a role: 64 rows, a consumer warpgroup (threads 0-127) and a
 // producer warp (128-159) whose thread 128 issues every copy.
 //
@@ -706,10 +728,12 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
   float acc[C / 2];
 #pragma unroll
   for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+  float* orow = out + (size_t)(rb + warp * 16 + g) * C + 2 * tq;
   mbar_wait(res_full, 0);
 
   int n = 0;  // piece tiles taken from the ring
   for (int it = 0; it < n_tiles; ++it) {
+    if (it % FLUSH_TILES == 0 && it > 0) flush_acc<C>(orow, acc, C, it > FLUSH_TILES);
     // descriptors rebuilt each step from an opaque base, so the compiler
     // cannot keep every piece's descriptor live in registers
     const uint64_t dres = desc_kmajor(opaque(smem_u32(res)));
@@ -833,7 +857,7 @@ __device__ __forceinline__ void run_block(const CUtensorMap* tm, const float* __
     }
     if (ROLE == DV) n += NP;
   }
-  store_acc<C>(out + (size_t)(rb + warp * 16 + g) * C + 2 * tq, acc, C);
+  flush_acc<C>(orow, acc, C, n_tiles > FLUSH_TILES);
 }
 
 // tm: the (4 NP B L, C) bf16 map over the pieces, boxes of 64 columns x 64

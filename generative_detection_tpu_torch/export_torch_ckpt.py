@@ -7,8 +7,9 @@ of the JAX package)::
 
 Reads the latest checkpoint of a run directory (or its ``checkpoints/``)
 through ``train/checkpoint.py``: the network and the loss modules, without
-the optimizers' moments. Writes ``{'state_dict', 'global_step'}`` in the
-reference's layout (``utils/torch_compat.py``): the network, ``loss.logvar``
+the optimizers' moments. Exports the family the config's model names (a
+``PoseAutoencoder``, or the plain ``Autoencoder`` as an ldm ``AutoencoderKL``).
+Writes ``{'state_dict', 'global_step'}`` in the reference's layout (``utils/torch_compat.py``): the network, ``loss.logvar``
 and the discriminator, LPIPS left out, the discriminator's BatchNorm buffers
 as fresh defaults. The reference's ``init_from_ckpt`` and the port's
 ``ckpt_path`` both read it. A host job: it runs on the CPU.
@@ -35,7 +36,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     after the flags), export, and return ``{"step", "tensors", "out"}``."""
     from .config import instantiate_from_config, merge_configs
     from .train.checkpoint import CheckpointManager
-    from .utils.torch_compat import export_pose_autoencoder, save_torch_checkpoint
+    from .utils.torch_compat import EXPORTERS, save_torch_checkpoint
 
     logging.basicConfig(level=logging.INFO)
     opt, unknown = get_parser().parse_known_args(argv)
@@ -51,7 +52,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     loss.load_state_dict(restored["loss"])
     step = restored["step"]
     logging.info("Restored the network and loss at step %d from %s", step, ckptdir)
-    sd = export_pose_autoencoder(net, loss)
+    sd = EXPORTERS[model.step_family](net, loss)
     save_torch_checkpoint(opt.out, sd, global_step=step)
     logging.info("Wrote %d tensors -> %s", len(sd), opt.out)
     return {"step": step, "tensors": len(sd), "out": opt.out}

@@ -1,3 +1,3 @@
-from .contperceptual import PoseLoss, adopt_weight, build_prior_tables
+from .contperceptual import LPIPSWithDiscriminator, PoseLoss, adopt_weight, build_prior_tables
 
-__all__ = ["PoseLoss", "adopt_weight", "build_prior_tables"]
+__all__ = ["LPIPSWithDiscriminator", "PoseLoss", "adopt_weight", "build_prior_tables"]

@@ -13,6 +13,9 @@ the reference's ``PoseLoss`` over ldm's ``LPIPSWithDiscriminator``):
 ``global_step`` is a Python int here: PyTorch runs eagerly, so the phase
 gates are plain conditions rather than the JAX package's traced ``where``.
 
+``LPIPSWithDiscriminator`` is the plain autoencoder's loss (ldm's): L1 +
+LPIPS NLL, the posterior's KL and the same PatchGAN term, unmasked.
+
 Kept from the JAX package, on purpose: the foreground mask uses
 ``background_class_idx = 1`` (the reference's ``BACKGROUND_CLASS_IDX``) while
 the prior-KL background skip uses the class *name*'s id (10), and the prior
@@ -366,6 +369,92 @@ class PoseLoss(nn.Module):
         logits_real = self.discriminator(rgb_gt * mask_2d_bbox) * mask_bg
         logits_fake = self.discriminator(dec_obj * mask_2d_bbox) * mask_bg
         disc_factor = adopt_weight(self.disc_factor, global_step, self.disc_start)
+        loss_fn = hinge_d_loss if self.disc_loss == "hinge" else vanilla_d_loss
+        d_loss = disc_factor * loss_fn(logits_real, logits_fake)
+        log = {
+            f"{split}/disc_loss": d_loss,
+            f"{split}/logits_real": logits_real.mean(),
+            f"{split}/logits_fake": logits_fake.mean(),
+        }
+        return d_loss, log
+
+
+class LPIPSWithDiscriminator(nn.Module):
+    """The plain autoencoder's loss (``LPIPSWithDiscriminator`` of the JAX
+    package; ldm's, which the reference subclasses unchanged): L1 + LPIPS
+    NLL with the scalar ``logvar``, the posterior's KL against N(0, I) and
+    the PatchGAN term. Submodules as ``PoseLoss``'s: ``perceptual_loss``
+    (frozen), ``discriminator`` (trained by its own optimizer) and
+    ``logvar``, which no optimizer updates. ``pixelloss_weight`` and
+    ``disc_conditional`` are accepted and unused, as in ldm."""
+
+    def __init__(
+        self,
+        disc_start: int = 0,
+        logvar_init: float = 0.0,
+        kl_weight: float = 1.0,
+        pixelloss_weight: float = 1.0,
+        disc_num_layers: int = 3,
+        disc_in_channels: int = 3,
+        disc_factor: float = 1.0,
+        disc_weight: float = 1.0,
+        perceptual_weight: float = 1.0,
+        disc_conditional: bool = False,
+        disc_loss: str = "hinge",
+    ):
+        super().__init__()
+        if disc_loss not in ("hinge", "vanilla"):
+            raise ValueError(f"disc_loss must be hinge or vanilla, got {disc_loss}")
+        self.disc_start, self.disc_factor, self.disc_weight = disc_start, disc_factor, disc_weight
+        self.kl_weight = kl_weight
+        self.perceptual_weight = perceptual_weight
+        self.disc_loss = disc_loss
+        self.perceptual_loss = LPIPS()
+        self.discriminator = NLayerDiscriminator(disc_in_channels, n_layers=disc_num_layers)
+        self.logvar = nn.Parameter(torch.tensor(float(logvar_init)), requires_grad=False)
+
+    def nll_terms(self, inputs: torch.Tensor, recons: torch.Tensor):
+        """``(nll, rec_mean)``: pixel + LPIPS only, no discriminator."""
+        rec = (inputs - recons).abs()
+        if self.perceptual_weight > 0:
+            rec = rec + self.perceptual_weight * self.perceptual_loss(inputs, recons)
+        nll = (rec / torch.exp(self.logvar) + self.logvar).sum() / inputs.shape[0]
+        return nll, rec.mean()
+
+    def g_term(self, recons: torch.Tensor) -> torch.Tensor:
+        """The generator's GAN scalar (one discriminator forward)."""
+        return -self.discriminator(recons).mean()
+
+    def forward(self, inputs, recons, posterior, optimizer_idx: int, global_step: int,
+                d_weight=0.0, split: str = "train", rec_terms=None):
+        """Optimizer 0: the generator loss and its log; ``rec_terms``, when
+        given, are the precomputed ``(nll, g_loss, rec_mean)`` (the train
+        step passes them detached, having taken their gradients itself).
+        Optimizer 1: the discriminator loss on inputs and reconstructions
+        it detaches."""
+        disc_factor = adopt_weight(self.disc_factor, global_step, self.disc_start)
+        if optimizer_idx == 0:
+            if rec_terms is None:
+                nll, rec_mean = self.nll_terms(inputs, recons)
+                g = self.g_term(recons)
+            else:
+                nll, g, rec_mean = rec_terms
+            kl = posterior.kl().sum() / inputs.shape[0]
+            d_weight = torch.as_tensor(d_weight, dtype=torch.float32, device=inputs.device)
+            loss = nll + self.kl_weight * kl + d_weight * disc_factor * g
+            log = {
+                f"{split}/total_loss": loss,
+                f"{split}/nll_loss": nll,
+                f"{split}/rec_loss": rec_mean,
+                f"{split}/kl_loss": kl,
+                f"{split}/g_loss": g,
+                f"{split}/logvar": self.logvar,
+                f"{split}/d_weight": d_weight,
+                f"{split}/disc_factor": torch.tensor(float(disc_factor), device=inputs.device),
+            }
+            return loss, log
+        logits_real = self.discriminator(inputs.detach())
+        logits_fake = self.discriminator(recons.detach())
         loss_fn = hinge_d_loss if self.disc_loss == "hinge" else vanilla_d_loss
         d_loss = disc_factor * loss_fn(logits_real, logits_fake)
         log = {

@@ -13,6 +13,10 @@
 - ``PoseAutoencoder``: the config-facing wrapper with the keyword surface of
   the reference YAML ``model.params``. It holds the configuration, builds
   nets and the ``PoseLoss``, and prepares batches.
+- ``AutoencoderKLNet`` and ``Autoencoder``: the plain KL autoencoder (ldm's
+  ``AutoencoderKL``, the reference's ``Autoencoder``) and its wrapper, with
+  ``LPIPSWithDiscriminator`` as its loss. ``step_family`` tells the Trainer
+  which train step to build: "pose" or "plain".
 """
 
 from __future__ import annotations
@@ -48,6 +52,56 @@ def cast_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
     return net
+
+
+class AutoencoderKLNet(nn.Module):
+    """The plain KL autoencoder (ldm ``AutoencoderKL``): encoder, ``quant_conv``
+    (1x1 -> 2 * embed_dim), a diagonal Gaussian posterior, ``post_quant_conv``
+    and decoder, with ldm's parameter names. NHWC in and out, as
+    ``PoseAutoencoderNet``; ``fuse`` as its."""
+
+    def __init__(self, ddconfig: Dict[str, Any], embed_dim: int = 16, fuse: bool = False):
+        super().__init__()
+        self.encoder = Encoder(ddconfig, fuse)
+        self.decoder = Decoder(ddconfig, fuse)
+        zc = ddconfig["z_channels"]
+        enc_out = 2 * zc if ddconfig.get("double_z", True) else zc
+        self.quant_conv = nn.Conv2d(enc_out, 2 * embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(embed_dim, zc, 1)
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussianDistribution:
+        """(B, H, W, C) images -> the posterior over (B, h, w, embed_dim)."""
+        h = self.encoder(_nchw(x).contiguous(memory_format=torch.channels_last))
+        return DiagonalGaussianDistribution.from_parameters(_nhwc(self.quant_conv(h)), dim=-1)
+
+    def decode(self, z: torch.Tensor, return_pre_out: bool = False):
+        """(B, h, w, embed_dim) latents -> (B, H, W, out_ch) float32 images
+        (and the pre-``conv_out`` activations, NHWC)."""
+        z = self.post_quant_conv(_nchw(z).to(self.post_quant_conv.weight.dtype))
+        out, pre_out = self.decoder(z, return_pre_out=True)
+        return (_nhwc(out), _nhwc(pre_out)) if return_pre_out else _nhwc(out)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        sample_posterior: bool = True,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> Dict[str, Any]:
+        """Encode, take a posterior sample (its normal draw ``draws['posterior']``
+        when given, else from ``generator``) or the mode, decode. Returns
+        dec_obj (B, H, W, out_ch) float32, posterior_obj and pre_out (NHWC,
+        the input of the decoder's ``conv_out``)."""
+        posterior = self.encode(x)
+        if sample_posterior:
+            noise = (draws or {}).get("posterior")
+            if noise is not None:
+                noise = noise.to(posterior.mean.device)
+            z = posterior.sample(generator, noise)
+        else:
+            z = posterior.mode()
+        dec, pre_out = self.decode(z, return_pre_out=True)
+        return {"dec_obj": dec, "posterior_obj": posterior, "pre_out": pre_out}
 
 
 class PoseAutoencoderNet(nn.Module):
@@ -241,7 +295,95 @@ class PoseAutoencoderNet(nn.Module):
         return self.decode(z_obj + self._encode_pose(pose))
 
 
-class PoseAutoencoder:
+class _WrapperBase:
+    """What both config-facing wrappers share: reference checkpoints
+    (``ckpt_path``), the forward-only network, the seeded loss and network,
+    and ``prepare_batch`` from its host and device halves (``_WrapperBase``
+    of the JAX package). A wrapper defines ``build_net``, ``build_loss`` and
+    the two halves of ``prepare_batch``."""
+
+    learning_rate: float = 4.5e-6
+    # the train and eval steps the Trainer builds: "pose" or "plain"
+    step_family: str = "pose"
+    ckpt_path: Optional[str] = None
+    ignore_keys: Sequence[str] = ()
+    lpips_weights_path: Optional[str] = None
+
+    def init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module], path: str,
+                       ignore_keys: Sequence[str] = ()):
+        """Overlay the reference checkpoint at ``path`` onto ``net`` (and
+        ``loss``) in place, ldm's ``init_from_ckpt``: keys under
+        ``ignore_keys`` (else the wrapper's) dropped, the rest loaded with
+        strict=False into each module's dtype and device (a shape that
+        differs raises; missing and unexpected keys are logged). Returns
+        (net, loss)."""
+        from ..utils.torch_compat import (
+            filter_ignore_keys, load_overlay, load_torch_state_dict, split_loss,
+        )
+
+        sd = filter_ignore_keys(load_torch_state_dict(path), ignore_keys or self.ignore_keys)
+        net_sd, loss_sd = split_loss(sd)
+        load_overlay(net, net_sd, "the network")
+        if loss is not None and loss_sd:
+            load_overlay(loss, loss_sd, "the loss")
+        return net, loss
+
+    def maybe_init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module] = None):
+        """``init_from_ckpt`` from ``ckpt_path`` when it is set, else nothing.
+        Called by every entry point that builds a state from a seed (the
+        train state, the Trainer's fit and forward-only loops, the eval CLI
+        without ``-r``); the detector and its export serve the weights they
+        are given, so a caller applies it before them. Returns (net, loss)."""
+        if not self.ckpt_path:
+            return net, loss
+        logging.info("Initializing from torch checkpoint %s (ignore_keys=%s)",
+                     self.ckpt_path, list(self.ignore_keys))
+        return self.init_from_ckpt(net, loss, self.ckpt_path, self.ignore_keys)
+
+    def inference_net(self, net: Optional[nn.Module] = None) -> nn.Module:
+        """The network of the forward-only paths (the detector, the image
+        logger, ``predict``), as ``build_net``: ``GDT_FUSE_INFERENCE=1``
+        builds it with the fused GroupNorm+SiLU+conv kernels
+        (``inference_net()`` of the JAX package, which clones its net with
+        ``fuse=True``). Same parameter names. Given a live ``net``: ``net``
+        itself when the switch is off, else a fused network holding ``net``'s
+        weights on its device."""
+        fuse = os.environ.get("GDT_FUSE_INFERENCE", "0") == "1"
+        if net is not None and not fuse:
+            return net
+        inet = self.build_net(fuse=fuse)
+        if net is not None:
+            inet.load_state_dict(net.state_dict())
+            inet = inet.to(next(net.parameters()).device, memory_format=torch.channels_last)
+        return inet
+
+    def init_loss(self, generator: Optional[torch.Generator] = None, device="cuda"):
+        """A seeded loss in float32 on ``device``: LPIPS flax-like (the JAX
+        package's seeded random default) or from ``lpips_weights_path``, the
+        discriminator with taming's init."""
+        loss = self.build_loss()
+        flax_like_init_(loss.perceptual_loss, generator)
+        init_discriminator_(loss.discriminator, generator)
+        if self.lpips_weights_path:
+            load_lpips_weights(loss.perceptual_loss, self.lpips_weights_path)
+        return loss.to(device=device, memory_format=torch.channels_last)
+
+    def prepare_batch(
+        self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
+    ) -> Dict[str, torch.Tensor]:
+        """A host batch -> the loss-ready tensors on ``device``: the numpy
+        half (``prepare_batch_host``), then the device half."""
+        return self.prepare_batch_device(self.prepare_batch_host(batch), num_shards, device)
+
+    def init_net(self, generator: Optional[torch.Generator] = None, device="cuda") -> nn.Module:
+        """A flax-like initialised network (weights drawn on the CPU from
+        ``generator``) in the configured compute dtype, on ``device``."""
+        net = flax_like_init_(self.build_net(), generator)
+        cast_compute_dtype(net, self.compute_dtype)
+        return net.to(device=device, memory_format=torch.channels_last)
+
+
+class PoseAutoencoder(_WrapperBase):
     """Config-facing wrapper with the reference constructor surface. It
     keeps the configuration; ``build_net``/``init_net`` make networks.
     ``learning_rate`` is the base rate until the training entry point scales
@@ -249,8 +391,6 @@ class PoseAutoencoder:
     prefixes to skip) that every entry point building a state loads over its
     initial weights (``maybe_init_from_ckpt``), as the reference loads it at
     construction."""
-
-    learning_rate: float = 4.5e-6
 
     def __init__(
         self,
@@ -324,37 +464,6 @@ class PoseAutoencoder:
             prior_logvars=prior_logvars,
         )
 
-    def init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module], path: str,
-                       ignore_keys: Sequence[str] = ()):
-        """Overlay the reference checkpoint at ``path`` onto ``net`` (and
-        ``loss``) in place, ldm's ``init_from_ckpt``: keys under
-        ``ignore_keys`` (else the wrapper's) dropped, the rest loaded with
-        strict=False into each module's dtype and device (a shape that
-        differs raises; missing and unexpected keys are logged). Returns
-        (net, loss)."""
-        from ..utils.torch_compat import (
-            filter_ignore_keys, load_overlay, load_torch_state_dict, split_loss,
-        )
-
-        sd = filter_ignore_keys(load_torch_state_dict(path), ignore_keys or self.ignore_keys)
-        net_sd, loss_sd = split_loss(sd)
-        load_overlay(net, net_sd, "the network")
-        if loss is not None and loss_sd:
-            load_overlay(loss, loss_sd, "the loss")
-        return net, loss
-
-    def maybe_init_from_ckpt(self, net: nn.Module, loss: Optional[nn.Module] = None):
-        """``init_from_ckpt`` from ``ckpt_path`` when it is set, else nothing.
-        Called by every entry point that builds a state from a seed (the
-        train state, the Trainer's fit and forward-only loops, the eval CLI
-        without ``-r``); the detector and its export serve the weights they
-        are given, so a caller applies it before them. Returns (net, loss)."""
-        if not self.ckpt_path:
-            return net, loss
-        logging.info("Initializing from torch checkpoint %s (ignore_keys=%s)",
-                     self.ckpt_path, list(self.ignore_keys))
-        return self.init_from_ckpt(net, loss, self.ckpt_path, self.ignore_keys)
-
     def build_net(self, fuse: bool = False) -> PoseAutoencoderNet:
         """A float32 network on the CPU with PyTorch's default init (for
         loading a state_dict into); ``fuse`` as ``PoseAutoencoderNet``'s."""
@@ -374,39 +483,12 @@ class PoseAutoencoder:
             fuse=fuse,
         )
 
-    def inference_net(self, net: Optional[PoseAutoencoderNet] = None) -> PoseAutoencoderNet:
-        """The network of the forward-only paths (the detector, the image
-        logger), as ``build_net``: ``GDT_FUSE_INFERENCE=1`` builds it with the
-        fused GroupNorm+SiLU+conv kernels (``inference_net()`` of the JAX
-        package, which clones its net with ``fuse=True``). Same parameter
-        names. Given a live ``net``: ``net`` itself when the switch is off,
-        else a fused network holding ``net``'s weights on its device."""
-        fuse = os.environ.get("GDT_FUSE_INFERENCE", "0") == "1"
-        if net is not None and not fuse:
-            return net
-        inet = self.build_net(fuse=fuse)
-        if net is not None:
-            inet.load_state_dict(net.state_dict())
-            inet = inet.to(next(net.parameters()).device, memory_format=torch.channels_last)
-        return inet
-
     def build_loss(self):
         """A float32 ``PoseLoss`` on the CPU with PyTorch's default init (for
         loading a state_dict into)."""
         from ..losses.contperceptual import PoseLoss
 
         return PoseLoss(**self.loss_kwargs)
-
-    def init_loss(self, generator: Optional[torch.Generator] = None, device="cuda"):
-        """A seeded ``PoseLoss`` in float32 on ``device``: LPIPS flax-like
-        (the JAX package's seeded random default) or from
-        ``lpips_weights_path``, the discriminator with taming's init."""
-        loss = self.build_loss()
-        flax_like_init_(loss.perceptual_loss, generator)
-        init_discriminator_(loss.discriminator, generator)
-        if self.lpips_weights_path:
-            load_lpips_weights(loss.perceptual_loss, self.lpips_weights_path)
-        return loss.to(device=device, memory_format=torch.channels_last)
 
     def example_batch(self, batch_size: int = 1) -> Dict[str, np.ndarray]:
         """A host batch of zeros with every key ``prepare_batch`` reads."""
@@ -484,24 +566,68 @@ class PoseAutoencoder:
         out["rgb_gt"] = rescale_minmax(out["rgb_gt"], num_shards)
         return out
 
-    def prepare_batch(
-        self, batch: Mapping[str, Any], num_shards: int = 1, device="cuda"
-    ) -> Dict[str, torch.Tensor]:
-        """A host batch of either contract -> the loss-ready tensors on
-        ``device`` (``autoencoder.py:521-593`` of the JAX package): the yaw
-        column injected into the pose, NHWC images and masks (raw crops
-        resized and masks drawn on ``device``), and ``rgb_gt`` rescaled to
-        [-1, 1] per shard."""
-        return self.prepare_batch_device(self.prepare_batch_host(batch), num_shards, device)
+class Autoencoder(_WrapperBase):
+    """The plain KL autoencoder's wrapper (the reference's ``Autoencoder``,
+    ldm's ``AutoencoderKL``), with the keyword surface of the JAX package's.
+    The Trainer builds the plain train and eval steps for it
+    (``step_family``); its batches are ``{'image': (B, H, W, C)}`` in [-1, 1],
+    taken as the dataset gives them. ``ckpt_path`` names an ldm
+    ``AutoencoderKL`` checkpoint, loaded as ``PoseAutoencoder``'s."""
 
-    def init_net(
-        self, generator: Optional[torch.Generator] = None, device="cuda"
-    ) -> PoseAutoencoderNet:
-        """A flax-like initialised network (weights drawn on the CPU from
-        ``generator``) in the configured compute dtype, on ``device``."""
-        net = flax_like_init_(self.build_net(), generator)
-        cast_compute_dtype(net, self.compute_dtype)
-        return net.to(device=device, memory_format=torch.channels_last)
+    step_family = "plain"
+    encoder_pretrain_steps = 0  # no curriculum: always the 'full' phase
+
+    def __init__(
+        self,
+        ddconfig,
+        lossconfig,
+        embed_dim,
+        ckpt_path=None,
+        ignore_keys=(),
+        image_key="image",
+        colorize_nlabels=None,
+        monitor=None,
+        dtype="float32",
+        **_,
+    ):
+        self.ddconfig = dict(ddconfig)
+        self.embed_dim = embed_dim
+        self.ckpt_path = ckpt_path
+        self.ignore_keys = tuple(ignore_keys or ())
+        self.image_key = image_key
+        self.monitor = monitor
+        self.compute_dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+        self.lossconfig = lossconfig
+
+    def build_net(self, fuse: bool = False) -> AutoencoderKLNet:
+        """A float32 network on the CPU with PyTorch's default init (for
+        loading a state_dict into); ``fuse`` as ``AutoencoderKLNet``'s."""
+        return AutoencoderKLNet(self.ddconfig, self.embed_dim, fuse=fuse)
+
+    def build_loss(self):
+        """A float32 loss (``lossconfig``'s target, ``LPIPSWithDiscriminator``
+        in the shipped configs) on the CPU with PyTorch's default init."""
+        return instantiate_from_config(self.lossconfig)
+
+    def example_batch(self, batch_size: int = 1) -> Dict[str, np.ndarray]:
+        """A host batch of zeros at the configured resolution."""
+        res = self.ddconfig.get("resolution", 256)
+        return {self.image_key: np.zeros((batch_size, res, res, self.ddconfig["in_channels"]),
+                                         np.float32)}
+
+    def prepare_batch_host(self, batch: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+        """ldm's ``get_input``: the images float32, NCHW turned NHWC."""
+        img = np.asarray(batch[self.image_key], np.float32)
+        if img.ndim == 4 and img.shape[1] in (1, 3) and img.shape[-1] not in (1, 3):
+            img = np.transpose(img, (0, 2, 3, 1))
+        return {"image": np.ascontiguousarray(img)}
+
+    @staticmethod
+    def prepare_batch_device(
+        host: Mapping[str, Any], num_shards: int = 1, device="cuda", non_blocking: bool = False
+    ) -> Dict[str, torch.Tensor]:
+        """The images onto ``device`` (numpy or (pinned) CPU tensors)."""
+        return {"image": torch.as_tensor(host["image"]).to(device, non_blocking=non_blocking)}
 
 
 # batches that ``prepare_batch_device`` prepared, by image contract ("raw", "float")

@@ -34,7 +34,9 @@ from ..ops.precision import compute_precision
 from .callbacks import Callback, CheckpointCallback
 from .checkpoint import CheckpointManager, restore_signals, save_on_signal
 from .state import TrainState, create_train_state, flax_like_net
-from .steps import _autocast, make_eval_step, make_train_step
+from .steps import (
+    _autocast, make_eval_step, make_plain_eval_step, make_plain_train_step, make_train_step,
+)
 
 PROFILE_STEPS = (10, 15)  # the profiler's window of steps [start, stop)
 
@@ -192,7 +194,17 @@ class Trainer:
             return "full"
         return "pretrain" if self._global_step_for_phase(batch_idx) < pretrain else "full"
 
+    def _plain(self) -> bool:
+        return getattr(self.model, "step_family", "pose") == "plain"
+
     def _build_fns(self) -> None:
+        if self._plain():  # one step for both phases: no curriculum
+            plain = make_plain_train_step(
+                self.model, step_counting=self.step_counting,
+                accumulate_grad_batches=self.accumulate_grad_batches,
+            )
+            self._train_fns = {"pretrain": plain, "full": plain}
+            return
         self._train_fns = {
             phase: make_train_step(
                 self.model, phase=phase, disc_forward=self.disc_forward,
@@ -206,10 +218,10 @@ class Trainer:
         """One eval step a split: the split names the logged keys, so a test
         pass never logs (or monitors) ``val/*``."""
         if split not in self._eval_fns:
-            self._eval_fns[split] = make_eval_step(
-                self.model, phase="auto", step_counting=self.step_counting, split=split,
-                accumulate_grad_batches=self.accumulate_grad_batches,
-            )
+            kw = dict(step_counting=self.step_counting, split=split,
+                      accumulate_grad_batches=self.accumulate_grad_batches)
+            self._eval_fns[split] = (make_plain_eval_step(self.model, **kw) if self._plain()
+                                     else make_eval_step(self.model, phase="auto", **kw))
         return self._eval_fns[split]
 
     def _generator(self, offset: int) -> torch.Generator:
@@ -269,17 +281,22 @@ class Trainer:
 
     @torch.no_grad()
     def log_images(self, prepared_batch, max_images: int = 4) -> Dict[str, Any]:
-        """Inputs, reconstructions, and reconstructions decoded with the
-        perturbed yaw (``perturbed_pose_forward``), through
+        """Inputs, reconstructions, and (pose family) reconstructions decoded
+        with the perturbed yaw (``perturbed_pose_forward``), through
         ``model.inference_net`` holding the live weights, as NHWC numpy
         arrays."""
         if self.state is None:
             return {}
         inet = self.model.inference_net(self.state.net)
-        x = prepared_batch["rgb_gt"][:max_images]
-        step = self._global_step_for_phase(self.global_batch())
         gen = self._generator(7)
         dtype = self.model.compute_dtype
+        if self._plain():
+            x = prepared_batch["image"][:max_images]
+            with compute_precision(dtype), _autocast(x.device, dtype):
+                dec = inet(x, generator=gen)["dec_obj"]
+            return {"inputs": x.float().cpu().numpy(), "reconstructions": dec.float().cpu().numpy()}
+        x = prepared_batch["rgb_gt"][:max_images]
+        step = self._global_step_for_phase(self.global_batch())
         with compute_precision(dtype), _autocast(x.device, dtype):
             outs = inet(x, step, generator=gen)
             pose_pert = outs["dec_pose"].clone()
@@ -390,7 +407,7 @@ class Trainer:
         batches = _device_prefetch(itertools.islice(loader, limit), self.model, self.device)
         with contextlib.closing(loader), contextlib.closing(batches):
             for prepared in batches:
-                bsz = int(prepared["rgb_gt"].shape[0])
+                bsz = int(next(iter(prepared.values())).shape[0])
                 metrics = eval_fn(self.state, prepared, generator=gen)
                 weighted = {k: bsz * torch.as_tensor(v, dtype=torch.float32) for k, v in metrics.items()}
                 agg = weighted if agg is None else {k: agg[k] + weighted[k] for k in agg}
@@ -438,12 +455,15 @@ class Trainer:
     def predict(self, datamodule, limit_batches: Optional[int] = None) -> List[Dict[str, Any]]:
         """Lightning's default predict loop: one forward a
         ``predict_dataloader`` batch, posterior modes, the 'full' phase, the
-        remaining draws from a generator seeded ``seed + 2``. Returns per
-        batch a dict of numpy ``dec_obj`` and ``dec_pose``."""
+        remaining draws from a generator seeded ``seed + 2``, through
+        ``model.inference_net``. Returns per batch a dict of numpy
+        ``dec_obj`` and ``dec_pose`` (the plain family: ``dec_obj``)."""
         m = self.model
         if not getattr(datamodule, "datasets", None):
             datamodule.setup()
         net, step = self._params_for_inference()
+        net = m.inference_net(net)
+        plain = self._plain()
         gen = self._generator(2)
         dtype = m.compute_dtype
         outputs = []
@@ -452,7 +472,11 @@ class Trainer:
         with contextlib.closing(loader), contextlib.closing(batches):
             for prepared in batches:
                 with compute_precision(dtype), _autocast(self.device, dtype):
-                    outs = net(prepared["rgb_gt"], self._global_step_for_phase(step),
-                               sample_posterior=False, phase="full", generator=gen)
-                outputs.append({k: outs[k].float().cpu().numpy() for k in ("dec_obj", "dec_pose")})
+                    if plain:
+                        outs = net(prepared["image"], sample_posterior=False)
+                    else:
+                        outs = net(prepared["rgb_gt"], self._global_step_for_phase(step),
+                                   sample_posterior=False, phase="full", generator=gen)
+                keys = ("dec_obj",) if plain else ("dec_obj", "dec_pose")
+                outputs.append({k: outs[k].float().cpu().numpy() for k in keys})
         return outputs

@@ -103,7 +103,9 @@ class ClippedAdam:
 class TrainState:
     step: int  # batch counter
     net: nn.Module
-    loss: nn.Module  # PoseLoss: perceptual (frozen), discriminator (trained), logvar (frozen)
+    # PoseLoss or LPIPSWithDiscriminator: perceptual (frozen), discriminator
+    # (trained), logvar (frozen)
+    loss: nn.Module
     opt_ae: ClippedAdam
     opt_disc: ClippedAdam
     generator: Optional[torch.Generator] = None  # the forward's random draws
@@ -120,7 +122,8 @@ def make_optimizers(
     eps: float = 1e-8,
 ):
     """(opt_ae over every net parameter, opt_disc over ``loss.discriminator``),
-    each accumulating over ``accumulate_grad_batches`` micro-batches."""
+    each accumulating over ``accumulate_grad_batches`` micro-batches. Either
+    family's net and loss (``PoseLoss`` or ``LPIPSWithDiscriminator``)."""
     kw = dict(lr=learning_rate, grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
               accumulate=accumulate_grad_batches)
     return (ClippedAdam(net.parameters(), **kw),
@@ -130,9 +133,9 @@ def make_optimizers(
 def create_train_state(model, learning_rate: float, grad_clip: Optional[float] = 1.0,
                        seed: int = 0, device="cuda",
                        accumulate_grad_batches: int = 1) -> TrainState:
-    """A fresh state for a ``PoseAutoencoder``: seeded float32 net and loss on
-    ``device`` and both optimizers. The weights are drawn on the CPU from
-    ``seed``, then ``model.ckpt_path``'s reference checkpoint loads over them
+    """A fresh state for a ``PoseAutoencoder`` or a plain ``Autoencoder``:
+    seeded float32 net and loss on ``device`` and both optimizers. The
+    weights are drawn on the CPU from ``seed``, then ``model.ckpt_path``'s reference checkpoint loads over them
     when it is set (the Adam moments start fresh); the forward's draws come
     from a generator on ``device`` seeded with ``seed + 1``."""
     g = torch.Generator().manual_seed(seed)

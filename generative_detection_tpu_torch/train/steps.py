@@ -31,6 +31,10 @@ gradients run with autocast off, in fp32. With ``compute_dtype`` float32 the
 whole step (forward and backward) runs under ``ops.precision.ieee_fp32()``:
 IEEE fp32 convolutions and matmuls, no TF32.
 
+The plain family (``make_plain_train_step``, ldm's ``AutoencoderKL`` with
+``LPIPSWithDiscriminator``) takes the same two passes: NLL + LPIPS, KL and
+the GAN term over ``{'image'}`` batches, its d_weight with no step gate.
+
 Step counting: ``step_counting='optimizer'`` (PyTorch Lightning 1.9's, which
 the reference pins) lets the curriculum see 2 * batch (generator) and
 2 * batch + 1 (discriminator); ``'batch'`` sees the batch index. With
@@ -46,6 +50,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from ..losses.contperceptual import adopt_weight
 from ..ops.precision import compute_precision
 from .state import TrainState
 
@@ -236,3 +241,111 @@ def make_eval_step(
 
     return eval_step
 
+
+
+def make_plain_train_step(
+    model,
+    step_counting: str = "optimizer",
+    accumulate_grad_batches: int = 1,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """The train step for the plain ``Autoencoder`` (``make_plain_train_step``
+    of the JAX package): ``train_step(state, batch, draws=None) -> (state,
+    metrics)`` on ``{'image': (B, H, W, C)}`` batches, updating ``state`` in
+    place. As the pose step: the y-gradients of nll (pixel + LPIPS) and of
+    the GAN scalar on a detached leaf, the adaptive d_weight from them, one
+    backward of the total, then the discriminator on the detached
+    reconstruction. ldm's d_weight has no step gate, only ``disc_factor >
+    0``: it is live (and logged) from step 0, while ``adopt_weight`` keeps the
+    GAN term out of the total until ``disc_start``. ``draws``: the
+    posterior's normal draw as ``{'posterior': tensor}``."""
+    accum = max(int(accumulate_grad_batches), 1)
+    dtype = compute_dtype or model.compute_dtype
+
+    def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                   draws: Optional[Mapping] = None):
+        with compute_precision(dtype):
+            return _train_step(state, batch, draws)
+
+    def _train_step(state, batch, draws):
+        net, loss = state.net, state.loss
+        step_g, step_d = _global_steps(state.step // accum, step_counting)
+        x = batch["image"]
+        autocast = _autocast(x.device, dtype)
+
+        # ---- generator (optimizer 0) ----------------------------------------
+        state.opt_ae.zero_grad()
+        with autocast:
+            outs = net(x, generator=state.generator, draws=draws)
+        y = outs["dec_obj"]
+        y_leaf = y.detach().requires_grad_(True)
+        with autocast:
+            nll, rec_mean = loss.nll_terms(x, y_leaf)
+        (gy_nll,) = torch.autograd.grad(nll, y_leaf)
+        with autocast:
+            g_loss = loss.g_term(y_leaf)
+        (gy_g,) = torch.autograd.grad(g_loss, y_leaf)
+        if loss.disc_factor > 0.0:
+            g_nll_w, g_g_w = _conv_out_weight_grads(
+                net.decoder.conv_out.weight, outs["pre_out"], (gy_nll, gy_g)
+            )
+            d_weight = _adaptive_d_weight(g_nll_w, g_g_w, loss.disc_weight).detach()
+        else:
+            d_weight = torch.zeros((), device=x.device)
+        total, log_ae = loss(
+            x, y.detach(), outs["posterior_obj"], 0, step_g, d_weight=d_weight,
+            rec_terms=(nll.detach(), g_loss.detach(), rec_mean.detach()),
+        )
+        disc_factor = adopt_weight(loss.disc_factor, step_g, loss.disc_start)
+        gy = gy_nll + (d_weight * disc_factor) * gy_g
+        torch.autograd.backward([total, y], [torch.ones_like(total), gy])
+        state.opt_ae.step()
+
+        # ---- discriminator (optimizer 1) -------------------------------------
+        state.opt_disc.zero_grad()
+        with autocast:
+            discloss, log_disc = loss(x, y.detach(), outs["posterior_obj"], 1, step_d)
+        discloss.backward()
+        state.opt_disc.step()
+
+        metrics = dict(log_ae)
+        metrics.update(log_disc)
+        metrics["aeloss"] = total.detach()
+        metrics["discloss"] = discloss.detach()
+        state.step += 1
+        return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_plain_eval_step(
+    model,
+    step_counting: str = "optimizer",
+    split: str = "val",
+    accumulate_grad_batches: int = 1,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Validation for the plain ``Autoencoder``: ``eval_step(state, batch,
+    generator=None, draws=None) -> metrics``, the forward (a posterior
+    sample) and both loss passes for logging only, d_weight 0, the split's
+    keys."""
+    accum = max(int(accumulate_grad_batches), 1)
+    dtype = compute_dtype or model.compute_dtype
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Mapping] = None):
+        net, loss = state.net, state.loss
+        step_g, step_d = _global_steps(state.step // accum, step_counting)
+        x = batch["image"]
+        with compute_precision(dtype), _autocast(x.device, dtype):
+            outs = net(x, generator=generator, draws=draws)
+            post = outs["posterior_obj"]
+            _, log_ae = loss(x, outs["dec_obj"], post, 0, step_g, d_weight=0.0, split=split)
+            _, log_disc = loss(x, outs["dec_obj"], post, 1, step_d, split=split)
+        metrics = dict(log_ae)
+        metrics.update(log_disc)
+        return metrics
+
+    return eval_step

@@ -8,9 +8,10 @@ package, with the same surface)::
 ``-t`` train, ``-r LOGDIR`` resume from a run directory (or a checkpoint
 directory), ``-n`` name, ``-s`` seed, ``-p`` project, ``-f`` postfix, ``-l``
 log root, ``-d`` debug, ``--scale_lr``, ``--devices``, ``--max_steps``,
-``--max_epochs``, ``--no-test``. ``--device {cuda,cpu}`` (default cuda)
-picks where to train; ``lightning.trainer.accelerator: cpu`` in the config
-selects the CPU too. The YAMLs' targets name the JAX package or the
+``--max_epochs``, ``--no-test``. ``--device {cuda,cpu}`` picks where to
+train and wins over the config; without it ``lightning.trainer.accelerator:
+cpu`` in the config (``plain_kl_tiny.yaml`` has it) selects the
+CPU, anything else the card. The YAMLs' targets name the JAX package or the
 reference; ``config.TARGET_ALIASES`` maps them onto the port. The
 ``lightning.trainer`` keys pass through to the ``Trainer`` by name.
 """
@@ -59,8 +60,10 @@ def get_parser(**kwargs):
                    help="number of cards (one until the parallel slice)")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--max_epochs", type=int, default=None)
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="train on the card (default) or on the CPU")
+    p.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="train on the card or on the CPU; given, it wins over the "
+                        "config's lightning.trainer.accelerator (default: cpu where the "
+                        "config says accelerator: cpu, else cuda)")
     return p
 
 
@@ -159,7 +162,7 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
         trainer_cfg["max_steps"] = opt.max_steps
     if opt.max_epochs is not None:
         trainer_cfg["max_epochs"] = opt.max_epochs
-    device = "cpu" if trainer_cfg.get("accelerator") == "cpu" else opt.device
+    device = opt.device or ("cpu" if trainer_cfg.get("accelerator") == "cpu" else "cuda")
     if trainer_cfg.get("detect_anomaly"):
         torch.autograd.set_detect_anomaly(True)
 

@@ -11,7 +11,8 @@ key layout that ``PoseAutoencoderNet`` uses:
 - ``down_0_block_1`` -> ``down.0.block.1``, ``mid_attn_1`` -> ``mid.attn_1``;
 - the pose MLPs' ``fc_*`` layers -> ``nn.Sequential`` indices.
 
-``loss_state_dict_from_jax`` does the same for ``PoseLoss``: ``logvar``, the
+The plain ``AutoencoderKLNet``'s ``quant_conv`` goes the same way.
+``loss_state_dict_from_jax`` does the same for either loss: ``logvar``, the
 discriminator's convs and norms at taming's ``main.{idx}`` (flax norm
 ``scale`` -> ``weight``), and the LPIPS VGG and heads at taming's names.
 """
@@ -84,12 +85,13 @@ def _export_pose_mlp(tree: Mapping, prefix: str, sd: Dict) -> None:
 
 
 def state_dict_from_jax(net_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``PoseAutoencoderNet`` flax params (nested numpy dicts) -> state_dict."""
+    """``PoseAutoencoderNet`` or ``AutoencoderKLNet`` flax params (nested
+    numpy dicts) -> state_dict."""
     sd: Dict = {}
     for top in ("encoder", "decoder"):
         if top in net_params:
             _export_tree(net_params[top], top, sd)
-    for top in ("quant_conv_obj", "quant_conv_pose", "post_quant_conv"):
+    for top in ("quant_conv_obj", "quant_conv_pose", "quant_conv", "post_quant_conv"):
         if top in net_params:
             _export_leaf(net_params[top], top, sd)
     for top in ("pose_decoder", "pose_encoder"):
@@ -104,8 +106,9 @@ _DISC_IDX = {"conv_0": 0, "conv_1": 2, "bn_1": 3, "conv_2": 5, "bn_2": 6, "conv_
 
 
 def loss_state_dict_from_jax(loss_params: Mapping) -> Dict[str, torch.Tensor]:
-    """``PoseLoss`` flax params (nested numpy dicts: ``logvar``,
-    ``discriminator``, ``perceptual``) -> the port's ``PoseLoss`` state_dict."""
+    """``PoseLoss`` or ``LPIPSWithDiscriminator`` flax params (nested numpy
+    dicts: ``logvar``, ``discriminator``, ``perceptual``; the two losses name
+    them alike) -> the port's loss state_dict."""
     sd: Dict = {"logvar": np.asarray(loss_params["logvar"]).reshape(())}
     for name, sub in loss_params["discriminator"].items():
         _export_leaf(sub, f"discriminator.main.{_DISC_IDX[name]}", sd)

@@ -2,9 +2,9 @@
 port's modules.
 
 The port's modules use the reference's ldm key layout (``encoder.down.0.
-block.1.conv1.weight``, ``pose_decoder.layers.0.weight``, ...), so a
-reference ``PoseAutoencoder`` checkpoint is a native ``load_state_dict``
-here: what the JAX package converts into flax trees
+block.1.conv1.weight``, ``pose_decoder.layers.0.weight``, ``quant_conv.weight``,
+...), so a reference ``PoseAutoencoder`` or ldm ``AutoencoderKL`` checkpoint
+is a native ``load_state_dict`` here: what the JAX package converts into flax trees
 (``utils/torch_compat.py:221-256`` there) is only read and filtered. The
 other direction writes the reference layout back, as the JAX package's
 ``export_pose_autoencoder`` and ``save_torch_checkpoint`` (``:351-392``
@@ -103,6 +103,19 @@ def export_pose_autoencoder(net: nn.Module, loss: Optional[nn.Module] = None
                 sd[f"{key}.running_var"] = torch.ones(c)
                 sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def export_plain_autoencoder(net: nn.Module, loss: Optional[nn.Module] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """An ``AutoencoderKLNet`` (and its ``LPIPSWithDiscriminator``) as a
+    reference ldm ``AutoencoderKL`` state_dict, in ``export_pose_autoencoder``'s
+    layout (the JAX package's ``export_plain_autoencoder`` is its pose
+    export too)."""
+    return export_pose_autoencoder(net, loss)
+
+
+# the export of each wrapper's ``step_family``
+EXPORTERS = {"pose": export_pose_autoencoder, "plain": export_plain_autoencoder}
 
 
 def save_torch_checkpoint(path: str, sd: Mapping, global_step: int = 0) -> None:

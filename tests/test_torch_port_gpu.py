@@ -335,6 +335,39 @@ def test_attention_kernels_match_plain_at_16384(cuda, dtype):
         _rms_close(g, w, ATTN_REL_TOL[dtype])
 
 
+def _attention_f64(q, k, v, do, rows=2048):
+    """O and (dq, dk, dv) of batch-1 attention in float64 on the card, ``rows``
+    query rows at a time (the whole 65536^2 float64 matrix is 34 GB)."""
+    q, k, v, do = (t[0].double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    o, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for r in range(0, q.shape[0], rows):
+        sl = slice(r, r + rows)
+        p = torch.softmax((q[sl] @ k.T) * scale, dim=-1)
+        o[sl] = p @ v
+        dv += p.T @ do[sl]
+        ds = p * (do[sl] @ v.T - (do[sl] * o[sl]).sum(-1, keepdim=True)) * scale
+        dq[sl] = ds @ k
+        dk += ds.T @ q[sl]
+    return o[None], dq[None], dk[None], dv[None]
+
+
+@pytest.mark.parametrize("l", [4096, 65536])
+def test_fp32_split_attention_meets_the_gate_against_float64_at_long_l(cuda, l):
+    """C5: the split kernels' wgmma accumulator chains, flushed into an IEEE
+    fp32 sum every 64 tiles, keep O, dQ, dK and dV within 1e-3 of their RMS
+    from float64 at (1, 65536, 256) (a 1024^2 input's level-2 attention;
+    1.5e-3 to 2.3e-3 before the flush); at 4096 nothing flushes."""
+    q, k, v, do = (torch.randn(1, l, 256, device="cuda", generator=cuda) for _ in range(4))
+    o, lse = attention.single_head_attention(q, k, v, return_lse=True)
+    got = (o, *attention.attention_backward(q, k, v, o, lse, do))
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, _attention_f64(q, k, v, do)):
+        rms = w.pow(2).mean().sqrt().item()
+        err = (g.double() - w).abs().max().item()
+        assert err <= ATTN_REL_TOL[torch.float32] * rms, (name, err / rms)
+
+
 # Shapes off the kernels' grid: a 384^2 pose config's mid block, a 320^2 plain
 # autoencoder's lowest level, attention at C = 96, L < 128, and a tail at
 # the bf16 wgmma backward's C = 256
@@ -904,6 +937,54 @@ def test_tiny_trainer_fit_card_matches_cpu(cuda, tmp_path, monkeypatch):
         for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss_obj"):
             assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (got["step"], k, got[k],
                                                                          want[k])
+
+
+def test_tiny_plain_fit_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Two steps of the Trainer's fit of the plain family
+    (plain_kl_tiny.yaml as shipped: ch 32, fp32, disc_start 2, one
+    validation), on the card and on the CPU, from the same seed, batches and
+    posterior draws (handed to the net's forward). Limits: the card-vs-CPU
+    step's, losses and d_weight 1e-3 relative (1e-6 absolute for the GAN
+    terms before disc_start, zero on both)."""
+    import json
+
+    from generative_detection_tpu_torch.models.autoencoder import AutoencoderKLNet
+    from generative_detection_tpu_torch.train import Trainer
+    from generative_detection_tpu_torch.train.metrics import MetricsLogger
+
+    cfg = merge_configs([str(REPO / "configs/autoencoder/plain_kl_tiny.yaml")])
+    model = instantiate_from_config(cfg["model"])
+    model.learning_rate = 1e-4
+    eps = np.random.default_rng(3).normal(size=(8, 16, 16, 16))
+    forward = AutoencoderKLNet.forward
+
+    def fwd(self, x, *args, **kw):
+        if x.shape[0] == 8 and not kw.get("draws"):
+            kw["draws"] = {"posterior": torch.tensor(eps, dtype=torch.float32, device=x.device)}
+        return forward(self, x, *args, **kw)
+
+    monkeypatch.setattr(AutoencoderKLNet, "forward", fwd)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        logdir = str(tmp_path / device)
+        trainer = Trainer(model, logdir=logdir, max_epochs=1, max_steps=2, limit_val_batches=1,
+                          log_every_n_steps=1, device=device, logger=MetricsLogger(logdir))
+        before = norm.group_norm_backward.launches, attention.split_backward.launches
+        trainer.fit(instantiate_from_config(cfg["data"]))
+        trainer.logger.close()
+        if device == "cuda":
+            assert norm.group_norm_backward.launches > before[0]
+            assert attention.split_backward.launches > before[1]
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            rows[device] = [json.loads(line) for line in f]
+    steps = {d: [r for r in rs if "aeloss" in r] for d, rs in rows.items()}
+    assert [r["step"] for r in steps["cuda"]] == [r["step"] for r in steps["cpu"]] == [1, 2]
+    for got, want in zip(steps["cuda"], steps["cpu"]):
+        for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss"):
+            assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (got["step"], k, got[k],
+                                                                         want[k])
+    (val_card,), (val_cpu,) = ([r for r in rs if "val/rec_loss" in r] for rs in rows.values())
+    assert abs(val_card["val/rec_loss"] - val_cpu["val/rec_loss"]) <= 1e-3 * val_cpu["val/rec_loss"]
 
 
 def test_raw_crop_prepare_batch_card_matches_cpu(cuda):

@@ -21,8 +21,8 @@ from generative_detection_tpu.ops.attention import _mha_fwd_call
 from generative_detection_tpu.ops.norm import _gn_pallas
 from generative_detection_tpu.ops.norm import _gn_reference as jax_gn
 from generative_detection_tpu_torch.config import instantiate_from_config, merge_configs
-from generative_detection_tpu_torch.losses import PoseLoss
-from generative_detection_tpu_torch.models import PoseAutoencoder
+from generative_detection_tpu_torch.losses import LPIPSWithDiscriminator, PoseLoss
+from generative_detection_tpu_torch.models import Autoencoder, PoseAutoencoder
 from generative_detection_tpu_torch.ops import attention, group_norm, single_head_attention
 from generative_detection_tpu_torch.ops.norm import _gn_reference
 from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
@@ -164,9 +164,16 @@ def test_pose_configs_build_port_objects(name):
         "generative_detection_tpu.losses.contperceptual.LPIPSWithDiscriminator",
     ],
 )
-def test_unported_targets_raise(target):
-    with pytest.raises(NotImplementedError, match="slice"):
-        instantiate_from_config({"target": target, "params": {}})
+def test_plain_autoencoder_targets_build_the_port_classes(target):
+    plain = merge_configs([str(REPO / "configs/autoencoder/plain_kl_tiny.yaml")])["model"]
+    params = plain["params"] if target.endswith(".Autoencoder") else {"disc_start": 7}
+    obj = instantiate_from_config({"target": target, "params": params})
+    if target.endswith(".Autoencoder"):
+        assert isinstance(obj, Autoencoder) and obj.step_family == "plain"
+        assert isinstance(obj.build_loss(), LPIPSWithDiscriminator)
+    else:
+        assert isinstance(obj, LPIPSWithDiscriminator) and obj.disc_start == 7
+        assert not obj.logvar.requires_grad
 
 
 @pytest.mark.parametrize(
@@ -185,11 +192,11 @@ def test_pose_loss_targets_build_the_port_loss(target):
     assert isinstance(loss, PoseLoss)
     assert (loss.disc_start, loss.disc_weight, loss.num_classes) == (5, 0.5, 11)
     assert not loss.logvar.requires_grad
-    with pytest.raises(NotImplementedError, match="plain-autoencoder slice"):
-        instantiate_from_config(
-            {"target": "generative_detection_tpu.losses.contperceptual.LPIPSWithDiscriminator",
-             "params": {}}
-        )
+    plain = instantiate_from_config(
+        {"target": "generative_detection_tpu.losses.contperceptual.LPIPSWithDiscriminator",
+         "params": {}}
+    )
+    assert isinstance(plain, LPIPSWithDiscriminator) and not isinstance(plain, PoseLoss)
 
 
 def test_port_imports_without_jax():
