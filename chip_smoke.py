@@ -158,7 +158,31 @@ Phases (any failure raises and exits non-zero, before the result line):
    ckpt_path (bit-equal to the run); then plain_fused_fp32_512: one fp32
    GDT_WINOGRAD=fused step at 512x512, batch 2: its peak memory and the
    largest B8 split-K partial buffer;
-12. one {"kernels": [...]} line, the nvidia-smi line, and last
+12. parallel, data parallelism on the one card (parallel/, the Trainer's
+   devices and zero1_optimizer_sharding, shard_detector): (a) train_cli over
+   synthetic_smoke.yaml at the flagship width, batch 16, bf16, 3 steps (the
+   curriculum off, so d_weight is live from step 2), once joined to a
+   process group of one rank over NCCL (RANK=0 WORLD_SIZE=1 MASTER_ADDR and
+   a free port) and once with no group, cuDNN deterministic in both: losses
+   within 1e-3 relative, and whether losses and weights are bit-equal; (b)
+   two ranks on the card over gloo (NCCL refuses two ranks on one device;
+   each rank is this script with --parallel-rank), each at batch 8 of the
+   same model's bf16 step, 3 steps with ZeRO-1 off and on: both ranks' losses
+   equal, the first step's losses within 1e-3 and d_weight within 3e-2
+   relative of one process at batch 16 with the same batch and draws (the
+   later steps, rec_loss, g_loss and one process with the ranks' batch-norm
+   arithmetic printed beside them: Adam's first update, bf16 rounding),
+   ZeRO-1 against unsharded within 1e-6 relative in weights and Adam
+   moments, each rank's peak memory, the step
+   times (not a multi-GPU figure: gloo stages through the host and both
+   ranks share one card), a collective save restored into the one process
+   (step, weights, each rank's shard of the moments), then one
+   GDT_WINOGRAD=fused step (B7, B8); (c) shard_detector: the bf16 artifacts
+   of phase 10 (plain and GDT_FUSE_INFERENCE=1) as two replicas on cuda:0 at
+   batch 32: bit-equal to load_detector on each replica's half, within the
+   bf16 limits of the whole batch (and whether bit-equal), twice one
+   replica's launches a request, p50s beside load_detector's;
+13. one {"kernels": [...]} line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Every phase that sets a switch restores the environment after it.
@@ -170,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import importlib.util
 import json
 import math
@@ -195,18 +220,23 @@ from generative_detection_tpu_torch.models.autoencoder import cast_compute_dtype
 from generative_detection_tpu_torch.models.blocks import (
     AttnBlock, Conv3x3, GroupNormSiLU, flax_like_init_,
 )
+from generative_detection_tpu_torch.models.discriminator import BatchStatsNorm
 from generative_detection_tpu_torch.ops import _build, attention, conv3x3, fused_conv, norm
 from generative_detection_tpu_torch.ops import winograd_rows as wr
 from generative_detection_tpu_torch import eval_cli, export_torch_ckpt, train_cli
 from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
 from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
-from generative_detection_tpu_torch.data.datamodule import THREAD_NAME
-from generative_detection_tpu_torch.serving import export_detector, load_detector, make_detector_fn
+from generative_detection_tpu_torch.data.datamodule import THREAD_NAME, collate
+from generative_detection_tpu_torch.parallel import mesh, multihost
+from generative_detection_tpu_torch.serving import (
+    export_detector, load_detector, make_detector_fn, shard_detector,
+)
 from generative_detection_tpu_torch.utils.torch_compat import (
     export_pose_autoencoder, save_torch_checkpoint,
 )
 from generative_detection_tpu_torch.train import (
-    Trainer, create_train_state, make_plain_eval_step, make_plain_train_step, make_train_step,
+    CheckpointManager, Trainer, create_train_state, make_optimizers, make_plain_eval_step,
+    make_plain_train_step, make_train_step,
 )
 from generative_detection_tpu_torch.train.callbacks import Callback
 
@@ -1865,6 +1895,7 @@ def phase_device_preprocess_and_eval(train_p50_ms: dict, fit_p50_ms: float) -> N
     })
 
 EXPORT_REQUESTS = {1: 20, 8: 20, 32: 10}  # timed requests by batch (after 3 warm-ups)
+BLOBS = {}  # the bf16 artifacts by label, kept for the parallel phase
 # the bf16 detector's agreement of tests/test_torch_port_detector.py: box
 # sizes, yaw and scores; centres (ill-conditioned under bf16 rounding) finite
 BF16_TOL = dict(rtol=3e-2, atol=5e-2)
@@ -1903,6 +1934,8 @@ def _export_case(label: str, dtype: str, fuse: bool, expect: dict) -> dict:
         detect = load_detector(blob)
         load_s = time.perf_counter() - t0
         live = make_detector_fn(model, net, hmin, hmax, 256, dtype=dtype)
+        if dtype == "bfloat16":  # served again as two replicas by the parallel phase
+            BLOBS[label] = blob
         out = {"phase": "export_and_interop", "artifact": label, "export_s": export_s,
                "blob_bytes": len(blob), "load_s": load_s, "metadata": detect.metadata}
         if dtype == "float32":  # IEEE under the default flags: the CPU's plain detector
@@ -2378,6 +2411,323 @@ def phase_plain_fused_fp32_memory() -> dict:
     return counts
 
 
+# parallel: data parallelism on the one card. (a) train_cli in a process
+# group of one rank over NCCL against the same CLI with no group: the
+# flagship over synthetic_smoke.yaml at batch 16 in bf16, 3 steps, the
+# curriculum off (d_weight live from step 2), no validation; (b) two ranks
+# sharing the card over gloo (NCCL refuses two ranks on one device), each at
+# batch 8 of the same model's bf16 step, 3 steps with ZeRO-1 off and on, against one process at batch 16 with the same batch and
+# draws, a collective save restored into one process, then one
+# GDT_WINOGRAD=fused step; (c) shard_detector: the bf16 artifacts (plain and
+# GDT_FUSE_INFERENCE=1) as two replicas on cuda:0 at batch 32. (b) runs the
+# model, curriculum and synthetic patches of (a)
+PAR_STEPS, PAR_BATCH, PAR_RANKS = 3, 16, 2
+PAR_KEYS = ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/g_loss")
+# the first step against one process, relative: the losses at the card-vs-CPU
+# step's 1e-3; d_weight, a ratio of two norms of sums over B * H * W positions
+# that cancel, at the bf16 limit of BF16_TOL (it moved 6.8e-3 between the two
+# summation orders in bf16). The later steps are printed, not held: Adam's
+# first update turns rounding-level gradient elements into +-lr moves of
+# their weights (ROADMAP.md section C), and d_weight then drifts further
+# (0.175 at step 3). One process with the ranks' batch-norm arithmetic (its
+# statistics summed in fp32, where F.batch_norm takes the bf16 activations)
+# is printed beside them: how much of the gap that arithmetic explains.
+PAR_GATED = {"aeloss": TRAIN_LOSS_RTOL, "discloss": TRAIN_LOSS_RTOL,
+             "train/d_weight": BF16_TOL["rtol"]}
+ZERO1_REL = 1e-6
+PAR_REQUESTS = 10
+PAR_PATH = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "attention_bwd_512")
+PAR_FUSED_PATH = ("wino_rows", "wino_rows_dgrad", "wino_wgrad", "group_norm_affine")
+
+
+# synthetic_smoke.yaml (the flagship's width) in bf16 with the curriculum off:
+# d_weight live from generator step 1, unclamped (the pixel term starts at 8)
+PAR_DOTLIST = ("model.params.dtype=bfloat16",
+               "model.params.lossconfig.params.encoder_pretrain_steps=0",
+               "model.params.lossconfig.params.disc_start=0", "model.params.monitor=null")
+
+
+def _par_train():
+    """PAR_DOTLIST's model, a seeded state on the card at batch index 1
+    (generator step 2), its bf16 'full' step, and the batch: the first
+    PAR_BATCH patches of the config's synthetic dataset, prepared on the
+    card, in a process group this rank's share (rescaled alone, as each rank
+    of the fit rescales its own), else all of them rescaled per half."""
+    cfg = merge_configs([str(SMOKE)], list(PAR_DOTLIST))
+    model = instantiate_from_config(cfg["model"])
+    state = create_train_state(model, PAR_BATCH * 4.5e-6, grad_clip=1.0, seed=0, device="cuda")
+    state.step = 1
+    ds = instantiate_from_config(cfg["data"]["params"]["train"])
+    host = collate([ds[i] for i in range(PAR_BATCH)])
+    if mesh.world().size > 1:
+        batch = model.prepare_batch(mesh.shard_batch(host), device="cuda")
+    else:
+        batch = model.prepare_batch(host, num_shards=PAR_RANKS, device="cuda")
+    return model, state, make_train_step(model, phase="full", compute_dtype=torch.bfloat16), batch
+
+
+def _par_cli(tmp: Path, name: str, env: dict) -> tuple:
+    """train_cli over synthetic_smoke.yaml at batch 16 with PAR_DOTLIST, 3
+    steps, with ``env`` set: its logged (step, losses) and its trained
+    weights (one flat tensor on the card)."""
+    args = ["-b", str(SMOKE), "-t", "-l", str(tmp), "-n", name, "--logging_level", "WARNING",
+            f"data.params.batch_size={PAR_BATCH}", *PAR_DOTLIST,
+            f"lightning.trainer.max_steps={PAR_STEPS}", "lightning.trainer.limit_val_batches=0"]
+    with switches(**env):
+        tr = train_cli.main(args)
+    require(tr.state.step == PAR_STEPS, f"parallel {name}: ended at step {tr.state.step}")
+    with open(Path(tr.logdir) / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    rows = [(r["step"], [r[k] for k in PAR_KEYS]) for r in rows if "aeloss" in r]
+    require([r[0] for r in rows] == list(range(1, PAR_STEPS + 1)), f"parallel {name}: {rows}")
+    flat = torch.cat([p.detach().reshape(-1) for p in tr.state.net.parameters()])
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, flat
+
+
+def _world1_nccl(tmp: Path) -> dict:
+    """(a): the CLI joined to a world of one rank over NCCL against the CLI
+    alone, cuDNN deterministic in both."""
+    import torch.distributed as dist
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = _par_cli(tmp, "alone", {})
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(multihost.free_port()), GDT_DIST_BACKEND=None)
+        world1 = _par_cli(tmp, "world1", env)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    require(not dist.is_initialized(), "train_cli left its process group")
+    (rows_a, w_a), (rows_1, w_1) = alone, world1
+    for (step, a), (_, b) in zip(rows_a, rows_1):
+        for k, x, y in zip(PAR_KEYS, a, b):
+            require(np.isfinite(y) and abs(x - y) <= TRAIN_LOSS_RTOL * abs(x) + 1e-6,
+                    f"world 1 over NCCL step {step} {k}: {y} vs {x} alone")
+    require(all(r[1][2] > 0 for r in rows_1[1:]), f"d_weight not live: {rows_1}")
+    loss_bit_equal = rows_a == rows_1
+    out = {"losses_bit_equal": loss_bit_equal, "weights_bit_equal": torch.equal(w_a, w_1),
+           "weights_max_rel_diff": float((w_a - w_1).abs().max() / w_a.abs().max()),
+           "losses_max_rel_diff": max(abs(x - y) / max(abs(x), 1e-30) for (_, a), (_, b)
+                                      in zip(rows_a, rows_1) for x, y in zip(a, b)),
+           "losses": {"alone": rows_a, "world1_nccl": rows_1}, "keys": PAR_KEYS}
+    return out
+
+
+def _parallel_rank(tmp: str) -> int:
+    """(b), one rank (``python3 chip_smoke.py --parallel-rank DIR``, spawned
+    with torch's launch environment): writes ``DIR/rank<r>.json``."""
+    w = multihost.maybe_initialize()
+    require(w.size == PAR_RANKS, f"world {w}")
+    torch.backends.cudnn.deterministic = True  # ZeRO-1 on and off: the same gradients
+    model, state, step, batch = _par_train()
+    start, lr = state.step, state.opt_ae.adam.param_groups[0]["lr"]
+    init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (state.net, state.loss)]
+    runs = {}
+    for zero1 in (False, True):
+        if zero1:  # the same weights, draws and step, the moments sharded
+            state.net.load_state_dict(init[0])
+            state.loss.load_state_dict(init[1])
+            state.opt_ae, state.opt_disc = make_optimizers(state.net, state.loss, lr, 1.0,
+                                                           zero1=True)
+            state.generator.manual_seed(1)
+            state.step = start
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        rows, times = [], []
+        for _ in range(PAR_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rows.append([float(metrics[k]) for k in PAR_KEYS])
+        run = {"rows": rows, "step_s": times, "counts": read_counts(),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        flat = {"weights": torch.cat([p.detach().reshape(-1) for p in
+                                      list(state.net.parameters())
+                                      + list(state.loss.discriminator.parameters())])}
+        for name in ("opt_ae", "opt_disc"):
+            sd = getattr(state, name).state_dict()["adam"]["state"]
+            for key in ("exp_avg", "exp_avg_sq"):
+                flat[f"{name}.{key}"] = torch.cat([sd[i][key].to("cuda").reshape(-1)
+                                                   for i in sorted(sd)])
+        runs[zero1] = (run, flat)
+    (off, f_off), (on, f_on) = runs[False], runs[True]
+    diffs = {k: float((f_on[k] - v).abs().max() / v.abs().max()) for k, v in f_off.items()}
+    digest = hashlib.sha256(torch.cat([p.detach().reshape(-1) for p in state.net.parameters()])
+                            .cpu().numpy().tobytes()).hexdigest()
+    held = {n: [list(getattr(state, n).shard_range)]
+            + [float(m.double().sum()) for m in getattr(state, n).held_moments()]
+            for n in ("opt_ae", "opt_disc")}
+    del runs, f_off, f_on
+    mgr = CheckpointManager(str(Path(tmp) / "ckpt"))
+    t0 = time.perf_counter()
+    mgr.save_last(state.step, state)
+    mgr.close()
+    save_s = time.perf_counter() - t0
+    with switches(GDT_WINOGRAD="fused"):
+        reset_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        fused = read_counts()
+    require(np.isfinite(float(metrics["aeloss"])), "the fused step's loss is not finite")
+    with open(Path(tmp) / f"rank{w.rank}.json", "w") as f:
+        json.dump({"rank": w.rank, "off": off, "on": on, "zero1_max_rel_diff": diffs,
+                   "digest": digest, "step": state.step - 1, "held": held,
+                   "save_s": save_s, "fused_counts": fused,
+                   "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in
+                                         ("jax", "jaxlib", "flax", "optax", "orbax",
+                                          "generative_detection_tpu"))}, f)
+    multihost.shutdown()
+    return 0
+
+
+def _two_ranks(tmp: Path) -> dict:
+    """(b): one process at batch 16 first, then the two ranks, then their
+    ZeRO-1 checkpoint restored into that process's state."""
+    runs = {}
+    deterministic, bn = torch.backends.cudnn.deterministic, BatchStatsNorm.forward
+    torch.backends.cudnn.deterministic = True  # as the ranks run
+    try:  # F.batch_norm, then the ranks' batch-norm arithmetic (fp32 sums) in one process
+        for rank_bn in (False, True):
+            if rank_bn:
+                BatchStatsNorm.forward = BatchStatsNorm._global_batch_norm
+            model, ref, step, batch = _par_train()
+            rows = []
+            for _ in range(PAR_STEPS):
+                ref, metrics = step(ref, batch)
+                rows.append([float(metrics[k]) for k in PAR_KEYS])
+            runs[rank_bn] = (rows, ref)
+            del batch, metrics
+    finally:
+        torch.backends.cudnn.deterministic, BatchStatsNorm.forward = deterministic, bn
+    (want, ref), (rank_bn_rows, _) = runs[False], runs.pop(True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    multihost.spawn_ranks([str(REPO / "chip_smoke.py"), "--parallel-rank", str(tmp)], PAR_RANKS,
+                          timeout=900, env=dict(os.environ, GDT_DIST_BACKEND="gloo"))
+    ranks_wall = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        require(r["off"]["rows"] == r0["off"]["rows"] and r["on"]["rows"] == r0["on"]["rows"]
+                and r["digest"] == r0["digest"], "the two ranks logged different losses")
+    require(r0["jax_modules"] == [], f"a rank imported {r0['jax_modules']}")
+    def rel(rows):
+        return [{k: abs(x - y) / max(abs(x), 1e-30) for k, x, y in zip(PAR_KEYS, w, g)}
+                for g, w in zip(rows, want)]
+
+    rel_ranks, rel_bn = rel(r0["off"]["rows"]), rel(rank_bn_rows)
+    for k, rtol in PAR_GATED.items():
+        require(rel_ranks[0][k] <= rtol,
+                f"two ranks step 1 {k}: {rel_ranks[0][k]} relative from one process")
+    require(want[0][2] > 0, "d_weight not live")
+    for k, d in r0["zero1_max_rel_diff"].items():
+        require(d <= ZERO1_REL, f"ZeRO-1 against unsharded: {k} differs by {d} relative")
+    for run in ("off", "on"):
+        for name in PAR_PATH:
+            require(r0[run]["counts"][name] > 0, f"rank step ran no {name} kernel")
+    for name in PAR_FUSED_PATH:
+        require(r0["fused_counts"][name] > 0, f"rank fused step ran no {name} kernel")
+    # the collective ZeRO-1 checkpoint into one process
+    CheckpointManager(str(tmp / "ckpt")).restore(ref)
+    digest = hashlib.sha256(torch.cat([p.detach().reshape(-1) for p in ref.net.parameters()])
+                            .cpu().numpy().tobytes()).hexdigest()
+    require(ref.step == r0["step"] and digest == r0["digest"],
+            "the restored step or weights differ from the ranks'")
+    for name in ("opt_ae", "opt_disc"):
+        mu, nu = getattr(ref, name).held_moments()
+        for r in ranks:
+            (lo, hi), m_sum, n_sum = r["held"][name]
+            got = [float(mu[lo:hi].double().sum()), float(nu[lo:hi].double().sum())]
+            require(np.allclose(got, [m_sum, n_sum], rtol=1e-12, atol=0),
+                    f"restored {name} moments over [{lo}, {hi}) differ from rank {r['rank']}'s")
+    del ref, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"one_process_batch_16": want, "rel_diff_by_step": rel_ranks,
+            "one_process_with_the_ranks_batch_norm_rel_diff_by_step": rel_bn,
+            "ranks_wall_s": ranks_wall,
+            **{k: r0[k] for k in ("off", "on", "zero1_max_rel_diff", "save_s", "fused_counts")},
+            "per_rank_max_memory_allocated_bytes": {
+                "zero1_off": [r["off"]["max_memory_allocated_bytes"] for r in ranks],
+                "zero1_on": [r["on"]["max_memory_allocated_bytes"] for r in ranks]},
+            "restored_into_one_process": True}
+
+
+def _shard_detector() -> dict:
+    """(c): each stored bf16 artifact as two replicas on cuda:0 against
+    ``load_detector`` at batch 32."""
+    out = {}
+    inputs = [torch.as_tensor(a, device="cuda") for a in detector_inputs(32, 32)]
+    for label in ("bf16", "bf16_fused"):
+        blob = BLOBS.pop(label)
+        one = load_detector(blob)
+        two = shard_detector(blob, ["cuda:0", "cuda:0"])
+        reset_counts()
+        want = one(*inputs)
+        torch.cuda.synchronize()
+        once = read_counts()
+        reset_counts()
+        got = two(*inputs)
+        torch.cuda.synchronize()
+        twice = read_counts()
+        halves = [one(*[a[i * 16:(i + 1) * 16] for a in inputs]) for i in range(2)]
+        for k in range(3):
+            require(torch.equal(got[k], torch.cat([h[k] for h in halves])),
+                    f"shard_detector {label}: output {k} is not the replicas' slices")
+        held = _hold_loaded(f"shard_detector {label}", "bfloat16", got, want)
+        for name in COUNTED:
+            require(twice[name] == 2 * once[name],
+                    f"shard_detector {label} {name}: {twice[name]} launches, one replica "
+                    f"{once[name]} at batch 32")
+        lat = {"load_detector": [], "shard_detector": []}
+        for i in range(PAR_REQUESTS + 3):
+            for name, fn in (("load_detector", one), ("shard_detector", two)):
+                t0 = time.perf_counter()
+                fn(*inputs)
+                torch.cuda.synchronize()
+                if i >= 3:
+                    lat[name].append(time.perf_counter() - t0)
+        out[label] = {"batch": 32, "replicas": 2, "bit_equal_to_one_replica": held["bit_equal"],
+                      "boxes_max_abs_diff": held["boxes_max_abs_diff"],
+                      "launches_per_request": {k: v for k, v in twice.items() if v},
+                      "p50_ms": {k: statistics.median(v) * 1e3 for k, v in lat.items()}}
+        del one, two, blob
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel() -> dict:
+    """Data parallelism on the one card (see the comment above PAR_STEPS);
+    returns the ranks' launch counts by run ("bf16", "fused",
+    "shard_fused") for the kernels line."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="gdt_parallel_"))
+    try:
+        world1 = _world1_nccl(tmp)
+        two = _two_ranks(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shard = _shard_detector()
+    emit({"phase": "parallel", "world1_nccl": world1,
+          "note": "two ranks share one card over gloo (staged through the host): the step "
+                  "times below are not a multi-GPU figure",
+          "two_ranks_gloo_one_card": two, "shard_detector_two_replicas_one_card": shard,
+          "phase_wall_s": time.perf_counter() - t0})
+    return {"bf16": two["off"]["counts"], "fused": two["fused_counts"],
+            "shard_fused": shard["bf16_fused"]["launches_per_request"]}
+
+
 def _largest(cases, name, dtype=torch.bfloat16):
     """The ``dtype`` case of ``name`` with the most work (shape product)."""
     keys = [k for k in cases if k[0] == name and k[-1] == dtype]
@@ -2432,7 +2782,7 @@ def wino_step_sums(cases: dict, wino: Counter, dtype=torch.bfloat16) -> dict:
 
 def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fused: dict,
                  train_fp32: dict, train_fused_fp32: dict, step_sums: dict, fit: dict,
-                 plain: dict):
+                 plain: dict, par: dict):
     """One entry per kernel, with the numbers of its largest bf16 site (the
     forward kernels at batch 8, the backward kernels and B7/B8 at batch 16)
     and its launches on the main path that runs it: the detector (B1, B3),
@@ -2459,7 +2809,12 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     (``phase_plain_autoencoder``): a bf16 row over the 10 timed bf16 steps
     (B7, B8: the one GDT_WINOGRAD=fused step; B6 and its affine: predict
     under GDT_FUSE_INFERENCE=1), an fp32 row over the 5 timed fp32 steps
-    (fp32 B7, B8: the fused fp32 step at 512^2), 0 where none runs it."""
+    (fp32 B7, B8: the fused fp32 step at 512^2), 0 where none runs it.
+    ``parallel_launches`` gives them on the parallel phase's paths, counted in
+    rank 0 of the two ranks sharing the card: its 3 bf16 steps at batch 8
+    with ZeRO-1 off (B1-B4), its one GDT_WINOGRAD=fused step (B7, B8), and one
+    batch-32 request of shard_detector's two replicas of the
+    GDT_FUSE_INFERENCE=1 artifact (B6 and its affine)."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -2534,6 +2889,15 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     for i, e in enumerate(entries):
         run, counter = plain_rows.get(i, (None, None))
         e["plain_launches"] = plain[run][counter] if run else 0
+    # the parallel phase's counters a rank, by row: (run, counter)
+    par_rows = {0: ("bf16", "group_norm"), 1: ("bf16", "attention"),
+                2: ("bf16", "group_norm_bwd"), 3: ("bf16", "attention_bwd"),
+                10: ("shard_fused", "group_norm_affine"), 11: ("shard_fused", "fused_conv"),
+                12: ("fused", "wino_rows"), 13: ("fused", "wino_rows_dgrad"),
+                14: ("fused", "wino_wgrad"), 15: ("bf16", "attention_bwd_512")}
+    for i, e in enumerate(entries):
+        run, counter = par_rows.get(i, (None, None))
+        e["parallel_launches"] = par[run].get(counter, 0) if run else 0
     for e, r in zip(entries, (row[0] for row in rows)):
         if "kernel" in r:  # the attention, GroupNorm forward and conv kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]
@@ -2640,8 +3004,9 @@ def main() -> int:
                   "attention_split": n_split_det, "attention_split_512": n_split_det_512}})
     plain = phase_plain_autoencoder()
     plain["fused_fp32_512"] = phase_plain_fused_fp32_memory()
+    par = phase_parallel()
     emit(kernels_line(cases, det, det_fused, train, train_fused, train_fp32,
-                      train_fused_fp32, step_sums, fit, plain))
+                      train_fused_fp32, step_sums, fit, plain, par))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -2649,4 +3014,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(_parallel_rank(sys.argv[2]))
     sys.exit(main())

@@ -29,6 +29,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 
 from ..config import instantiate_from_config
+from ..parallel.mesh import world
 
 
 _PUT_POLL_S = 0.1
@@ -417,9 +418,11 @@ class DataModuleFromConfig:
         self._loaders.clear()  # new datasets -> new loaders (epoch counters reset)
 
     def _parallel_context(self):
-        """(shard_id, num_shards): one data shard per process. The port runs
-        one process until the parallel slice brings torch.distributed."""
-        return 0, 1
+        """(shard_id, num_shards): one data shard per process, (rank, world
+        size) of the process group (``parallel.world()``); (0, 1) outside
+        one."""
+        w = world()
+        return w.rank, w.size
 
     def _loader(self, split: str, shuffle: bool) -> _Loader:
         # One cached _Loader per split: each __call__ advances its epoch

@@ -16,6 +16,12 @@ gates are plain conditions rather than the JAX package's traced ``where``.
 ``LPIPSWithDiscriminator`` is the plain autoencoder's loss (ldm's): L1 +
 LPIPS NLL, the posterior's KL and the same PatchGAN term, unmasked.
 
+Data parallelism (``parallel/``): each rank's loss is formed so that the
+ranks' mean of it, and of its gradients, is the global batch's. The masked
+means divide by the global foreground count (``_masked_mean``); every other
+term is a plain mean or a sum over the batch divided by its size, equal over
+equal per-rank batches; the discriminator's batch statistics are global.
+
 Kept from the JAX package, on purpose: the foreground mask uses
 ``background_class_idx = 1`` (the reference's ``BACKGROUND_CLASS_IDX``) while
 the prior-KL background skip uses the class *name*'s id (10), and the prior
@@ -36,6 +42,7 @@ from torch import nn
 from ..models.discriminator import NLayerDiscriminator
 from ..models.lpips import LPIPS
 from ..ops.focal import sigmoid_focal_loss
+from ..parallel.mesh import all_reduce_sum, world
 from ..utils.distributions import kl_vs_prior_table
 
 POSE_6D_DIM = 4
@@ -70,7 +77,16 @@ def _smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
 
 
 def _masked_mean(x_sum: torch.Tensor, mask_sum: torch.Tensor) -> torch.Tensor:
-    """sum(x) / sum(mask), or 0 when the mask is empty."""
+    """sum(x) / sum(mask), or 0 when the mask is empty, over the global
+    batch. In a process group of W ranks the count is all-reduced (no
+    gradient flows through it) and the local sum scaled by W: the ranks'
+    mean of the result is the global ratio, and so is the mean of its
+    gradients, which the optimizers average. A rank whose patches are all
+    background still divides by the global count."""
+    w = world()
+    if w.active:
+        mask_sum = all_reduce_sum(mask_sum.detach().clone())
+        x_sum = x_sum * w.size
     return torch.where(mask_sum > 0, x_sum / torch.clamp(mask_sum, min=1e-12), 0.0)
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..config import instantiate_from_config
 from ..ops.resize import batched_crop_resize, bbox_mask
+from ..parallel.mesh import draw as draw_slice
 from ..utils.distributions import DiagonalGaussianDistribution
 from .blocks import Decoder, Encoder, _nchw, _nhwc, flax_like_init_
 from .discriminator import init_discriminator_
@@ -229,7 +230,9 @@ class PoseAutoencoderNet(nn.Module):
         'full' always decodes. The four random draws, in the JAX package's
         order, are 'posterior' (normal, like the object posterior), 'dropout'
         (uniform), 'noise' (normal) and 'bbox' (normal, (B, 8)): each is taken
-        from ``draws`` when given there, else drawn from ``generator``.
+        from ``draws`` when given there, else drawn from ``generator`` (in a
+        process group: this rank's slice of what one process draws for the
+        global batch, ``parallel.mesh.draw``).
         ``override_pose`` replaces ``dec_pose`` before the pose is re-encoded
         for the decoder. Returns dec_obj (B, H, W, 3) float32, dec_pose,
         posterior_obj, bbox_posterior, pre_out (NHWC, the input of the
@@ -239,8 +242,8 @@ class PoseAutoencoderNet(nn.Module):
         def draw(name, shape, like, uniform=False):
             t = draws.get(name)
             if t is None:
-                fn = torch.rand if uniform else torch.randn
-                t = fn(shape, generator=generator, device=like.device)
+                t = draw_slice(torch.rand if uniform else torch.randn, shape, generator,
+                               like.device)
             return t.to(device=like.device, dtype=like.dtype)
 
         posterior_obj, pose_feat = self.encode(x)

@@ -8,7 +8,11 @@ by name. It takes and returns NHWC tensors, as the JAX module does.
 
 ``BatchStatsNorm`` always normalises by the current batch's statistics
 (biased variance) and tracks no running statistics: torch BatchNorm in train
-mode, which is what the reference discriminator sees while it trains.
+mode, which is what the reference discriminator sees while it trains. In a
+process group of more than one rank the statistics are the global batch's,
+as under the JAX package's ``jit`` over a sharded batch (``SyncBatchNorm``'s
+semantics): the mean, then the mean square deviation from it, each a sum
+all-reduced with its gradient.
 
 ``LeakyReLU`` takes flax's gradient at 0 (1, where torch's takes the slope).
 It matters: the first conv's bias starts at zero, so wherever the masked
@@ -23,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import differentiable_all_reduce_sum, world
+
 
 class BatchStatsNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
@@ -32,7 +38,25 @@ class BatchStatsNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        if world().size == 1:
+            return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        return self._global_batch_norm(x)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch statistics over every rank's batch, in float32 at least: the global
+        mean (the sums and the count all-reduced), then the global mean of
+        the squared deviation from it (the biased variance, two-pass as
+        ``jnp.var``)."""
+        dims = (0, 2, 3)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        stats = differentiable_all_reduce_sum(torch.cat([xf.sum(dims), count]))
+        n = stats[-1]
+        mean = stats[:-1] / n
+        d = xf - mean.view(1, -1, 1, 1)
+        var = differentiable_all_reduce_sum(d.square().sum(dims)) / n
+        y = d * torch.rsqrt(var + self.eps).view(1, -1, 1, 1)
+        return (y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
 class LeakyReLU(nn.Module):
@@ -61,7 +85,9 @@ class NLayerDiscriminator(nn.Module):
         self.main = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) -> (B, h, w, 1) float32 logits."""
+        """(B, H, W, C) -> (B, h, w, 1) float32 logits; the input is taken in
+        the weights' dtype, as the JAX module casts it to its own."""
+        x = x.to(self.main[0].weight.dtype)
         h = self.main(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
         return h.permute(0, 2, 3, 1).float()
 

@@ -7,7 +7,9 @@ otherwise.
 
 ``export_detector`` traces the same detector with ``torch.export`` into one
 artifact, weights baked in; ``load_detector`` turns it back into a function
-with ``detect``'s signature, in this process or another::
+with ``detect``'s signature, in this process or another, and
+``shard_detector`` serves it as one replica a device, each on its slice of
+the batch::
 
     blob = export_detector(model, net, hmin_table, hmax_table, batch=None)
     open("detector.pt2", "wb").write(blob)
@@ -32,7 +34,7 @@ import io
 import json
 import os
 import zipfile
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -41,6 +43,7 @@ from torch.export.graph_signature import InputKind
 from .eval.inference import pose_inference, recover_boxes
 from .models.autoencoder import cast_compute_dtype
 from .ops.precision import compute_precision
+from .parallel.mesh import local_batch_size
 
 
 def _resolve_serve_dtype(dtype):
@@ -264,4 +267,33 @@ def load_detector(blob: bytes, device="cuda"):
         return boxes, cls, score
 
     detect.metadata = meta
+    return detect
+
+
+def shard_detector(blob: bytes, devices: Sequence[Union[str, torch.device]]):
+    """Data-parallel serving of one ``export_detector`` artifact
+    (``shard_detector`` of the JAX package): one replica an entry of
+    ``devices`` (``load_detector`` on that device; an entry may repeat, as
+    two replicas on one card), each running its slice of every request's
+    batch, the slices in order. The artifact must be batch-polymorphic
+    (``batch=None``), or exported at the per-replica batch; the batch must
+    divide by the replica count. Returns a function with ``detect``'s
+    signature whose outputs, concatenated in replica order, lie on the first
+    replica's device. The replicas' calls are issued one after another from
+    this thread; on distinct cards their kernels run concurrently."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("shard_detector needs at least one device")
+    replicas = [load_detector(blob, device=d) for d in devices]
+
+    def detect(rgb, focal, principal_point, patch_size, patch_center, resampling):
+        args = (rgb, focal, principal_point, patch_size, patch_center, resampling)
+        n = local_batch_size(len(rgb), len(replicas))
+        outs = [replica(*[a[i * n : (i + 1) * n] for a in args])
+                for i, replica in enumerate(replicas)]
+        return tuple(torch.cat([o[k].to(devices[0]) for o in outs])
+                     for k in range(len(outs[0])))
+
+    detect.metadata = replicas[0].metadata
+    detect.replicas = replicas
     return detect

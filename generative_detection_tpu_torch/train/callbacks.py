@@ -9,6 +9,11 @@ reference's ``src/util/callbacks.py``).
   (``torch.cuda`` memory statistics), the reference's ``CUDACallback``;
 - ``LearningRateCallback``, ``ProgressCallback``, ``CheckpointCallback``:
   stand-ins for the Lightning callbacks the reference's YAMLs name.
+
+In a process group every rank runs the callbacks (so a hook may take part in
+a collective), and those that write files, images or log lines do it on
+rank 0 alone. ``SetupCallback.on_exception``'s checkpoint is taken in one
+process only (``Trainer.save_after_failure``): saves are collective.
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import yaml
+
+
+def _main(trainer) -> bool:
+    """Rank 0 of the trainer's process group (Lightning's
+    ``rank_zero_only``); True for one process."""
+    return getattr(trainer, "is_main_process", True)
 
 
 class Callback:
@@ -53,6 +64,8 @@ class SetupCallback(Callback):
     def on_fit_start(self, trainer) -> None:
         from ..config import to_plain
 
+        if not _main(trainer):
+            return  # rank 0 alone writes the run's files
         for d in (self.logdir, self.ckptdir, self.cfgdir):
             os.makedirs(d, exist_ok=True)
         with open(os.path.join(self.cfgdir, f"{self.now}-project.yaml"), "w") as f:
@@ -62,7 +75,7 @@ class SetupCallback(Callback):
 
     def on_exception(self, trainer, exc: BaseException) -> None:
         logging.info("Exception during fit; summoning checkpoint.")
-        trainer.save_last_checkpoint()
+        trainer.save_after_failure()
 
 
 def _to_uint8(img: np.ndarray, clamp: bool = True) -> np.ndarray:
@@ -120,6 +133,8 @@ class ImageLogger(Callback):
         return step % self.batch_freq == 0 or step in self.log_steps
 
     def _log(self, trainer, batch, split: str) -> None:
+        if not _main(trainer):
+            return  # rank 0 alone logs images (its forward is local: no collective)
         t0 = time.perf_counter()
         step = trainer.global_batch()
         images = trainer.log_images(batch, max_images=self.max_images)
@@ -153,7 +168,7 @@ class DeviceStatsCallback(Callback):
         self._t0 = time.time()
 
     def on_epoch_end(self, trainer) -> None:
-        if self._t0 is None:
+        if self._t0 is None or not _main(trainer):
             return
         dt = time.time() - self._t0
         stats = {}
@@ -172,7 +187,8 @@ class LearningRateCallback(Callback):
         self.logging_interval = logging_interval
 
     def on_train_batch_end(self, trainer, metrics, batch) -> None:
-        if trainer.logger is not None and trainer.global_batch() % trainer.log_every_n == 0:
+        if (trainer.logger is not None and _main(trainer)
+                and trainer.global_batch() % trainer.log_every_n == 0):
             trainer.logger.log_metrics({"lr-Adam": trainer.model.learning_rate},
                                        trainer.global_batch())
 
@@ -184,7 +200,7 @@ class ProgressCallback(Callback):
 
     def on_train_batch_end(self, trainer, metrics, batch) -> None:
         step = trainer.global_batch()
-        if step % (self.refresh_rate * 50) == 0:
+        if _main(trainer) and step % (self.refresh_rate * 50) == 0:
             ae = metrics.get("aeloss")
             rate = step / max(time.time() - self._t0, 1e-9)
             logging.info("epoch %d step %d aeloss %.4f (%.2f it/s)", trainer.epoch, step,

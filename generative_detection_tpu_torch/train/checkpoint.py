@@ -20,6 +20,13 @@ Saves copy the state to host memory on the caller's thread (new CPU tensors,
 never the live parameters), so the next step may change the state at once.
 With ``async_checkpointing`` the files are written on a background thread;
 ``wait_until_finished`` drains it (and raises what a write raised).
+
+In a process group saves are collective: every rank calls them in the same
+order (the optimizers' ``state_dict`` consolidates ZeRO-1 moments and the
+open window's gradients over the ranks), rank 0 alone writes, then the ranks
+meet at a barrier (with ``async_checkpointing``, when the writes are
+drained). Every rank restores from the same files, each optimizer taking its
+partition, so a checkpoint restores at any world size.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import world
 
 _FILES = ("net.pt", "loss.pt", "optim.pt")
 
@@ -50,18 +60,27 @@ def _host(obj):
     return obj
 
 
-def host_copy(state) -> Dict[str, object]:
-    """The train state as host tensors, by file."""
+def host_copy(state) -> Optional[Dict[str, object]]:
+    """The train state as host tensors, by file; in a process group (where
+    every rank must call it: the optimizers' state is gathered) on rank 0
+    only, None elsewhere."""
+    optim = {"opt_ae": state.opt_ae.state_dict(), "opt_disc": state.opt_disc.state_dict()}
+    if world().rank != 0:
+        return None
     return {
         "step": int(state.step),
         "net.pt": _host(state.net.state_dict()),
         "loss.pt": _host(state.loss.state_dict()),
         "optim.pt": {
-            "opt_ae": _host(state.opt_ae.state_dict()),
-            "opt_disc": _host(state.opt_disc.state_dict()),
+            **_host(optim),
             "generator": None if state.generator is None else state.generator.get_state(),
         },
     }
+
+
+def _barrier() -> None:
+    if world().active:
+        dist.barrier()
 
 
 def _steps(root: str) -> List[int]:
@@ -148,7 +167,11 @@ class CheckpointManager:
 
     def _save(self, sub: str, step: int, state, metrics=None, keep=None) -> None:
         t0 = time.perf_counter()
-        self._submit(sub, step, self._payload(step, state), metrics, keep)
+        payload = self._payload(step, state)
+        if payload is not None:  # rank 0 writes
+            self._submit(sub, step, payload, metrics, keep)
+        if not self.async_checkpointing:
+            _barrier()
         self.save_seconds += time.perf_counter() - t0
 
     def save_trainstep(self, step: int, state) -> None:
@@ -181,7 +204,9 @@ class CheckpointManager:
 
     def wait_until_finished(self) -> None:
         """Drain the async writes and stop their thread; raise the first
-        error a write raised."""
+        error a write raised. In a process group with
+        ``async_checkpointing`` the ranks then meet at a barrier (every rank
+        must call it)."""
         pending, self._pending = self._pending, []
         try:
             for fut in pending:
@@ -190,6 +215,8 @@ class CheckpointManager:
             if self._writer is not None:
                 self._writer.shutdown(wait=True)
                 self._writer = None
+        if self.async_checkpointing:
+            _barrier()
 
     # -- reading -------------------------------------------------------------------
 

@@ -13,9 +13,19 @@ the JAX package; PyTorch Lightning's ``Trainer`` in the reference).
 
 It runs on the card (``device="cuda"``) unless the caller asks for the CPU;
 without CUDA it raises rather than train on the CPU unasked. A kernel that
-fails to build or launch raises: there is no fallback route. One process and
-one card: ``devices`` > 1 and the ZeRO/FSDP sharding options raise until the
-parallel slice.
+fails to build or launch raises: there is no fallback route.
+
+Data parallelism (Lightning's DDP in the reference): one process a card in a
+``torch.distributed`` process group (``parallel/``), joined before the
+Trainer is built (``train_cli`` joins or spawns it). ``devices`` must then
+equal the group's size, and ``devices`` > 1 outside a group raises. Each rank
+reads its shard of every split (the datamodule), runs the step on it (a step
+of the global batch: ``train/steps.py``), and takes the global means as its
+metrics; rank 0 alone logs, writes images and run files; checkpoints are
+saved and restored collectively (``train/checkpoint.py``), and a signal's
+save waits for the step's end on every rank. ``zero1_optimizer_sharding``
+shards the Adam moments over the ranks (``train/state.py``).
+``fsdp_parameter_sharding`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import torch
 
 from ..ops.precision import compute_precision
+from ..parallel.mesh import any_rank, world
 from .callbacks import Callback, CheckpointCallback
 from .checkpoint import CheckpointManager, restore_signals, save_on_signal
 from .state import TrainState, create_train_state, flax_like_net
@@ -86,8 +97,19 @@ def _host_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
     return {k: out[k] for k in metrics}
 
 
-def _parallel_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the parallel slice; the port trains on one card")
+def _check_devices(devices: Optional[int], w) -> None:
+    """``devices`` against the process group this process is in: it must be
+    the group's size; more than one outside a group raises."""
+    if devices is None:
+        return
+    devices = int(devices)
+    if not w.active and devices > 1:
+        raise RuntimeError(
+            f"devices={devices} asks for {devices} processes, one a card, but this process is "
+            "in no process group: launch it with torchrun or srun, or through train_cli, which "
+            "spawns the ranks itself")
+    if w.active and devices != w.size:
+        raise ValueError(f"devices={devices} but the process group has {w.size} ranks")
 
 
 class Trainer:
@@ -119,15 +141,19 @@ class Trainer:
         device="cuda",
         **_: Any,
     ):
-        if devices is not None and int(devices) > 1:
-            raise _parallel_slice(f"devices={devices}")
-        if zero1_optimizer_sharding:
-            raise _parallel_slice("zero1_optimizer_sharding")
         if fsdp_parameter_sharding:
-            raise _parallel_slice("fsdp_parameter_sharding")
+            raise NotImplementedError(
+                "fsdp_parameter_sharding (FSDP) is not ported: it is queue item A9 of "
+                "ROADMAP.md; zero1_optimizer_sharding shards the optimizer's moments")
+        self.world = world()
+        _check_devices(devices, self.world)
+        self.is_main_process = self.world.rank == 0
+        self.zero1_optimizer_sharding = zero1_optimizer_sharding
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to train on the CPU")
+        if self.device.type == "cuda" and self.device.index is None and self.world.active:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model
         self.logdir = logdir
         self.ckptdir = os.path.join(logdir, "checkpoints")
@@ -171,6 +197,7 @@ class Trainer:
         self._eval_fns: Dict[str, Any] = {}
         self._profiler = None
         self._ckpt_mgr: Optional[CheckpointManager] = None
+        self._signalled = False  # a signal's save, deferred to the step's end in a group
         # wall seconds by part of the fit, each without the others: each
         # step's loop iteration (the batch's fetch, the step, logging),
         # validation, image logging, checkpoint saves on the caller's thread
@@ -251,7 +278,9 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         self._profiler.__exit__(None, None, None)
         os.makedirs(self.profiler_dir, exist_ok=True)
-        path = os.path.join(self.profiler_dir, f"trace_steps_{PROFILE_STEPS[0]}_{PROFILE_STEPS[1]}.json")
+        rank = f"_rank{self.world.rank}" if self.world.size > 1 else ""
+        path = os.path.join(self.profiler_dir,
+                            f"trace_steps_{PROFILE_STEPS[0]}_{PROFILE_STEPS[1]}{rank}.json")
         self._profiler.export_chrome_trace(path)
         self._profiler = None
         logging.info("profiler trace written to %s", path)
@@ -268,6 +297,26 @@ class Trainer:
             if drain:
                 self._ckpt_mgr.wait_until_finished()
             self.timings["checkpoint_s"] += time.perf_counter() - t0
+
+    def save_after_failure(self) -> None:
+        """The last checkpoint after an exception or an interrupt: in one
+        process only. In a process group the rank that failed may be alone
+        and could not meet the others in a collective save, so none is
+        attempted (the last epoch's or signal's checkpoint stands)."""
+        if self.world.size > 1:
+            logging.warning("rank %d failed: no checkpoint (a save is collective)",
+                            self.world.rank)
+            return
+        self.save_last_checkpoint()
+
+    def _on_signal(self) -> None:
+        """A signal's checkpoint: at once in one process; in a process group
+        at the end of the step, once every rank knows (``any_rank``), so the
+        collective save never interleaves with a step's collectives."""
+        if self.world.size > 1:
+            self._signalled = True
+        else:
+            self.save_last_checkpoint()
 
     def _checkpoint_manager(self, ckptdir: str) -> CheckpointManager:
         return CheckpointManager(ckptdir, monitor=self.monitor, save_top_k=self.save_top_k,
@@ -318,11 +367,12 @@ class Trainer:
         self.state = create_train_state(
             m, m.learning_rate, grad_clip=self.gradient_clip_val, seed=self.seed,
             device=self.device, accumulate_grad_batches=self.accumulate_grad_batches,
+            zero1=self.zero1_optimizer_sharding,
         )
         if self.resume_from_checkpoint:
             self._checkpoint_manager(self._resume_dir()).restore(self.state)
             logging.info("Resumed from step %d", self.global_batch())
-        handlers = save_on_signal(self.save_last_checkpoint)
+        handlers = save_on_signal(self._on_signal)
         try:
             for cb in self.callbacks:
                 cb.on_fit_start(self)
@@ -342,17 +392,18 @@ class Trainer:
         except KeyboardInterrupt:
             self.interrupted = True
             logging.info("Interrupted; saving last checkpoint.")
-            self.save_last_checkpoint()
+            self.save_after_failure()
         except Exception as e:
             for cb in self.callbacks:
                 cb.on_exception(self, e)
-            self.save_last_checkpoint()
+            self.save_after_failure()
             raise
         finally:
             self._stop_profiler()
             restore_signals(handlers)
             datamodule.teardown()
-        self.save_last_checkpoint()
+        if not self.interrupted:
+            self.save_last_checkpoint()
 
     def _train_epoch(self, datamodule) -> bool:
         """One epoch of train steps; True when ``max_steps`` is reached."""
@@ -367,8 +418,11 @@ class Trainer:
                 self.state, metrics = self._train_fns[phase](self.state, prepared)
                 self._maybe_profile(start=False)
                 step = self.global_batch()
-                if self.logger and step % self.log_every_n == 0:
+                if self.logger and self.is_main_process and step % self.log_every_n == 0:
                     self.logger.log_metrics(_host_metrics(metrics), step)
+                if self.world.size > 1 and any_rank(self._signalled):
+                    self._signalled = False
+                    self.save_last_checkpoint()
                 # Lightning's every_n_train_steps counts optimizer steps:
                 # with accumulation k it fires once per k micro-batches,
                 # labelled with the optimizer step
@@ -393,7 +447,10 @@ class Trainer:
     @torch.no_grad()
     def validate(self, datamodule, split: str = "val") -> Dict[str, float]:
         """Means over the split's samples (each batch's means weighted by
-        its size), logged, and for ``val`` the best-checkpoint save."""
+        its size), logged, and for ``val`` the best-checkpoint save. In a
+        process group each rank evaluates its shard and the eval step's
+        metrics are the ranks' means, so every rank returns the global
+        means."""
         limit = self.limit_val_batches if split == "val" else self.limit_test_batches
         if limit == 0:
             return {}
@@ -419,7 +476,7 @@ class Trainer:
         # image logging excluded, as from the steps' times
         self.timings["validation_s"] += (time.perf_counter() - t0
                                          - (self.timings["image_log_s"] - logged))
-        if self.logger and means:
+        if self.logger and self.is_main_process and means:
             self.logger.log_metrics(means, self.global_batch())
         # best checkpoints read the val monitor only: a test pass never
         # ranks them
@@ -457,7 +514,8 @@ class Trainer:
         ``predict_dataloader`` batch, posterior modes, the 'full' phase, the
         remaining draws from a generator seeded ``seed + 2``, through
         ``model.inference_net``. Returns per batch a dict of numpy
-        ``dec_obj`` and ``dec_pose`` (the plain family: ``dec_obj``)."""
+        ``dec_obj`` and ``dec_pose`` (the plain family: ``dec_obj``); in a
+        process group, of this rank's shard."""
         m = self.model
         if not getattr(datamodule, "datasets", None):
             datamodule.setup()

@@ -1,7 +1,9 @@
 """Scalar and image logging (``train/metrics.py`` of the JAX package): JSONL
 always, TensorBoard when ``torch.utils.tensorboard`` imports, and a wandb
 backend that falls back to wandb's run-directory layout when the ``wandb``
-package is absent.
+package is absent. In a process group the logger lives on rank 0 only
+(``make_logger`` returns None elsewhere); the values it receives are the
+ranks' means.
 """
 
 from __future__ import annotations
@@ -124,8 +126,13 @@ def make_logger(lightning_config, logdir: str, nowname: str = "run"):
     """The config-selected logger: ``MetricsLogger`` by default, with
     ``lightning.logger`` deep-merged over it, so a config naming the
     reference's ``pytorch_lightning.loggers.WandbLogger`` (or the JAX
-    package's targets) selects that backend."""
+    package's targets) selects that backend. None off rank 0 of a process
+    group."""
     from ..config import instantiate_from_config
+    from ..parallel.mesh import world
+
+    if world().rank != 0:
+        return None
     from ..config.merge import deep_merge
 
     default_cfg = {"target": f"{__name__}.MetricsLogger", "params": {}}

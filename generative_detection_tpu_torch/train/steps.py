@@ -21,6 +21,15 @@ reconstruction terms into the one backward of the total:
 LPIPS and the discriminator are differentiated once each (the JAX package
 gets the same with a surrogate term).
 
+Data parallelism: in a process group of W ranks, each holding B / W of the
+global batch B, a step computes the step of one process at batch B, as the
+JAX package's ``jit`` over a sharded batch does. The loss is formed so that
+the ranks' mean of it is the global loss (``losses/contperceptual.py``); the
+draws are the rank's slice of the global batch's (``parallel.mesh.draw``);
+the two ``conv_out`` weight gradients of d_weight are averaged over the
+ranks before their norms; the optimizers average the gradients before the
+clip (``train/state.py``); the metrics are the ranks' means.
+
 Mixed precision: the parameters stay float32 (the master weights, and Adam's
 state). With ``compute_dtype`` bfloat16 the step runs the net, LPIPS and the
 discriminator under ``torch.autocast``, which casts each convolution's and
@@ -52,6 +61,7 @@ import torch
 
 from ..losses.contperceptual import adopt_weight
 from ..ops.precision import compute_precision
+from ..parallel.mesh import all_reduce_mean, average_gradients, world
 from .state import TrainState
 
 
@@ -73,9 +83,23 @@ def _conv_out_weight_grads(weight: torch.Tensor, pre_out: torch.Tensor, cotangen
 
 
 def _adaptive_d_weight(g_nll_w, g_g_w, disc_weight: float) -> torch.Tensor:
+    """In a process group both weight gradients are first averaged over the
+    ranks, which makes them the global batch's: every rank then takes the
+    same d_weight."""
+    if world().active:
+        # each keeps its memory format, so its norm sums in one process's order
+        g_nll_w, g_g_w = g_nll_w.clone(), g_g_w.clone()
+        average_gradients([g_nll_w, g_g_w])
     num = torch.linalg.vector_norm(g_nll_w)
     den = torch.linalg.vector_norm(g_g_w) + 1e-4
     return torch.clamp(num / den, 0.0, 1e4) * disc_weight
+
+
+def _global_means(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics' means over the ranks of a process group (float32, one
+    collective), the logged values of the global batch; as they are outside
+    one."""
+    return all_reduce_mean(metrics) if world().active else metrics
 
 
 def _autocast(device: torch.device, dtype: torch.dtype):
@@ -196,7 +220,7 @@ def make_train_step(
         metrics["discloss"] = discloss.detach()
         metrics["dropout_prob"] = torch.tensor(outs["dropout_prob"])
         state.step += 1
-        return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        return state, _global_means({k: torch.as_tensor(v).detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -237,7 +261,7 @@ def make_eval_step(
             )
         metrics = dict(log_ae)
         metrics.update(log_disc)
-        return metrics
+        return _global_means(metrics)
 
     return eval_step
 
@@ -313,7 +337,7 @@ def make_plain_train_step(
         metrics["aeloss"] = total.detach()
         metrics["discloss"] = discloss.detach()
         state.step += 1
-        return state, {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        return state, _global_means({k: torch.as_tensor(v).detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -346,6 +370,6 @@ def make_plain_eval_step(
             _, log_disc = loss(x, outs["dec_obj"], post, 1, step_d, split=split)
         metrics = dict(log_ae)
         metrics.update(log_disc)
-        return metrics
+        return _global_means(metrics)
 
     return eval_step

@@ -14,6 +14,22 @@ cpu`` in the config (``plain_kl_tiny.yaml`` has it) selects the
 CPU, anything else the card. The YAMLs' targets name the JAX package or the
 reference; ``config.TARGET_ALIASES`` maps them onto the port. The
 ``lightning.trainer`` keys pass through to the ``Trainer`` by name.
+
+Several cards (Lightning's DDP in the reference: one process a card, each at
+the config's ``batch_size``, so the global batch is N times it):
+
+- inside a world launched by ``torchrun --nproc_per_node N`` or ``srun``,
+  every rank joins the process group first (``parallel.maybe_initialize``);
+  ``--devices`` / ``lightning.trainer.devices``, when given, must equal the
+  world size;
+- ``lightning.trainer.devices: N`` (or ``--devices N``) with N > 1 outside a
+  launched world spawns N ranks of this CLI on this host, on a free port,
+  and waits for them (``parallel.multihost.spawn_ranks``; a rank that fails
+  stops the others; ``GDT_SPAWN_TIMEOUT`` seconds bound the wait). The
+  spawning process trains nothing and ``main`` returns None there.
+
+The ranks agree on rank 0's run name; rank 0 alone writes the run's files,
+logs and images; checkpoints are collective.
 """
 
 from __future__ import annotations
@@ -28,6 +44,8 @@ import sys
 from typing import Optional, Sequence
 
 from .config import instantiate_from_config, merge_configs, to_plain
+from .parallel.mesh import broadcast_object, world
+from .parallel.multihost import maybe_initialize, shutdown, spawn_ranks
 from .utils.misc import log_opts
 
 
@@ -57,7 +75,8 @@ def get_parser(**kwargs):
     p.add_argument("--scale_lr", type=str2bool, nargs="?", const=True, default=True,
                    help="scale base-lr by ndevices * batch_size * n_accumulate")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of cards (one until the parallel slice)")
+                   help="number of cards, one process each (default: the config's "
+                        "lightning.trainer.devices, else one)")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
@@ -129,7 +148,25 @@ _EXPLICIT = {
 def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
     """Parse ``argv`` (default ``sys.argv[1:]``), build the model, data,
     callbacks, logger and Trainer, then fit (``-t``) and test. Returns the
-    Trainer. ``extra_callbacks`` are appended to the configured ones."""
+    Trainer (None where it spawned the ranks of a world instead).
+    ``extra_callbacks`` are appended to the configured ones. A process
+    group that this call joined is left before it returns."""
+    now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opt, unknown = get_parser().parse_known_args(argv)
+    logging.basicConfig(level=getattr(logging, opt.logging_level))
+    if opt.name != "test" and opt.resume:
+        raise ValueError("-n/--name and -r/--resume cannot be specified both.")
+    in_group = world().active
+    w = maybe_initialize()  # a launched world: join it before any file is touched
+    try:
+        return _main(opt, unknown, argv, broadcast_object(now), w, extra_callbacks)
+    finally:
+        if w.active and not in_group:
+            shutdown()
+
+
+def _main(opt, unknown, argv, now, w, extra_callbacks):
     import torch
 
     from .train.callbacks import (
@@ -143,12 +180,6 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
     from .train.loop import Trainer
     from .train.metrics import make_logger
 
-    now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-    opt, unknown = get_parser().parse_known_args(argv)
-    logging.basicConfig(level=getattr(logging, opt.logging_level))
-    if opt.name != "test" and opt.resume:
-        raise ValueError("-n/--name and -r/--resume cannot be specified both.")
-
     opt, nowname = get_nowname(opt, now)
     logdir = opt.resume_logdir if opt.resume else os.path.join(opt.logdir, nowname)
     ckptdir = os.path.join(logdir, "checkpoints")
@@ -158,6 +189,11 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
     config = merge_configs(opt.base, unknown)
     lightning_config = config.pop("lightning", {}) or {}
     trainer_cfg = dict(lightning_config.get("trainer", {}) or {})
+    devices = opt.devices or trainer_cfg.get("devices")
+    devices = None if devices is None else int(devices)
+    if devices and devices > 1 and not w.active:
+        _spawn(argv, devices)
+        return None
     if opt.max_steps is not None:
         trainer_cfg["max_steps"] = opt.max_steps
     if opt.max_epochs is not None:
@@ -173,7 +209,7 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
     logging.info("#### Data ####")
     for k, ds in data.datasets.items():
         logging.info("%s, %s, %d", k, type(ds).__name__, len(ds))
-    model = configure_learning_rate(config, model, trainer_cfg, opt, opt.devices or 1)
+    model = configure_learning_rate(config, model, trainer_cfg, opt, devices or w.size)
 
     callbacks = [
         SetupCallback(resume=opt.resume, now=now, logdir=logdir, ckptdir=ckptdir, cfgdir=cfgdir,
@@ -208,7 +244,7 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
         seed=opt.seed,
         monitor=getattr(model, "monitor", None),
         resume_from_checkpoint=opt.resume_from_checkpoint,
-        devices=opt.devices,
+        devices=devices,
         disc_forward=trainer_cfg.get("disc_forward", "shared"),
         step_counting=trainer_cfg.get("step_counting", "optimizer"),
         device=device,
@@ -234,8 +270,21 @@ def main(argv: Optional[Sequence[str]] = None, extra_callbacks: Sequence = ()):
         raise
     finally:
         signal.signal(signal.SIGUSR2, previous)
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
+
+
+def _spawn(argv, devices: int) -> None:
+    """This CLI as ``devices`` ranks of one world on this host, with the
+    package's root on their path."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    timeout = os.environ.get("GDT_SPAWN_TIMEOUT")
+    logging.info("spawning %d ranks", devices)
+    spawn_ranks(["-m", __spec__.name if __spec__ else "generative_detection_tpu_torch.train_cli",
+                 *argv], devices, timeout=float(timeout) if timeout else None, env=env)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import draw
+
 LOGVAR_MIN = -30.0
 LOGVAR_MAX = 20.0
 
@@ -46,12 +48,12 @@ class DiagonalGaussianDistribution:
     def sample(
         self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """mean + std * noise, with ``noise`` given or drawn from ``generator``."""
+        """mean + std * noise, with ``noise`` given or drawn from ``generator``
+        (in a process group: this rank's slice of the global batch's draw,
+        ``parallel.mesh.draw``)."""
         if noise is None:
-            noise = torch.randn(
-                self.mean.shape, generator=generator, dtype=torch.float32,
-                device=self.mean.device,
-            )
+            noise = draw(torch.randn, self.mean.shape, generator, self.mean.device,
+                         torch.float32)
         return self.mean + self.std * noise.to(self.mean.dtype)
 
     def mode(self) -> torch.Tensor:

@@ -2,10 +2,12 @@
 
 Each port test file imports ``one_torch_thread`` (an autouse fixture, so the
 import is all it takes); ``jax_unimportable`` runs an entry point of the port
-with JAX out of reach."""
+with JAX out of reach. A file whose tests write checkpoints also imports
+``tmp_path``, which deletes each test's directory at its teardown."""
 
 import contextlib
 import importlib.abc
+import shutil
 import sys
 
 import pytest
@@ -25,6 +27,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, deleted at the test's teardown. pytest keeps
+    every directory of a session (and of the two sessions before it): one
+    checkpoint of the tiny model is ~165 MB, so the port's files left GBs
+    under the suite's temporary root."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def deleted_after(path):
+    """Yield ``path``; delete it after (a module fixture's directory)."""
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 _JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "generative_detection_tpu")

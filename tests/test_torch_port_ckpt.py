@@ -38,7 +38,7 @@ from tests.test_ckpt_path import _build_state_dict
 from tests.test_models import small_model
 from tests.test_torch_port_detector import HMAX, HMIN, _camera_args
 from tests.test_torch_port_model import jax_net_params, port_small_model
-from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import deleted_after, one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = str(REPO / "configs/autoencoder/pose/tiny_cpu.yaml")
@@ -61,9 +61,10 @@ def ref_ckpt(tmp_path_factory):
     checkpoint holds them)."""
     dd = merge_configs([TINY])["model"]["params"]["ddconfig"]
     sd = {k: torch.as_tensor(np.asarray(v)) for k, v in _build_state_dict(dict(dd)).items()}
-    path = str(tmp_path_factory.mktemp("ref") / "odvae.ckpt")
-    torch.save({"state_dict": sd, "global_step": 5}, path)
-    return sd, path
+    with deleted_after(tmp_path_factory.mktemp("ref")) as root:
+        path = str(root / "odvae.ckpt")
+        torch.save({"state_dict": sd, "global_step": 5}, path)
+        yield sd, path
 
 
 @pytest.fixture(scope="module")
@@ -251,8 +252,8 @@ def run_a(tmp_path_factory):
     learning rate 0: its weights stay the seed's."""
     pm = _port_model()
     pm.learning_rate = 0.0
-    root = tmp_path_factory.mktemp("run_a")
-    return _fit(pm, root, 1), root
+    with deleted_after(tmp_path_factory.mktemp("run_a")) as root:
+        yield _fit(pm, root, 1), root
 
 
 def test_trainer_fit_consumes_ckpt_path_and_resume_restores_over_it(ref_ckpt, run_a,

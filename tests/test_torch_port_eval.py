@@ -19,7 +19,7 @@ from generative_detection_tpu_torch import eval_cli
 from generative_detection_tpu_torch.losses.contperceptual import LABEL_NAMES
 from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
 from generative_detection_tpu_torch.train.state import flax_like_net
-from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import deleted_after, one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 from tests.test_torch_port_nuscenes import TINY, _fake_infos, _models
 
 CLASSES = [n for n in LABEL_NAMES if n != "background"]
@@ -102,7 +102,8 @@ def _block_jax(monkeypatch):
 
 @pytest.fixture(scope="module")
 def nusc_tree(tmp_path_factory):
-    return _fake_infos(tmp_path_factory.mktemp("nuscenes_eval"))
+    with deleted_after(tmp_path_factory.mktemp("nuscenes_eval")) as root:
+        yield _fake_infos(root)
 
 
 @pytest.mark.parametrize("data", ["synthetic", "synthetic_raw", "nuscenes_raw"])

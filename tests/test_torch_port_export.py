@@ -27,7 +27,7 @@ from generative_detection_tpu_torch.utils.torch_compat import (
 from tests.test_models import small_model
 from tests.test_torch_port_detector import HMAX, HMIN, _camera_args
 from tests.test_torch_port_model import jax_net_params, port_small_model
-from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 
 REPO = Path(__file__).resolve().parents[1]
 SERVED = (1, 3, 5)  # the batches one batch-polymorphic artifact serves here

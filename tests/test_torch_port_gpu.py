@@ -1124,3 +1124,65 @@ with pytest.raises(ValueError, match="exported for cuda"):
         run = subprocess.run([sys.executable, "-c", code, *files], cwd=REPO,
                              env={**env, **extra}, capture_output=True, text=True, timeout=600)
         assert run.returncode == 0, run.stdout + run.stderr
+
+
+def _parallel_worker():
+    """``tests/torch_parallel_worker.py`` by its path (a ``tests`` package
+    elsewhere on the path may shadow this one)."""
+    import importlib.util
+
+    path = REPO / "tests" / "torch_parallel_worker.py"
+    spec = importlib.util.spec_from_file_location("torch_parallel_worker", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_world1_nccl_steps_are_bit_equal_to_one_process(cuda, monkeypatch):
+    """Two fp32 steps of tiny_cpu.yaml at ch 128 inside a process group of
+    one rank over NCCL (torch's launch environment, joined as ``train_cli``
+    joins it) against the same steps outside any group, from one seed, batch
+    and draws, cuDNN deterministic: every collective of a one-rank world is
+    the identity, so the metrics and the weights are bit-equal."""
+    import torch.distributed as dist
+
+    from generative_detection_tpu_torch.parallel import multihost
+
+    worker = _parallel_worker()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    want = worker.card_steps()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(multihost.free_port())).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("GDT_DIST_BACKEND", raising=False)
+    w = multihost.maybe_initialize()
+    try:
+        assert w.active and w.size == 1 and "nccl" in str(dist.get_backend())
+        got = worker.card_steps()
+    finally:
+        multihost.shutdown()
+    assert got == want
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks on the one card (``GDT_DIST_BACKEND=gloo``: NCCL refuses two
+    ranks on one device), each at batch 4 of tiny_cpu.yaml at ch 128, fp32:
+    both ranks log the same metrics and hold the same weights, and the first
+    step's losses and d_weight are one process's at batch 8 within the
+    card-vs-CPU limit (1e-3 relative): the convolutions' algorithms differ
+    with the batch. The second step starts from weights that Adam's first
+    update already set apart (ROADMAP.md section C), so it is not held."""
+    import json
+
+    from generative_detection_tpu_torch.parallel import multihost
+
+    worker = _parallel_worker()
+    multihost.spawn_ranks([worker.__file__, "--card", str(tmp_path)], 2, timeout=600,
+                          env=dict(os.environ, GDT_DIST_BACKEND="gloo"))
+    ranks = [json.loads((tmp_path / f"card_rank{r}.json").read_text()) for r in range(2)]
+    assert ranks[0] == ranks[1] and ranks[0][-1]["jax_modules"] == []
+    want = worker.card_steps()[0]
+    got = ranks[0][0]
+    assert want["train/d_weight"] > 0
+    for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss_obj"):
+        assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (k, got[k], want[k])

@@ -53,7 +53,7 @@ from generative_detection_tpu_torch.models import autoencoder as port_autoencode
 from generative_detection_tpu_torch.ops import resize
 from generative_detection_tpu_torch.serving import make_detector_fn
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
-from tests._torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import deleted_after, one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import validate_nuscenes as jax_validate_tool  # noqa: E402
@@ -116,7 +116,8 @@ def _fake_infos(root: Path, n_samples: int = 3) -> Path:
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
-    return _fake_infos(tmp_path_factory.mktemp("nuscenes"))
+    with deleted_after(tmp_path_factory.mktemp("nuscenes")) as root:
+        yield _fake_infos(root)
 
 
 def _assert_items_equal(got: dict, want: dict) -> None:

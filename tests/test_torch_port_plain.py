@@ -73,7 +73,7 @@ from generative_detection_tpu_torch.utils.torch_compat import (
     export_plain_autoencoder,
     load_torch_state_dict,
 )
-from tests._torch_cpu import jax_unimportable, one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import jax_unimportable, one_torch_thread, tmp_path  # noqa: F401 (fixtures)
 from tests.test_torch_port_train import _adam_moments, _disc_sd
 
 REPO = Path(__file__).resolve().parents[1]

@@ -74,7 +74,12 @@ from generative_detection_tpu_torch.train.checkpoint import restore_signals, sav
 from generative_detection_tpu_torch.train.metrics import MetricsLogger, WandbLogger, make_logger
 from generative_detection_tpu_torch.train.state import flax_like_net
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
-from tests._torch_cpu import jax_unimportable, one_torch_thread  # noqa: F401 (autouse)
+from tests._torch_cpu import (  # noqa: F401 (fixtures)
+    deleted_after,
+    jax_unimportable,
+    one_torch_thread,
+    tmp_path,
+)
 from tests.test_torch_port_train import (
     _adam_moments,
     _check_metrics,
@@ -340,21 +345,23 @@ def fit(models, tmp_path_factory):
     """One fit of the port's Trainer over three steps of ``tiny_cpu.yaml``
     (two epochs of two batches; validation of one batch after each epoch,
     thread loaders, the every-step checkpoint stream, image logging)."""
-    logdir = str(tmp_path_factory.mktemp("fit"))
-    draws = _draws(seed=2)
-    with pytest.MonkeyPatch.context() as mp, _threads():
-        _patched_forward(mp, draws)
-        trainer = Trainer(
-            models["pm"], logdir=logdir, max_epochs=2, max_steps=FIT_STEPS, limit_val_batches=1,
-            log_every_n_steps=1, seed=SEED, device="cpu",
-            logger=MetricsLogger(logdir),
-            callbacks=[CheckpointCallback(every_n_train_steps=1),
-                       ImageLogger(batch_frequency=2, max_images=2)],
-        )
-        trainer.fit(_port_dm(num_workers=2))
-    trainer.logger.close()
-    return dict(trainer=trainer, logdir=logdir, draws=draws,
-                threads=[t.name for t in threading.enumerate() if t.name.startswith(THREAD_NAME)])
+    with deleted_after(tmp_path_factory.mktemp("fit")) as root:
+        logdir = str(root)
+        draws = _draws(seed=2)
+        with pytest.MonkeyPatch.context() as mp, _threads():
+            _patched_forward(mp, draws)
+            trainer = Trainer(
+                models["pm"], logdir=logdir, max_epochs=2, max_steps=FIT_STEPS,
+                limit_val_batches=1, log_every_n_steps=1, seed=SEED, device="cpu",
+                logger=MetricsLogger(logdir),
+                callbacks=[CheckpointCallback(every_n_train_steps=1),
+                           ImageLogger(batch_frequency=2, max_images=2)],
+            )
+            trainer.fit(_port_dm(num_workers=2))
+        trainer.logger.close()
+        yield dict(trainer=trainer, logdir=logdir, draws=draws,
+                   threads=[t.name for t in threading.enumerate()
+                            if t.name.startswith(THREAD_NAME)])
 
 
 def test_trainer_fit_matches_jax_steps(models, fit, monkeypatch, tmp_path):
@@ -540,10 +547,13 @@ def test_trainer_refuses_what_it_does_not_run(models, monkeypatch):
     for limit in ("limit_val_batches", "limit_test_batches"):
         with pytest.raises(ValueError, match="fractional"):
             Trainer(pm, device="cpu", **{limit: 0.5})
-    for kw in (dict(devices=2), dict(zero1_optimizer_sharding=True),
-               dict(fsdp_parameter_sharding=True)):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
-            Trainer(pm, device="cpu", **kw)
+    # two cards need a process group of two ranks; FSDP is not ported
+    with pytest.raises(RuntimeError, match="no process group"):
+        Trainer(pm, device="cpu", devices=2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        Trainer(pm, device="cpu", fsdp_parameter_sharding=True)
+    # ZeRO-1 in one process shards nothing, and runs
+    assert Trainer(pm, device="cpu", devices=1, zero1_optimizer_sharding=True).world.size == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(pm)
