@@ -177,8 +177,20 @@ Phases (any failure raises and exits non-zero, before the result line):
    times (not a multi-GPU figure: gloo stages through the host and both
    ranks share one card), a collective save restored into the one process
    (step, weights, each rank's shard of the moments), then one
-   GDT_WINOGRAD=fused step (B7, B8); (c) shard_detector: the bf16 artifacts
-   of phase 10 (plain and GDT_FUSE_INFERENCE=1) as two replicas on cuda:0 at
+   GDT_WINOGRAD=fused step (B7, B8); then FSDP (fsdp_parameter_sharding:
+   the parameters of the net, LPIPS and the discriminator sharded) from the
+   same weights, draws and batch: 3 steps whose first losses are the
+   unsharded ranks' within 1e-6, weights after step 1 within 2.05 lr, and
+   each optimizer's step-1 gradient before the clip (from its consolidated
+   moments) within 1e-5 of its largest (the discriminator's 5e-2: its two
+   forwards sum in bf16 unsharded, in float32 under FSDP) and its norm
+   within 1e-3, the
+   same launches, each rank's bytes at rest of parameters, gradients and
+   moments (unsharded, ZeRO-1, FSDP) beside its peak, a collective FSDP save
+   restored exactly into the one process, and one GDT_WINOGRAD=fused FSDP
+   step (B7, B8 at their sites); (a) also runs the CLI with FSDP in the
+   world of one, bit-equal to no group; (c) shard_detector: the bf16
+   artifacts of phase 10 (plain and GDT_FUSE_INFERENCE=1) as two replicas on cuda:0 at
    batch 32: bit-equal to load_detector on each replica's half, within the
    bf16 limits of the whole batch (and whether bit-equal), twice one
    replica's launches a request, p50s beside load_detector's;
@@ -227,7 +239,7 @@ from generative_detection_tpu_torch import eval_cli, export_torch_ckpt, train_cl
 from generative_detection_tpu_torch.data.synthetic import raw_crop_batch
 from generative_detection_tpu_torch.models import autoencoder as port_autoencoder
 from generative_detection_tpu_torch.data.datamodule import THREAD_NAME, collate
-from generative_detection_tpu_torch.parallel import mesh, multihost
+from generative_detection_tpu_torch.parallel import fsdp, mesh, multihost
 from generative_detection_tpu_torch.serving import (
     export_detector, load_detector, make_detector_fn, shard_detector,
 )
@@ -239,6 +251,7 @@ from generative_detection_tpu_torch.train import (
     make_plain_train_step, make_train_step,
 )
 from generative_detection_tpu_torch.train.callbacks import Callback
+from generative_detection_tpu_torch.train.state import TrainState, shard_for_fsdp
 
 REPO = Path(__file__).resolve().parent
 # The weight-gradient kernel's flop count and design bytes, from its A/B tool
@@ -2418,9 +2431,10 @@ def phase_plain_fused_fp32_memory() -> dict:
 # sharing the card over gloo (NCCL refuses two ranks on one device), each at
 # batch 8 of the same model's bf16 step, 3 steps with ZeRO-1 off and on, against one process at batch 16 with the same batch and
 # draws, a collective save restored into one process, then one
-# GDT_WINOGRAD=fused step; (c) shard_detector: the bf16 artifacts (plain and
-# GDT_FUSE_INFERENCE=1) as two replicas on cuda:0 at batch 32. (b) runs the
-# model, curriculum and synthetic patches of (a)
+# GDT_WINOGRAD=fused step, then the same with FSDP (the parameters sharded);
+# (c) shard_detector: the bf16 artifacts (plain and GDT_FUSE_INFERENCE=1) as
+# two replicas on cuda:0 at batch 32. (b) runs the model, curriculum and
+# synthetic patches of (a)
 PAR_STEPS, PAR_BATCH, PAR_RANKS = 3, 16, 2
 PAR_KEYS = ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/g_loss")
 # the first step against one process, relative: the losses at the card-vs-CPU
@@ -2435,6 +2449,22 @@ PAR_KEYS = ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/g_l
 PAR_GATED = {"aeloss": TRAIN_LOSS_RTOL, "discloss": TRAIN_LOSS_RTOL,
              "train/d_weight": BF16_TOL["rtol"]}
 ZERO1_REL = 1e-6
+# FSDP against the unsharded ranks: the first step's losses (the gathers are
+# exact and a sum of two is order-free), and the weights after it in units of
+# the learning rate (tests/test_fsdp.py's bound: Adam's first update is
+# sign-like, and the global norm sums in another order)
+FSDP_REL, FSDP_LR_BOUND = 1e-6, 2.05
+# FSDP's first step against the unsharded ranks': each optimizer's gradient
+# before the clip (from its consolidated moments, ``_step1``), of its
+# largest, and its global norm, relative (the norm sums in another order).
+# The discriminator's within bf16 rounding only: autocast casts a leaf weight
+# once an autocast region, so the unsharded discriminator's two forwards
+# (real, fake) sum their weight gradients in bf16, where FSDP's gathered
+# weights, no leaves, are cast at each forward and their gradients sum in
+# float32; the ranks' sum of the two can cancel, so the difference reached
+# 1.2e-2 of the largest squared gradient on the H100. A wrong slice or scale
+# of the reduce-scatter, or a stale gather, moves either by O(1).
+FSDP_GRAD_REL, FSDP_NORM_REL = {"opt_ae": 1e-5, "opt_disc": 5e-2}, 1e-3
 PAR_REQUESTS = 10
 PAR_PATH = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "attention_bwd_512")
 PAR_FUSED_PATH = ("wino_rows", "wino_rows_dgrad", "wino_wgrad", "group_norm_affine")
@@ -2466,13 +2496,14 @@ def _par_train():
     return model, state, make_train_step(model, phase="full", compute_dtype=torch.bfloat16), batch
 
 
-def _par_cli(tmp: Path, name: str, env: dict) -> tuple:
+def _par_cli(tmp: Path, name: str, env: dict, extra=()) -> tuple:
     """train_cli over synthetic_smoke.yaml at batch 16 with PAR_DOTLIST, 3
-    steps, with ``env`` set: its logged (step, losses) and its trained
-    weights (one flat tensor on the card)."""
+    steps, with ``env`` set and the ``extra`` dotlist: its logged (step,
+    losses) and its trained weights (one flat tensor on the card)."""
     args = ["-b", str(SMOKE), "-t", "-l", str(tmp), "-n", name, "--logging_level", "WARNING",
             f"data.params.batch_size={PAR_BATCH}", *PAR_DOTLIST,
-            f"lightning.trainer.max_steps={PAR_STEPS}", "lightning.trainer.limit_val_batches=0"]
+            f"lightning.trainer.max_steps={PAR_STEPS}", "lightning.trainer.limit_val_batches=0",
+            *extra]
     with switches(**env):
         tr = train_cli.main(args)
     require(tr.state.step == PAR_STEPS, f"parallel {name}: ended at step {tr.state.step}")
@@ -2499,10 +2530,18 @@ def _world1_nccl(tmp: Path) -> dict:
         env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(multihost.free_port()), GDT_DIST_BACKEND=None)
         world1 = _par_cli(tmp, "world1", env)
+        # FSDP in a world of one shards nothing: bit-equal to no group
+        env["MASTER_PORT"] = str(multihost.free_port())
+        t0 = time.perf_counter()
+        rows_f, w_f = _par_cli(tmp, "world1_fsdp", env,
+                               ["lightning.trainer.fsdp_parameter_sharding=true"])
+        fsdp_s = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = deterministic
     require(not dist.is_initialized(), "train_cli left its process group")
     (rows_a, w_a), (rows_1, w_1) = alone, world1
+    require(rows_f == rows_a and torch.equal(w_f, w_a),
+            f"FSDP in a world of one over NCCL is not bit-equal to no group: {rows_f} vs {rows_a}")
     for (step, a), (_, b) in zip(rows_a, rows_1):
         for k, x, y in zip(PAR_KEYS, a, b):
             require(np.isfinite(y) and abs(x - y) <= TRAIN_LOSS_RTOL * abs(x) + 1e-6,
@@ -2513,8 +2552,84 @@ def _world1_nccl(tmp: Path) -> dict:
            "weights_max_rel_diff": float((w_a - w_1).abs().max() / w_a.abs().max()),
            "losses_max_rel_diff": max(abs(x - y) / max(abs(x), 1e-30) for (_, a), (_, b)
                                       in zip(rows_a, rows_1) for x, y in zip(a, b)),
-           "losses": {"alone": rows_a, "world1_nccl": rows_1}, "keys": PAR_KEYS}
+           "losses": {"alone": rows_a, "world1_nccl": rows_1}, "keys": PAR_KEYS,
+           "fsdp_world1_nccl_bit_equal_to_alone": True, "fsdp_world1_cli_s": fsdp_s}
     return out
+
+
+def _rest_bytes(state) -> dict:
+    """What this rank holds between steps, in bytes: the parameters of the
+    net and the loss (LPIPS, the discriminator, logvar), their gradients and
+    both optimizers' Adam moments."""
+    params = list(state.net.parameters()) + list(state.loss.parameters())
+    moments = [t for opt in (state.opt_ae, state.opt_disc) for st in opt.adam.state.values()
+               for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")]
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    return {"params": size(params), "grads": size(p.grad for p in params if p.grad is not None),
+            "moments": size(moments)}
+
+
+def _flat_weights(state, disc: bool = True) -> torch.Tensor:
+    """The net's (and the discriminator's) weights end to end, each in its
+    logical order (under FSDP gathered: a collective)."""
+    out = []
+    for m in (state.net, state.loss.discriminator)[: 2 if disc else 1]:
+        if fsdp.is_sharded(m):
+            buffers = {k for k, _ in m.named_buffers()}
+            out += [v.reshape(-1) for k, v in m.state_dict().items() if k not in buffers]
+        else:
+            out += [p.detach().reshape(-1) for p in m.parameters()]
+    return torch.cat(out)
+
+
+def _step1(state) -> dict:
+    """After each optimizer's first step, on the host: the net's and the
+    discriminator's weights, and per optimizer its global gradient norm
+    before the clip and the averaged gradient it stepped on, before the
+    clip, as its consolidated Adam moments give it (mu / (1 - b1) and
+    nu / (1 - b2) times the clip's inverse scale, once and squared), each
+    parameter in its logical order (under ZeRO-1 or FSDP a collective).
+    Undoing the clip keeps a wrong scale of the gradient visible."""
+    out = {"weights": _flat_weights(state).cpu()}
+    for name in ("opt_ae", "opt_disc"):
+        opt = getattr(state, name)
+        norm = float(opt.grad_norm)
+        scale = max(norm / opt.grad_clip, 1.0)
+        b1, b2 = opt.adam.param_groups[0]["betas"]
+        sd = opt.state_dict()["adam"]["state"]
+        for key, kind, factor in (("exp_avg", "grad", scale / (1 - b1)),
+                                  ("exp_avg_sq", "grad_sq", scale * scale / (1 - b2))):
+            out[f"{name}.{kind}"] = torch.cat([sd[i][key].reshape(-1).cpu()
+                                               for i in sorted(sd)]).double().mul_(factor)
+        out[f"{name}.grad_norm"] = norm
+    return out
+
+
+def _par_steps(state, step, batch, after_first=None) -> dict:
+    """PAR_STEPS steps from ``state``: each step's PAR_KEYS, seconds, the
+    launches, the peak memory of the steps and what the rank then holds;
+    ``after_first`` is called with the state after step 1 (its gathers
+    launch no counted kernel and stay out of the peak)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rows, times, peak = [], [], 0
+    for i in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append([float(metrics[k]) for k in PAR_KEYS])
+        if i == 0 and after_first is not None:
+            peak = torch.cuda.max_memory_allocated()
+            after_first(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    return {"rows": rows, "step_s": times, "counts": read_counts(),
+            "max_memory_allocated_bytes": max(peak, torch.cuda.max_memory_allocated()),
+            "at_rest_bytes": _rest_bytes(state)}
 
 
 def _parallel_rank(tmp: str) -> int:
@@ -2522,11 +2637,12 @@ def _parallel_rank(tmp: str) -> int:
     with torch's launch environment): writes ``DIR/rank<r>.json``."""
     w = multihost.maybe_initialize()
     require(w.size == PAR_RANKS, f"world {w}")
-    torch.backends.cudnn.deterministic = True  # ZeRO-1 on and off: the same gradients
+    # ZeRO-1 and FSDP against unsharded: the same gradients
+    torch.backends.cudnn.deterministic = True
     model, state, step, batch = _par_train()
     start, lr = state.step, state.opt_ae.adam.param_groups[0]["lr"]
     init = [{k: v.clone() for k, v in m.state_dict().items()} for m in (state.net, state.loss)]
-    runs = {}
+    runs, first = {}, {}
     for zero1 in (False, True):
         if zero1:  # the same weights, draws and step, the moments sharded
             state.net.load_state_dict(init[0])
@@ -2535,20 +2651,10 @@ def _parallel_rank(tmp: str) -> int:
                                                            zero1=True)
             state.generator.manual_seed(1)
             state.step = start
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        rows, times = [], []
-        for _ in range(PAR_STEPS):
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            rows.append([float(metrics[k]) for k in PAR_KEYS])
-        run = {"rows": rows, "step_s": times, "counts": read_counts(),
-               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        # the weights and gradients of step 1, kept on the host (off the
+        # later runs' peaks)
+        keep = None if zero1 else (lambda st: first.update(off=_step1(st)))
+        run = _par_steps(state, step, batch, keep)
         flat = {"weights": torch.cat([p.detach().reshape(-1) for p in
                                       list(state.net.parameters())
                                       + list(state.loss.discriminator.parameters())])}
@@ -2568,6 +2674,7 @@ def _parallel_rank(tmp: str) -> int:
     del runs, f_off, f_on
     mgr = CheckpointManager(str(Path(tmp) / "ckpt"))
     t0 = time.perf_counter()
+    saved_step = state.step
     mgr.save_last(state.step, state)
     mgr.close()
     save_s = time.perf_counter() - t0
@@ -2577,10 +2684,55 @@ def _parallel_rank(tmp: str) -> int:
         torch.cuda.synchronize()
         fused = read_counts()
     require(np.isfinite(float(metrics["aeloss"])), "the fused step's loss is not finite")
+    del state, metrics
+    # FSDP: the same weights, draws and step, the parameters of the net,
+    # LPIPS and the discriminator sharded with their gradients and moments
+    net, loss = model.build_net(), model.build_loss()
+    net.load_state_dict(init[0])
+    loss.load_state_dict(init[1])
+    net = net.to("cuda", memory_format=torch.channels_last)
+    loss = loss.to("cuda", memory_format=torch.channels_last)
+    del init
+    shard_for_fsdp(net, loss)
+    fstate = TrainState(start, net, loss, *make_optimizers(net, loss, lr, 1.0),
+                        torch.Generator(device="cuda").manual_seed(1))
+    fsdp_run = _par_steps(fstate, step, batch, lambda st: first.update(fsdp=_step1(st)))
+    got, want = first.pop("fsdp"), first.pop("off")
+    fsdp_run["step1_weights_max_abs_diff_over_lr"] = float(
+        (got.pop("weights") - want.pop("weights")).abs().max()) / lr
+    fsdp_run["step1_grad_norm"] = {k: want[k] for k in want if k.endswith(".grad_norm")}
+    fsdp_run["step1_grad_norm_rel_diff"] = {
+        k: abs(got[k] - v) / v for k, v in fsdp_run["step1_grad_norm"].items()}
+    fsdp_run["step1_grad_max_rel_diff"] = {
+        k: float((got[k] - v).abs().max() / v.abs().max())
+        for k, v in want.items() if not k.endswith(".grad_norm")}
+    del first, got, want
+    fsdp_digest = hashlib.sha256(_flat_weights(fstate, disc=False).cpu().numpy().tobytes()
+                                 ).hexdigest()
+    mgr = CheckpointManager(str(Path(tmp) / "ckpt_fsdp"))
+    t0 = time.perf_counter()
+    fsdp_step = fstate.step
+    mgr.save_last(fstate.step, fstate)
+    mgr.close()
+    fsdp_run["save_s"] = time.perf_counter() - t0
+    with switches(GDT_WINOGRAD="fused"):
+        reset_counts()
+        fstate, metrics = step(fstate, batch)
+        torch.cuda.synchronize()
+        fsdp_run["fused_counts"] = read_counts()
+    require(np.isfinite(float(metrics["aeloss"])), "the FSDP fused step's loss is not finite")
+    fsdp_run["units"] = {name: [sum(u.numels()) for u in fsdp.units_of(m)] for name, m in (
+        ("net", fstate.net), ("lpips", fstate.loss.perceptual_loss),
+        ("disc", fstate.loss.discriminator))}
+    fsdp_run["held_after_steps"] = any(u.held() for m in (fstate.net, fstate.loss.perceptual_loss,
+                                                          fstate.loss.discriminator)
+                                       for u in fsdp.units_of(m))
     with open(Path(tmp) / f"rank{w.rank}.json", "w") as f:
         json.dump({"rank": w.rank, "off": off, "on": on, "zero1_max_rel_diff": diffs,
-                   "digest": digest, "step": state.step - 1, "held": held,
+                   "digest": digest, "step": saved_step, "held": held,
                    "save_s": save_s, "fused_counts": fused,
+                   "fsdp": fsdp_run, "fsdp_digest": fsdp_digest, "fsdp_step": fsdp_step,
+                   "lr": lr,
                    "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in
                                          ("jax", "jaxlib", "flax", "optax", "orbax",
                                           "generative_detection_tpu"))}, f)
@@ -2590,7 +2742,7 @@ def _parallel_rank(tmp: str) -> int:
 
 def _two_ranks(tmp: Path) -> dict:
     """(b): one process at batch 16 first, then the two ranks, then their
-    ZeRO-1 checkpoint restored into that process's state."""
+    ZeRO-1 and FSDP checkpoints restored into that process's state."""
     runs = {}
     deterministic, bn = torch.backends.cudnn.deterministic, BatchStatsNorm.forward
     torch.backends.cudnn.deterministic = True  # as the ranks run
@@ -2637,6 +2789,40 @@ def _two_ranks(tmp: Path) -> dict:
             require(r0[run]["counts"][name] > 0, f"rank step ran no {name} kernel")
     for name in PAR_FUSED_PATH:
         require(r0["fused_counts"][name] > 0, f"rank fused step ran no {name} kernel")
+    # FSDP against the unsharded run of the same ranks: the first step's
+    # losses within FSDP_REL, the weights after it within FSDP_LR_BOUND lr,
+    # its gradients within FSDP_GRAD_REL and FSDP_NORM_REL (printed first,
+    # so that a failing run shows them all), the same launches, a shard at
+    # rest
+    f0 = r0["fsdp"]
+    emit({"phase": "parallel_fsdp_step1", **{k: [r["fsdp"][k] for r in ranks] for k in (
+        "step1_weights_max_abs_diff_over_lr", "step1_grad_max_rel_diff",
+        "step1_grad_norm_rel_diff", "step1_grad_norm")}})
+    for r in ranks[1:]:
+        require(r["fsdp"]["rows"] == f0["rows"] and r["fsdp_digest"] == r0["fsdp_digest"],
+                "the two FSDP ranks logged different losses")
+    fsdp_rel = [{k: abs(x - y) / max(abs(x), 1e-30) for k, x, y in zip(PAR_KEYS, w, g)}
+                for g, w in zip(f0["rows"], r0["off"]["rows"])]
+    for k, d in fsdp_rel[0].items():
+        require(d <= FSDP_REL, f"FSDP step 1 {k}: {d} relative from the unsharded ranks")
+    for r in ranks:
+        d = r["fsdp"]["step1_weights_max_abs_diff_over_lr"]
+        require(d <= FSDP_LR_BOUND, f"FSDP weights after step 1: {d} lr from unsharded")
+        for k, d in r["fsdp"]["step1_grad_max_rel_diff"].items():
+            require(d <= FSDP_GRAD_REL[k.split(".")[0]],
+                    f"FSDP step 1 {k}: {d} of its largest from unsharded")
+        for k, d in r["fsdp"]["step1_grad_norm_rel_diff"].items():
+            require(d <= FSDP_NORM_REL, f"FSDP step 1 {k}: {d} relative from unsharded")
+        require(not r["fsdp"]["held_after_steps"], "an FSDP unit holds its full parameters")
+        for kind, full in r["off"]["at_rest_bytes"].items():
+            got = r["fsdp"]["at_rest_bytes"][kind]
+            require(got <= full / PAR_RANKS * 1.01, f"FSDP holds {got} B of {kind}, of {full}")
+    for name in COUNTED:
+        require(f0["counts"][name] == r0["off"]["counts"][name],
+                f"FSDP {name}: {f0['counts'][name]} launches, unsharded {r0['off']['counts'][name]}")
+    for name in PAR_FUSED_PATH:
+        require(f0["fused_counts"][name] == r0["fused_counts"][name] > 0,
+                f"FSDP fused step {name}: {f0['fused_counts'][name]} launches")
     # the collective ZeRO-1 checkpoint into one process
     CheckpointManager(str(tmp / "ckpt")).restore(ref)
     digest = hashlib.sha256(torch.cat([p.detach().reshape(-1) for p in ref.net.parameters()])
@@ -2650,6 +2836,12 @@ def _two_ranks(tmp: Path) -> dict:
             got = [float(mu[lo:hi].double().sum()), float(nu[lo:hi].double().sum())]
             require(np.allclose(got, [m_sum, n_sum], rtol=1e-12, atol=0),
                     f"restored {name} moments over [{lo}, {hi}) differ from rank {r['rank']}'s")
+    # the collective FSDP checkpoint into the same process
+    CheckpointManager(str(tmp / "ckpt_fsdp")).restore(ref)
+    digest = hashlib.sha256(torch.cat([p.detach().reshape(-1) for p in ref.net.parameters()])
+                            .cpu().numpy().tobytes()).hexdigest()
+    require(ref.step == r0["fsdp_step"] and digest == r0["fsdp_digest"],
+            "the FSDP checkpoint restored other weights or another step than the ranks'")
     del ref, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2659,7 +2851,20 @@ def _two_ranks(tmp: Path) -> dict:
             **{k: r0[k] for k in ("off", "on", "zero1_max_rel_diff", "save_s", "fused_counts")},
             "per_rank_max_memory_allocated_bytes": {
                 "zero1_off": [r["off"]["max_memory_allocated_bytes"] for r in ranks],
-                "zero1_on": [r["on"]["max_memory_allocated_bytes"] for r in ranks]},
+                "zero1_on": [r["on"]["max_memory_allocated_bytes"] for r in ranks],
+                "fsdp": [r["fsdp"]["max_memory_allocated_bytes"] for r in ranks]},
+            "per_rank_at_rest_bytes": {
+                mode: [r[key]["at_rest_bytes"] for r in ranks]
+                for mode, key in (("unsharded", "off"), ("zero1", "on"), ("fsdp", "fsdp"))},
+            "fsdp": {"rows": f0["rows"], "rel_diff_by_step_from_unsharded_ranks": fsdp_rel,
+                     "step_s": [r["fsdp"]["step_s"] for r in ranks],
+                     **{k: [r["fsdp"][k] for r in ranks] for k in (
+                         "step1_weights_max_abs_diff_over_lr", "step1_grad_max_rel_diff",
+                         "step1_grad_norm_rel_diff")},
+                     "step1_grad_norm_unsharded": f0["step1_grad_norm"],
+                     "counts": f0["counts"], "fused_counts": f0["fused_counts"],
+                     "save_s": f0["save_s"], "unit_elements": f0["units"],
+                     "lr": r0["lr"]},
             "restored_into_one_process": True}
 
 
@@ -2725,7 +2930,8 @@ def phase_parallel() -> dict:
           "two_ranks_gloo_one_card": two, "shard_detector_two_replicas_one_card": shard,
           "phase_wall_s": time.perf_counter() - t0})
     return {"bf16": two["off"]["counts"], "fused": two["fused_counts"],
-            "shard_fused": shard["bf16_fused"]["launches_per_request"]}
+            "shard_fused": shard["bf16_fused"]["launches_per_request"],
+            "fsdp": two["fsdp"]["counts"], "fsdp_fused": two["fsdp"]["fused_counts"]}
 
 
 def _largest(cases, name, dtype=torch.bfloat16):
@@ -2814,7 +3020,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     rank 0 of the two ranks sharing the card: its 3 bf16 steps at batch 8
     with ZeRO-1 off (B1-B4), its one GDT_WINOGRAD=fused step (B7, B8), and one
     batch-32 request of shard_detector's two replicas of the
-    GDT_FUSE_INFERENCE=1 artifact (B6 and its affine)."""
+    GDT_FUSE_INFERENCE=1 artifact (B6 and its affine). ``fsdp_launches``
+    gives them in the same rank's 3 FSDP steps (B1-B4) and its one FSDP
+    GDT_WINOGRAD=fused step (B7, B8)."""
     bf16, fp32 = torch.bfloat16, torch.float32
     src = "generative_detection_tpu_torch/csrc/"
     tpu = "generative_detection_tpu/ops/"
@@ -2898,6 +3106,9 @@ def kernels_line(cases: dict, det: dict, det_fused: dict, train: dict, train_fus
     for i, e in enumerate(entries):
         run, counter = par_rows.get(i, (None, None))
         e["parallel_launches"] = par[run].get(counter, 0) if run else 0
+        # the same rank's 3 FSDP steps and its one FSDP fused step
+        fsdp_run = {"bf16": "fsdp", "fused": "fsdp_fused"}.get(run)
+        e["fsdp_launches"] = par[fsdp_run].get(counter, 0) if fsdp_run else 0
     for e, r in zip(entries, (row[0] for row in rows)):
         if "kernel" in r:  # the attention, GroupNorm forward and conv kernels
             e["kernel"], e["bound_share"] = r["kernel"], r["bound_share"]

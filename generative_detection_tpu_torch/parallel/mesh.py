@@ -12,6 +12,8 @@ them:
   one collective (the logged metrics);
 - ``average_gradients``: parameter gradients averaged over the ranks in flat
   buckets, XLA's gradient psum;
+- ``all_gather_cat`` / ``reduce_scatter``: the ZeRO-1 and FSDP shards'
+  gathers and FSDP's gradient reduction (``fsdp.py``);
 - ``differentiable_all_reduce_sum``: a sum whose backward all-reduces the
   incoming gradients too (the discriminator's batch statistics);
 - ``draw``: a rank's slice of the random tensor one process would draw for
@@ -142,6 +144,27 @@ def all_gather_cat(x: torch.Tensor) -> torch.Tensor:
     dist.all_gather(parts, src)
     out = torch.cat(parts)
     return out.to(x.device) if staged else out
+
+
+def reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``x`` summed over the ranks: ``x`` (of W k
+    elements on every rank, W the world) in W parts of k, rank r keeping the
+    sum of every rank's part r. NCCL reduce-scatters a card's tensor; else
+    (gloo, which not every PyTorch release gives a reduce-scatter, or a host
+    tensor in a group of both backends) the ranks all-reduce on the host (a
+    card's tensor staged as ``all_gather_cat`` stages it) and each keeps its
+    part. Outside a group ``x`` itself."""
+    w = world()
+    if not w.active:
+        return x
+    k = x.numel() // w.size
+    if x.is_cuda and "nccl" in str(dist.get_backend()):
+        out = x.new_empty(k)
+        dist.reduce_scatter_tensor(out, x.contiguous())
+        return out
+    summed = x.cpu().contiguous() if x.is_cuda else x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(summed)
+    return summed[w.rank * k: (w.rank + 1) * k].to(x.device, copy=True)
 
 
 def average_gradients(tensors: Sequence[torch.Tensor], limit: int = BUCKET_ELEMENTS) -> None:

@@ -133,10 +133,11 @@ class ImageLogger(Callback):
         return step % self.batch_freq == 0 or step in self.log_steps
 
     def _log(self, trainer, batch, split: str) -> None:
-        if not _main(trainer):
+        if not _main(trainer) and not trainer.params_sharded():
             return  # rank 0 alone logs images (its forward is local: no collective)
         t0 = time.perf_counter()
         step = trainer.global_batch()
+        # under FSDP every rank gathers the weights, rank 0 alone gets images
         images = trainer.log_images(batch, max_images=self.max_images)
         for name, arr in images.items():
             grid = make_grid(_to_uint8(np.asarray(arr), self.clamp))

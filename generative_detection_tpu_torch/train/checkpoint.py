@@ -22,11 +22,13 @@ With ``async_checkpointing`` the files are written on a background thread;
 ``wait_until_finished`` drains it (and raises what a write raised).
 
 In a process group saves are collective: every rank calls them in the same
-order (the optimizers' ``state_dict`` consolidates ZeRO-1 moments and the
-open window's gradients over the ranks), rank 0 alone writes, then the ranks
-meet at a barrier (with ``async_checkpointing``, when the writes are
-drained). Every rank restores from the same files, each optimizer taking its
-partition, so a checkpoint restores at any world size.
+order (the optimizers' ``state_dict`` consolidates ZeRO-1 and FSDP moments
+and the open window's gradients over the ranks, an FSDP-sharded module's
+``state_dict`` its parameters), rank 0 alone writes, then the ranks meet at a
+barrier (with ``async_checkpointing``, when the writes are drained). Every
+rank restores from the same files, each optimizer and each FSDP unit taking
+its partition, so a checkpoint restores at any world size, with FSDP, ZeRO-1
+or neither.
 """
 
 from __future__ import annotations
@@ -62,15 +64,16 @@ def _host(obj):
 
 def host_copy(state) -> Optional[Dict[str, object]]:
     """The train state as host tensors, by file; in a process group (where
-    every rank must call it: the optimizers' state is gathered) on rank 0
-    only, None elsewhere."""
+    every rank must call it: the optimizers' state, and under FSDP the
+    parameters, are gathered) on rank 0 only, None elsewhere."""
     optim = {"opt_ae": state.opt_ae.state_dict(), "opt_disc": state.opt_disc.state_dict()}
+    net, loss = state.net.state_dict(), state.loss.state_dict()
     if world().rank != 0:
         return None
     return {
         "step": int(state.step),
-        "net.pt": _host(state.net.state_dict()),
-        "loss.pt": _host(state.loss.state_dict()),
+        "net.pt": _host(net),
+        "loss.pt": _host(loss),
         "optim.pt": {
             **_host(optim),
             "generator": None if state.generator is None else state.generator.get_state(),

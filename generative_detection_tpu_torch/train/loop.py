@@ -24,8 +24,13 @@ of the global batch: ``train/steps.py``), and takes the global means as its
 metrics; rank 0 alone logs, writes images and run files; checkpoints are
 saved and restored collectively (``train/checkpoint.py``), and a signal's
 save waits for the step's end on every rank. ``zero1_optimizer_sharding``
-shards the Adam moments over the ranks (``train/state.py``).
-``fsdp_parameter_sharding`` is not ported and raises.
+shards the Adam moments over the ranks (``train/state.py``);
+``fsdp_parameter_sharding`` (FSDP) shards the parameters of the net, LPIPS
+and the discriminator with their gradients and moments (``parallel/fsdp.py``):
+the steps and validation gather each unit at its forward, while image
+logging and ``predict`` gather the whole network first, on every rank (rank
+0 alone writes the images), as the JAX package's loop all-gathers its FSDP
+params for them. In one process neither shards anything.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import torch
 
 from ..ops.precision import compute_precision
+from ..parallel import fsdp
 from ..parallel.mesh import any_rank, world
 from .callbacks import Callback, CheckpointCallback
 from .checkpoint import CheckpointManager, restore_signals, save_on_signal
@@ -141,14 +147,11 @@ class Trainer:
         device="cuda",
         **_: Any,
     ):
-        if fsdp_parameter_sharding:
-            raise NotImplementedError(
-                "fsdp_parameter_sharding (FSDP) is not ported: it is queue item A9 of "
-                "ROADMAP.md; zero1_optimizer_sharding shards the optimizer's moments")
         self.world = world()
         _check_devices(devices, self.world)
         self.is_main_process = self.world.rank == 0
         self.zero1_optimizer_sharding = zero1_optimizer_sharding
+        self.fsdp_parameter_sharding = fsdp_parameter_sharding
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to train on the CPU")
@@ -328,15 +331,34 @@ class Trainer:
 
     # -- image logging ------------------------------------------------------------
 
+    def params_sharded(self) -> bool:
+        """True when the live state's parameters are FSDP shards: then a
+        whole network is a collective (``_full_net``)."""
+        return self.state is not None and fsdp.is_sharded(self.state.net)
+
+    def _full_net(self):
+        """The live network; FSDP's gathered into an unsharded copy (every
+        rank must call it)."""
+        net = self.state.net
+        if not fsdp.is_sharded(net):
+            return net
+        full = self.model.build_net()
+        full.load_state_dict(net.state_dict())
+        return full.to(self.device, memory_format=torch.channels_last)
+
     @torch.no_grad()
     def log_images(self, prepared_batch, max_images: int = 4) -> Dict[str, Any]:
         """Inputs, reconstructions, and (pose family) reconstructions decoded
         with the perturbed yaw (``perturbed_pose_forward``), through
         ``model.inference_net`` holding the live weights, as NHWC numpy
-        arrays."""
+        arrays. Under FSDP every rank calls it (the weights are gathered
+        first) and ranks other than 0 get nothing."""
         if self.state is None:
             return {}
-        inet = self.model.inference_net(self.state.net)
+        net = self._full_net()
+        if not self.is_main_process and self.params_sharded():
+            return {}
+        inet = self.model.inference_net(net)
         gen = self._generator(7)
         dtype = self.model.compute_dtype
         if self._plain():
@@ -367,7 +389,7 @@ class Trainer:
         self.state = create_train_state(
             m, m.learning_rate, grad_clip=self.gradient_clip_val, seed=self.seed,
             device=self.device, accumulate_grad_batches=self.accumulate_grad_batches,
-            zero1=self.zero1_optimizer_sharding,
+            zero1=self.zero1_optimizer_sharding, fsdp=self.fsdp_parameter_sharding,
         )
         if self.resume_from_checkpoint:
             self._checkpoint_manager(self._resume_dir()).restore(self.state)
@@ -492,12 +514,13 @@ class Trainer:
     # -- predict ------------------------------------------------------------------
 
     def _params_for_inference(self):
-        """(network, step) for forward-only loops: the live state's, else
-        the network of ``resume_from_checkpoint`` (read without the
-        optimizers' moments), else a fresh seeded one with ``ckpt_path``'s
-        weights over it when the model has one."""
+        """(network, step) for forward-only loops: the live state's (under
+        FSDP gathered whole, on every rank), else the network of
+        ``resume_from_checkpoint`` (read without the optimizers' moments),
+        else a fresh seeded one with ``ckpt_path``'s weights over it when the
+        model has one."""
         if self.state is not None:
-            return self.state.net, self.state.step
+            return self._full_net(), self.state.step
         m = self.model
         if self.resume_from_checkpoint:
             restored = self._checkpoint_manager(self._resume_dir()).restore_params()

@@ -28,7 +28,12 @@ the ranks' mean of it is the global loss (``losses/contperceptual.py``); the
 draws are the rank's slice of the global batch's (``parallel.mesh.draw``);
 the two ``conv_out`` weight gradients of d_weight are averaged over the
 ranks before their norms; the optimizers average the gradients before the
-clip (``train/state.py``); the metrics are the ranks' means.
+clip (``train/state.py``); the metrics are the ranks' means. Under FSDP
+(``parallel/fsdp.py``) the same step runs on sharded modules: each unit's
+forward gathers its weights, the backward gathers them again and
+reduce-scatters their gradients, and outside a forward a weight attribute is
+a meta tensor of the weight's shape, which is all d_weight takes of
+``conv_out.weight``.
 
 Mixed precision: the parameters stay float32 (the master weights, and Adam's
 state). With ``compute_dtype`` bfloat16 the step runs the net, LPIPS and the
@@ -71,13 +76,13 @@ def _global_steps(step: int, step_counting: str) -> Tuple[int, int]:
     return step, step
 
 
-def _conv_out_weight_grads(weight: torch.Tensor, pre_out: torch.Tensor, cotangents):
+def _conv_out_weight_grads(shape: torch.Size, pre_out: torch.Tensor, cotangents):
     """Pull reconstruction cotangents (NHWC) back through the decoder's final
-    3x3 conv to its weight only, in fp32."""
+    3x3 conv to its weight (of ``shape``) only, in fp32."""
     a = pre_out.float().permute(0, 3, 1, 2)
     with torch.autocast(a.device.type, enabled=False):
         return [
-            torch.nn.grad.conv2d_weight(a, weight.shape, c.float().permute(0, 3, 1, 2), padding=1)
+            torch.nn.grad.conv2d_weight(a, shape, c.float().permute(0, 3, 1, 2), padding=1)
             for c in cotangents
         ]
 
@@ -171,7 +176,7 @@ def make_train_step(
             (gy_g,) = torch.autograd.grad(g_loss, y_leaf)
             if loss.disc_factor > 0.0 and step_g > pretrain:
                 g_nll_w, g_g_w = _conv_out_weight_grads(
-                    net.decoder.conv_out.weight, outs["pre_out"], (gy_nll, gy_g)
+                    net.decoder.conv_out.weight.shape, outs["pre_out"], (gy_nll, gy_g)
                 )
                 d_weight = _adaptive_d_weight(g_nll_w, g_g_w, loss.disc_weight).detach()
             else:
@@ -311,7 +316,7 @@ def make_plain_train_step(
         (gy_g,) = torch.autograd.grad(g_loss, y_leaf)
         if loss.disc_factor > 0.0:
             g_nll_w, g_g_w = _conv_out_weight_grads(
-                net.decoder.conv_out.weight, outs["pre_out"], (gy_nll, gy_g)
+                net.decoder.conv_out.weight.shape, outs["pre_out"], (gy_nll, gy_g)
             )
             d_weight = _adaptive_d_weight(g_nll_w, g_g_w, loss.disc_weight).detach()
         else:

@@ -1186,3 +1186,63 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
     assert want["train/d_weight"] > 0
     for k in ("aeloss", "discloss", "train/d_weight", "train/rec_loss", "train/kl_loss_obj"):
         assert abs(got[k] - want[k]) <= 1e-3 * abs(want[k]) + 1e-6, (k, got[k], want[k])
+
+
+def test_world1_nccl_fsdp_steps_are_bit_equal_to_one_process(cuda, monkeypatch):
+    """``card_steps`` with FSDP inside a process group of one rank over NCCL
+    against the same steps outside any group, cuDNN deterministic: a world
+    of one shards nothing (the JAX package's mesh of one is replicated), so
+    the metrics and the weights are bit-equal."""
+    import torch.distributed as dist
+
+    from generative_detection_tpu_torch.parallel import multihost
+
+    worker = _parallel_worker()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    want = worker.card_steps()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(multihost.free_port())).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("GDT_DIST_BACKEND", raising=False)
+    w = multihost.maybe_initialize()
+    try:
+        assert w.active and w.size == 1 and "nccl" in str(dist.get_backend())
+        got = worker.card_steps(fsdp=True)
+    finally:
+        multihost.shutdown()
+    assert got == want
+
+
+def test_two_fsdp_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks on the one card over gloo (every gather and reduce-scatter
+    staged through the host), each at batch 4 of tiny_cpu.yaml at ch 128,
+    fp32, one step unsharded and one with FSDP from the same seed, batch and
+    draws: the FSDP metrics within 1e-6 relative of the unsharded ones, the
+    weights after the step within 2.05 lr (``tests/test_fsdp.py``'s bound),
+    each optimizer's gradient before the clip within 1e-5 of its largest and
+    its global norm within 1e-3 relative (``worker.step_grads``: from the
+    consolidated moments, the clip undone), the same kernel launches, both ranks alike, and each rank holding at most
+    its shard of parameters, gradients and moments at rest."""
+    import json
+
+    from generative_detection_tpu_torch.parallel import multihost
+
+    worker = _parallel_worker()
+    multihost.spawn_ranks([worker.__file__, "--card-fsdp", str(tmp_path)], 2, timeout=600,
+                          env=dict(os.environ, GDT_DIST_BACKEND="gloo"))
+    ranks = [json.loads((tmp_path / f"card_fsdp_rank{r}.json").read_text()) for r in range(2)]
+    r0 = ranks[0]
+    assert r0["fsdp"] == ranks[1]["fsdp"] and r0["jax_modules"] == []
+    assert r0["unsharded"]["train/d_weight"] > 0
+    for k, v in r0["unsharded"].items():
+        assert abs(r0["fsdp"][k] - v) <= 1e-6 * abs(v), (k, r0["fsdp"][k], v)
+    for r in ranks:
+        assert r["weights_max_abs_diff_over_lr"] <= 2.05
+        assert len(r["grads_rel_diff"]) == 6
+        for k, d in r["grads_rel_diff"].items():
+            assert d <= (1e-3 if k.endswith(".grad_norm") else 1e-5), (k, d)
+        assert r["launches"][0] == r["launches"][1] and min(r["launches"][0]) > 0
+        for name in ("net", "lpips", "disc"):
+            h = r["at_rest"][name]
+            assert h["params"] <= -(-h["n"] // 2) + h["units"] and not h["held"], (name, h)
+            assert h["grads"] == (0 if name == "lpips" else h["params"]), (name, h)

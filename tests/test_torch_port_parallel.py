@@ -1,8 +1,8 @@
 """Data parallelism of the port on the CPU: ``torch.distributed`` over gloo in
 two processes against the JAX package's global-batch step, against one
-process of the port at the global batch, ZeRO-1 against the unsharded
-optimizer, a 2-rank ``train_cli`` fit, checkpoints across world sizes, and
-``shard_detector``.
+process of the port at the global batch, ZeRO-1 and FSDP against the
+unsharded optimizer, 2-rank ``train_cli`` fits, checkpoints across world
+sizes and layouts, and ``shard_detector``.
 
 Processes. Two spawns of two ranks each, started together by the module's
 fixture: the ``train_cli`` fit at ``lightning.trainer.devices: 2`` (which
@@ -39,7 +39,18 @@ Tolerances:
   metrics), which keep the two within 2e-7;
 - ZeRO-1 against the unsharded optimizer after two steps: the weights bit
   for bit (Adam is elementwise), the consolidated moments' sums within
-  1e-12 relative.
+  1e-12 relative;
+- FSDP against the unsharded two-rank step (float32): the metrics within
+  1e-6 relative (the gathers are exact and a sum of two is order-free, so
+  they come out bit-equal), the weights after the step within 2.05 lr (the
+  bound of ``tests/test_fsdp.py``: Adam's first update is sign-like, and the
+  global norm sums in another order), each optimizer's gradient before the
+  clip within 1e-5 of its largest and its global norm within 1e-3, against
+  the JAX package as the unsharded step is; an accumulation window of two
+  in float64 (in float32 the window's sums cancel across the ranks and the
+  micro-batches, which lifts the order's rounding to 7e-5 of the largest
+  moment): the metrics within 1e-6, the moments within 1e-12 of each
+  optimizer's largest.
 """
 
 import contextlib
@@ -87,6 +98,13 @@ GLOBAL_BATCH = 4
 SPAWN_TIMEOUT = 240.0  # seconds for each 2-rank spawn (~20 s here)
 METRIC_RTOL, D_WEIGHT_RTOL, WEIGHT_REL = 1e-4, 1e-3, 1e-3
 WORLD_RTOL = 1e-6
+FSDP_LR_BOUND = 2.05  # weights after a step, in units of the learning rate
+# FSDP's first step against the unsharded one's: the gradient before the clip
+# (from the moments, of its largest; the two differ in the order of a sum of
+# the discriminator's, 1e-7 here), and each optimizer's global norm, relative
+# (float32 norms of long vectors sum in another order: 6e-5 here, each 1e-5
+# to 7e-5 from the float64 norm)
+FSDP_GRAD_REL, FSDP_NORM_REL = 1e-5, 1e-3
 
 
 def _host_batch() -> dict:
@@ -171,9 +189,10 @@ def world2(request, tmp_path_factory):
         restored = worker.state_from(pose["pm"], pose["init"], "pose")
         CheckpointManager(str(run / "checkpoints")).restore(restored)
         CheckpointManager(str(w1dir)).save_last(restored.step, restored)
-        (w1dir / "READY").touch()
         w1.update(run=run, step=restored.step, digest=worker.digest(restored.net.parameters()),
                   moments={n: getattr(restored, n).held_moments() for n in ("opt_ae", "opt_disc")})
+        # the ZeRO-1 fit's own checkpoint, for the ranks' FSDP fit
+        (w1dir / "READY").write_text(str(run / "checkpoints"))
 
     try:
         with pytest.MonkeyPatch.context() as mp:  # until the ranks are spawned
@@ -189,11 +208,13 @@ def world2(request, tmp_path_factory):
                 t.result()
         run = w1.pop("run")
         yield dict(
-            run=run, w1=w1,
+            root=root, run=run, w1=w1,
             cli_probes=[json.loads((root / "cli" / "probe" / f"probe_rank{r}.json").read_text())
                         for r in range(2)],
             res=[torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(2)],
-            probes=[json.loads((root / f"probe_rank{r}.json").read_text()) for r in range(2)])
+            probes=[json.loads((root / f"probe_rank{r}.json").read_text()) for r in range(2)],
+            fsdp_probes=[json.loads((root / f"fsdp_probe_rank{r}.json").read_text())
+                         for r in range(2)])
     finally:
         for t in threads:
             t.join()
@@ -290,16 +311,11 @@ def jax_steps(models):
     return out
 
 
-@pytest.mark.parametrize("family", ["pose", "plain"])
-def test_two_ranks_take_the_jax_global_batch_step(world2, jax_steps, family):
-    """Metrics (d_weight among them) and the weights after one step of the
-    port at world 2, per-rank batch 2, against the JAX package's step at the
-    global batch 4 on one device; both ranks bit-equal."""
-    res = world2["res"]
-    want_metrics, want_weights = jax_steps[family]
-    got = res[0][family]
-    assert got["metrics"] == res[1][family]["metrics"]
-    assert got["digest"] == res[1][family]["digest"]
+def _check_jax_step(res, key, want_metrics, want_weights, family):
+    """``res[r][key]``, the step of both ranks, against the JAX package's."""
+    got = res[0][key]
+    assert got["metrics"] == res[1][key]["metrics"]
+    assert got["digest"] == res[1][key]["digest"]
     assert got["metrics"]["train/d_weight"] > 0.0
     if family == "pose":
         # rank 1's masked means divide by rank 0's count
@@ -318,6 +334,23 @@ def test_two_ranks_take_the_jax_global_batch_step(world2, jax_steps, family):
         for k in names:
             np.testing.assert_allclose(weights[k].numpy(), want_weights[k].numpy(), rtol=0,
                                        atol=WEIGHT_REL * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("family", ["pose", "plain"])
+def test_two_ranks_take_the_jax_global_batch_step(world2, jax_steps, family):
+    """Metrics (d_weight among them) and the weights after one step of the
+    port at world 2, per-rank batch 2, against the JAX package's step at the
+    global batch 4 on one device; both ranks bit-equal."""
+    _check_jax_step(world2["res"], family, *jax_steps[family], family)
+
+
+@pytest.mark.parametrize("family", ["pose", "plain"])
+def test_fsdp_two_ranks_take_the_jax_global_batch_step(world2, jax_steps, family):
+    """The same step with FSDP (the parameters of the net, LPIPS and the
+    discriminator sharded over the two ranks) against the JAX package's
+    global-batch step, which ``tests/test_fsdp.py`` pins FSDP to, at the
+    tolerances of the unsharded case; both ranks bit-equal."""
+    _check_jax_step(world2["res"], family + "_fsdp", *jax_steps[family], family)
 
 
 @pytest.mark.parametrize("family", ["pose", "plain"])
@@ -389,6 +422,157 @@ def test_zero1_equals_the_unsharded_optimizer(world2):
         held = [r["zero1"][True]["held"][name] for r in res]
         assert sum(held) == on["total"][name]
         assert all(abs(h - on["total"][name] / 2) <= 0.1 * on["total"][name] for h in held), held
+
+
+@pytest.mark.parametrize("family", ["pose", "plain"])
+def test_fsdp_equals_the_unsharded_two_rank_step(world2, family):
+    """FSDP's first step against the unsharded one of the same ranks, the
+    same weights, draws and batch: the metrics within 1e-6 relative (bit
+    for bit here), the weights within 2.05 lr, each optimizer's gradient
+    before the clip (``worker.step_grads``) within 1e-5 of its largest and
+    its global norm within 1e-3 relative; both ranks alike. (Later
+    FSDP steps, finite: ``test_fsdp_trainer_fit``'s step 5 from a trained
+    state, and the plain CLI fit's step 2.)"""
+    res = world2["res"]
+    base, got = res[0][family], res[0][family + "_fsdp"]
+    assert set(got["metrics"]) == set(base["metrics"])
+    for k, v in base["metrics"].items():
+        assert abs(got["metrics"][k] - v) <= WORLD_RTOL * abs(v), (k, got["metrics"][k], v)
+    assert set(got["weights"]) == set(base["weights"])
+    for k, v in base["weights"].items():
+        err = float((got["weights"][k] - v).abs().max())
+        assert err <= FSDP_LR_BOUND * worker.LR, (k, err)
+    assert set(got["grads"]) == set(base["grads"])
+    for k, v in base["grads"].items():
+        if k.endswith(".grad_norm"):
+            assert abs(got["grads"][k] - v) <= FSDP_NORM_REL * v, (k, got["grads"][k], v)
+        else:
+            assert got["grads"][k].shape == v.shape, k
+            err = float((got["grads"][k] - v).abs().max() / v.abs().max())
+            assert err <= FSDP_GRAD_REL, (k, err)
+    assert got["metrics"] == res[1][family + "_fsdp"]["metrics"]
+    assert got["digest"] == res[1][family + "_fsdp"]["digest"]
+
+
+def _check_at_rest(held: dict) -> None:
+    """Each rank's shard, of the parameters, gradients and Adam moments of
+    the net, LPIPS and the discriminator, holds at most ceil(n / 2)
+    elements of each plus a unit's padding (one element a unit at most); no
+    unit holds its full parameters, and no placeholder of a backward is
+    alive. ``logvar``, a scalar, stays whole."""
+    for name in ("net", "lpips", "disc"):
+        h = held[name]
+        bound = -(-h["n"] // 2) + h["units"]
+        assert h["units"] > 0 and h["n"] / 2 <= h["params"] <= bound, (name, h)
+        trained = name != "lpips"
+        assert h["grads"] == (h["params"] if trained else 0), (name, h)
+        assert h["moments"] == (2 * h["params"] if trained else 0), (name, h)
+        assert not h["held"] and h["pending"] == 0 and h["real"] == [], (name, h)
+    assert held["whole"] == ["logvar"]
+
+
+@pytest.mark.parametrize("family", ["pose", "plain"])
+def test_fsdp_ranks_hold_a_shard_at_rest(world2, family):
+    """After an FSDP step, and (pose) after an FSDP Trainer fit, on both
+    ranks: ``_check_at_rest``; each module's units split over the ranks."""
+    res = world2["res"]
+    rows = [r[family + "_fsdp"]["at_rest"] for r in res]
+    if family == "pose":
+        rows += [r["resumed"]["at_rest"] for r in res]
+    for held in rows:
+        _check_at_rest(held)
+    for name in ("net", "lpips", "disc"):
+        assert rows[0][name]["params"] + rows[1][name]["params"] <= (
+            rows[0][name]["n"] + rows[0][name]["units"])
+
+
+def test_fsdp_accumulation_window_equals_the_unsharded_window(world2):
+    """``accumulate_grad_batches=2``, float64, the pose step: both
+    micro-batches' metrics within 1e-6 relative, each optimizer's
+    consolidated moments after the window within 1e-12 of its largest, the
+    weights within 2.05 lr."""
+    win = world2["res"][0]["pose_fsdp"]["window"]
+    off, on = win[False], win[True]
+    for a, b in zip(off["metrics"], on["metrics"]):
+        for k, v in a.items():
+            assert abs(b[k] - v) <= WORLD_RTOL * abs(v), (k, b[k], v)
+    for name in ("opt_ae", "opt_disc"):
+        want, got = off["moments"][name], on["moments"][name]
+        assert set(want) == set(got)
+        for key in ("exp_avg", "exp_avg_sq"):
+            scale = max(float(want[i][key].abs().max()) for i in want)
+            err = max(float((got[i][key] - want[i][key]).abs().max()) for i in want)
+            assert scale > 0 and err <= 1e-12 * scale, (name, key, err, scale)
+    for k, v in off["weights"].items():
+        assert float((on["weights"][k] - v).abs().max()) <= FSDP_LR_BOUND * worker.LR, k
+
+
+def test_fsdp_trainer_fit(world2):
+    """A 2-rank ``Trainer`` fit with FSDP, ``ImageLogger`` at every step and
+    validation: it resumes the ZeRO-1 fit's checkpoint at step 4 with its
+    weights bit for bit and, shard by shard, its moments; its step 5 takes
+    the ZeRO-1 resume's loss within 1e-6; both ranks agree; rank 0 alone
+    wrote the images, from the gathered weights, at step 5 and for the
+    validation batch."""
+    w1, probes = world2["w1"], world2["fsdp_probes"]
+    zero1_step5 = dict(world2["probes"][0]["aeloss"])[5]
+    for p in probes:
+        assert p["start_step"] == 4 and p["start_digest"] == w1["digest"]
+        assert [s for s, _ in p["aeloss"]] == [5] and p["step"] == 5
+        assert abs(dict(p["aeloss"])[5] - zero1_step5) <= WORLD_RTOL * abs(zero1_step5)
+        assert p["jax_modules"] == []
+    assert probes[0]["aeloss"] == probes[1]["aeloss"] and probes[0]["digest"] == probes[1]["digest"]
+    for name in ("opt_ae", "opt_disc"):
+        # FSDP's padded shards, end to end on both ranks: every moment once
+        sums = [sum(p["start_owned"][name][k] for p in probes) for k in (1, 2)]
+        want = [float(m.double().sum()) for m in w1["moments"][name]]
+        np.testing.assert_allclose(sums, want, rtol=1e-12, atol=0, err_msg=name)
+    images = world2["root"] / "fsdp_fit" / "images"
+    train = sorted(p.name for p in (images / "train").iterdir())
+    assert len(train) == 3 and {n.split("_gs-")[1][:6] for n in train} == {"000005"}
+    assert len(list((images / "val").iterdir())) == 3
+    assert os.listdir(world2["root"] / "fsdp_fit" / "checkpoints" / "last") == ["5"]
+
+
+def test_fsdp_checkpoints_move_between_layouts(world2, models):
+    """The FSDP fit's checkpoint restores into one process, unsharded, and
+    into two ZeRO-1 ranks, with the FSDP ranks' weights bit for bit and
+    their consolidated moments within 1e-12; ``predict`` and the serving
+    net of the FSDP state take those weights (``predict`` bit-equal to the
+    ZeRO-1 state's on each rank's shard)."""
+    fsdp_probe = world2["fsdp_probes"][0]
+    m = models["pose"]
+    one = worker.state_from(m["pm"], m["init"], "pose")
+    CheckpointManager(str(world2["root"] / "fsdp_fit" / "checkpoints")).restore(one)
+    want = world2["res"][0]["resumed"]["fsdp_moments"]
+    got = {n: worker.moment_sums(getattr(one, n).state_dict()) for n in ("opt_ae", "opt_disc")}
+    zero1 = [r["resumed"]["zero1_restored"] for r in world2["res"]]
+    assert one.step == 5 and worker.digest(one.net.parameters()) == fsdp_probe["digest"]
+    for z in zero1:
+        assert z["step"] == 5 and z["digest"] == worker.digest(worker.weights(one).values())
+    assert worker.digest(worker._params(one.net).values()) == fsdp_probe["digest"]
+    for r in world2["res"]:
+        assert r["resumed"]["served_digest"] == fsdp_probe["digest"]
+        assert r["resumed"]["predict_bit_equal"] == [True]
+        assert r["resumed"]["predict_shapes"] == [[4, 32, 32, 3], [4, 19]]
+    for name in ("opt_ae", "opt_disc"):
+        for moments in [got[name]] + [z["moments"][name] for z in zero1]:
+            np.testing.assert_allclose(moments, want[name], rtol=1e-12, atol=0, err_msg=name)
+
+
+def test_cli_fits_the_plain_family_under_fsdp(world2):
+    """``train_cli -b plain_kl_tiny.yaml -t`` with
+    ``lightning.trainer.fsdp_parameter_sharding=true`` in the worker's two
+    ranks: a finite loss a step in rank 0's ``metrics.jsonl`` (step 2 is the
+    plain family's later FSDP step), validation, images and the last
+    checkpoint."""
+    (run,) = list((world2["root"] / "plain_cli").iterdir())
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [(r["step"], r["aeloss"]) for r in rows if "aeloss" in r]
+    assert [s for s, _ in losses] == [1, 2] and all(np.isfinite(v) for _, v in losses)
+    assert any("val/rec_loss" in r for r in rows)
+    assert len(list((run / "images" / "train").iterdir())) > 0
+    assert os.listdir(run / "checkpoints" / "last") == ["2"]
 
 
 def test_cli_fits_on_two_ranks(world2):
@@ -495,7 +679,8 @@ def test_should_initialize_behavior_matrix(monkeypatch):
 def test_a_world_that_cannot_be_joined_raises(monkeypatch, models):
     """A world asked for and not named raises (no silent single process), and
     so does a Trainer asked for two cards outside a process group;
-    ``fsdp_parameter_sharding`` is not ported and says where it is queued."""
+    ``fsdp_parameter_sharding`` in one process shards nothing, as the JAX
+    package's mesh of one, and runs."""
     for var in ("RANK", "SLURM_PROCID", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("GDT_MULTIHOST", "1")
@@ -506,8 +691,8 @@ def test_a_world_that_cannot_be_joined_raises(monkeypatch, models):
     pm = models["pose"]["pm"]
     with pytest.raises(RuntimeError, match="no process group"):
         Trainer(pm, device="cpu", devices=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(pm, device="cpu", fsdp_parameter_sharding=True)
+    trainer = Trainer(pm, device="cpu", fsdp_parameter_sharding=True)
+    assert trainer.world.size == 1 and not trainer.params_sharded()
 
 
 def test_batch_shards_and_their_inverse():

@@ -72,7 +72,8 @@ from generative_detection_tpu_torch.train.callbacks import (
 )
 from generative_detection_tpu_torch.train.checkpoint import restore_signals, save_on_signal
 from generative_detection_tpu_torch.train.metrics import MetricsLogger, WandbLogger, make_logger
-from generative_detection_tpu_torch.train.state import flax_like_net
+from generative_detection_tpu_torch.parallel import fsdp
+from generative_detection_tpu_torch.train.state import create_train_state, flax_like_net
 from generative_detection_tpu_torch.utils.jax_compat import state_dict_from_jax
 from tests._torch_cpu import (  # noqa: F401 (fixtures)
     deleted_after,
@@ -547,11 +548,26 @@ def test_trainer_refuses_what_it_does_not_run(models, monkeypatch):
     for limit in ("limit_val_batches", "limit_test_batches"):
         with pytest.raises(ValueError, match="fractional"):
             Trainer(pm, device="cpu", **{limit: 0.5})
-    # two cards need a process group of two ranks; FSDP is not ported
+    # two cards need a process group of two ranks
     with pytest.raises(RuntimeError, match="no process group"):
         Trainer(pm, device="cpu", devices=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(pm, device="cpu", fsdp_parameter_sharding=True)
+    # FSDP in one process shards nothing (the JAX package's mesh of one is
+    # replicated), and its state steps bit for bit as the unsharded one
+    assert Trainer(pm, device="cpu", fsdp_parameter_sharding=True).world.size == 1
+    host = {k: v[:2] for k, v in _host_batches(5, 1)[0].items()}
+    batch = pm.prepare_batch(host, device="cpu")
+    step = make_train_step(pm, phase="full")
+    done = []
+    # _port_state holds the weights create_train_state(seed=SEED) draws
+    for state in (_port_state(models), create_train_state(pm, LR, seed=SEED, device="cpu",
+                                                          fsdp=True)):
+        assert not fsdp.is_sharded(state.net)
+        state.step = 4  # past the curriculum: every loss term live
+        state, metrics = step(state, batch, draws=_torch_draws(_draws(bs=2)))
+        done.append((metrics, [p.detach().clone() for p in state.net.parameters()]))
+    (m0, w0), (m1, w1) = done
+    assert all(torch.equal(m0[k], m1[k]) for k in m0) and m0.keys() == m1.keys()
+    assert all(torch.equal(a, b) for a, b in zip(w0, w1)) and len(w0) == len(w1)
     # ZeRO-1 in one process shards nothing, and runs
     assert Trainer(pm, device="cpu", devices=1, zero1_optimizer_sharding=True).world.size == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
